@@ -1,0 +1,60 @@
+"""kdtree_tpu_torch — the PyTorch/CUDA port of ``kdtree_tpu``.
+
+The exact k-NN main path over a Morton bucket tree: seeded generation,
+the one-sort bucket-tree build, the Hilbert-tiled query engine with its
+hand-written CUDA scan kernel, and the serving engine facade. The JAX
+package ``kdtree_tpu`` stays beside this one as the reference it is held
+against; this package imports neither jax nor ``kdtree_tpu``.
+
+Entry points run on the CUDA device unless the caller asks for the CPU
+(``device="cpu"``): :func:`resolve_device` refuses to fall back silently.
+The public surface below loads lazily, so ``import kdtree_tpu_torch``
+costs only torch.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+import torch
+
+__version__ = "0.1.0"
+
+_LAZY = {
+    "MortonTree": "kdtree_tpu_torch.ops.morton",
+    "build_morton": "kdtree_tpu_torch.ops.morton",
+    "morton_knn_tiled": "kdtree_tpu_torch.ops.tile_query",
+    "generate_problem": "kdtree_tpu_torch.ops.generate",
+    "generate_queries": "kdtree_tpu_torch.ops.generate",
+    "generate_points_rowwise": "kdtree_tpu_torch.ops.generate",
+    "generate_points_shard": "kdtree_tpu_torch.ops.generate",
+    "ServeEngine": "kdtree_tpu_torch.serve.engine",
+    "tree_from_arrays": "kdtree_tpu_torch.interop",
+    "tree_to_arrays": "kdtree_tpu_torch.interop",
+    "bruteforce": None,
+}
+
+__all__ = ["resolve_device", *_LAZY]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``None`` means CUDA.
+
+    Raises ``RuntimeError`` when CUDA is asked for (explicitly or by
+    default) and no CUDA device exists — a caller that wants the CPU says
+    so with ``device="cpu"``; nothing here falls back quietly."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "kdtree_tpu_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+def __getattr__(name: str):
+    if name not in _LAZY:
+        raise AttributeError(f"module 'kdtree_tpu_torch' has no attribute {name!r}")
+    if _LAZY[name] is None:
+        return importlib.import_module(f"kdtree_tpu_torch.ops.{name}")
+    return getattr(importlib.import_module(_LAZY[name]), name)

@@ -1,0 +1,55 @@
+"""The one distance accumulation every engine of the port shares.
+
+The JAX package's squared distances and box lower bounds are sums of
+squares taken axis by axis, ``acc = acc + x * x`` for d = 0..D-1, and
+XLA:CPU contracts each step into one fused multiply-add (a single
+rounding of ``acc + x*x``). The CUDA scan kernel does the same with
+``__fmaf_rn``. Torch exposes no fused multiply-add whose rounding it
+promises, so :func:`sq_add` computes the correctly rounded result itself,
+in float64: the square of a float32 is exact there, TwoSum gives the sum's
+exact error, and rounding the float64 sum to odd before the one cast to
+float32 makes that cast round exactly once (53 >= 2 * 24 + 2 bits). The
+result is bit for bit the fused form on any device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def sq_add(acc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """float32 ``fma(x, x, acc)`` for ``acc >= 0`` (or +inf), exactly."""
+    a = acc.double()
+    p = x.double() * x.double()  # exact: 24-bit mantissa squared
+    s = a + p
+    bp = s - a
+    err = (a - (s - bp)) + (p - bp)  # TwoSum: s + err == a + p exactly
+    bits = s.view(torch.int64)
+    nudge = (err != 0) & ((bits & 1) == 0) & torch.isfinite(s)
+    bits = bits + nudge.to(torch.int64) * torch.where(err > 0, 1, -1)
+    return bits.view(torch.float64).float()
+
+
+def sq_sum_unrolled(xs: list[torch.Tensor]) -> torch.Tensor:
+    """The same sum written out as ``acc = 0; acc = acc + x_d * x_d`` in
+    straight-line code, as XLA:CPU compiles it: the simplifier drops the
+    zero, leaving ``x0*x0 + x1*x1``, whose first product is fused with the
+    rounded second; later axes fuse onto the running sum. This is the
+    arithmetic of the JAX frontier's box lower bounds."""
+    if len(xs) == 1:
+        return xs[0] * xs[0]
+    acc = sq_add(xs[1] * xs[1], xs[0])
+    for x in xs[2:]:
+        acc = sq_add(acc, x)
+    return acc
+
+
+def sq_dist(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Squared distances over the last axis of broadcastable ``q`` and
+    ``p``, accumulated d = 0..D-1 with :func:`sq_add`."""
+    D = q.shape[-1]
+    acc = None
+    for d in range(D):
+        diff = q[..., d] - p[..., d]
+        acc = sq_add(torch.zeros_like(diff) if acc is None else acc, diff)
+    return acc
