@@ -7,17 +7,28 @@ Phases, one line each (any failure raises and exits non-zero):
 
 1. device  — the card's name, and its name and power limit from nvidia-smi;
 2. build   — nvcc builds every kernel source of the port, in parallel;
-3. kernel  — the CUDA scan kernel against its plain PyTorch version on the
-             card, bit for bit (d2 and ids), over D, k, k > n, ragged tiles,
-             -1 candidate padding and a clustered cloud; then both timed at
-             the main path's collect-pass shape;
+3. kernel  — the CUDA scan kernel, and the merge kernel that joins a tile's
+             walk when it is split over several blocks, against their plain
+             PyTorch versions on the card, bit for bit (d2 and ids): D, k,
+             k > n_real, ragged tiles, -1 candidate padding, a clustered
+             cloud, a tie-heavy lattice, two row chunks per bucket, 4-byte
+             copies (B % 4 != 0), k > 32 and D > 8, each at 1 block per tile,
+             the planned count, and forced to 2 and 7;
 4. main    — 2^24 x 3-D points (seed 42) -> Morton build (B=256) ->
              ServeEngine(k=16) with its warmup ladder 8..1024 -> served
              requests of 1, 7, 64, 1000 and 1024 rows and one brute-force
              fallback batch, each checked against the brute-force oracle ->
              one morton_knn_tiled run of 2^20 queries, checked on a sample.
-             The kernel's launch count is zeroed just before this phase and
-             must be > 0 after it.
+             Both kernels' launch counts are zeroed just before this phase
+             and must be > 0 after it. Then the served 7-, 64- and 1000-row
+             requests once more under torch.profiler: device time by kernel;
+5. shapes  — on the 2^24 tree, the kernels against the plain version and
+             timed (CUDA events) at the tiled run's collect shape and at the
+             final collect dispatch of the 8-, 64- and 1024-row serve
+             batches, each beside the bound its inputs define (per
+             query, and the coarser tile-level count); at the serve
+             shapes also swept over blocks per tile, each count checked
+             bit for bit.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -45,6 +56,8 @@ TILED_QUERIES = 1 << 20
 SAMPLE = 2048
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 FP32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
+SPLITS = (1, None, 2, 7)  # blocks per tile in phase 3: one, the planned count, forced
+MERGE_ERR = [0.0]  # the merge kernel's largest difference from the plain merge
 
 
 def say(phase: str, msg: str) -> None:
@@ -93,118 +106,356 @@ def check_answer(points, queries, d2, ids, k, what):
     return int(tied.sum())
 
 
-def kernel_case(tree, queries, tile, k, cmax, holes=False):
-    """Frontier inputs for one batch of Hilbert-sorted tiles, then the
-    kernel and the plain version on them. Returns the inputs, both
-    results, and the kernel's per-tile visited counts."""
+def kernel_run(tree, tq, cand, lb, k, splits, visited=None):
+    """The main path's kernels on one batch: the scan kernel, then (when the
+    walk was split) the merge kernel, which is also held against the plain
+    merge on the same partial buffers. Returns (d2, ids, blocks per tile)."""
     import torch
 
-    from kdtree_tpu_torch.kernels.scan_knn import scan_tiles
+    from kdtree_tpu_torch.kernels.scan_knn import merge_partials, scan_partials
+    from kdtree_tpu_torch.ops import tile_query as tqm
+
+    pd, pi = scan_partials(tree, tq, cand, lb, k, visited=visited, splits=splits)
+    T, S, TQ, _ = pd.shape
+    if S == 1:
+        return pd.view(T, TQ, k), pi.view(T, TQ, k), 1
+    kd, ki = merge_partials(pd, pi)
+    md, mi = tqm.merge_partials(pd, pi)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, md) and torch.equal(ki, mi), "merge kernel != plain merge"
+    fin = torch.isfinite(md)
+    if fin.any():
+        MERGE_ERR[0] = max(MERGE_ERR[0], float((kd[fin] - md[fin]).abs().max()))
+    return kd, ki, S
+
+
+def collect_inputs(tree, tq, kk, seeds, cap, grow=False):
+    """The collect pass's inputs for tiles tq, bounded by a plain seed pass.
+    ``grow`` doubles the cap until the frontier holds every candidate, as
+    ``drive_batches`` does for a served batch."""
+    import torch
+
+    from kdtree_tpu_torch.ops import tile_query as tqm
+
+    T = tq.shape[0]
+    blo, bhi = tq.amin(1), tq.amax(1)
+    inf = torch.full((T,), float("inf"), device=tq.device)
+    c0, l0, _ = tqm._frontier(tree, blo, bhi, inf, seeds)
+    sd, _ = tqm._scan_tiles(tree, tq, c0, l0, kk, 1, T)
+    bound = sd[..., -1].amax(1)
+    while True:
+        cand, lb, over = tqm._frontier(tree, blo, bhi, bound, cap)
+        if not grow or cap >= tree.num_buckets or not bool(over.any()):
+            return cand, lb
+        cap = min(cap * 2, tree.num_buckets)
+
+
+def sorted_tiles(queries, tile):
     from kdtree_tpu_torch.ops import tile_query as tqm
 
     T = queries.shape[0] // tile
     sq, _ = tqm._sort_queries(queries[: T * tile], tqm.default_bits(queries.shape[1]), 0)
-    tq = sq.reshape(T, tile, -1).contiguous()
-    blo, bhi = tq.amin(1), tq.amax(1)
-    inf = torch.full((T,), float("inf"), device=tq.device)
-    kk = min(k, tree.n_real)
-    c0, l0, _ = tqm._frontier(tree, blo, bhi, inf, tqm.DEFAULT_SEEDS)
-    sd, _ = tqm._scan_tiles(tree, tq, c0, l0, kk, 1, T)
-    cand, lb, _ = tqm._frontier(tree, blo, bhi, sd[..., -1].amax(1), cmax)
-    if holes:
-        cand = cand.clone()
-        cand[:, 1::3] = -1  # -1 padding inside the list; its lb stays finite
-    visited = torch.empty(T, dtype=torch.int32, device=tq.device)
-    kd, ki = scan_tiles(tree, tq, cand, lb, k, visited=visited)
-    pd, pi = tqm._scan_tiles(tree, tq, cand, lb, kk, 1, T)
-    torch.cuda.synchronize()
-    return (tq, cand, lb, kk), (kd, ki), (pd, pi), visited
+    return sq.reshape(T, tile, -1).contiguous()
 
 
 def phase_kernel(dev):
     import torch
 
+    from kdtree_tpu_torch.ops import tile_query as tqm
     from kdtree_tpu_torch.ops.generate import generate_points_rowwise, generate_queries
     from kdtree_tpu_torch.ops.morton import build_morton
 
     rng = np.random.default_rng(SEED)
-    cases = []
+    cases = []  # name, points, queries, tile, k, cmax, holes, bucket, splits
     for d in (2, 3, 8):
         for k in (1, 5, 16):
             cases.append((f"uniform D={d} k={k}", generate_points_rowwise(d, d, 20000, device=dev),
-                          generate_queries(d + 10, d, 8 * 64, device=dev), 64, k, 64, False))
+                          generate_queries(d + 10, d, 8 * 64, device=dev), 64, k, 64, False, 64,
+                          SPLITS))
     cases.append(("k>n_real", generate_points_rowwise(5, 3, 50, device=dev),
-                  generate_queries(6, 3, 40, device=dev), 20, 64, 128, False))
+                  generate_queries(6, 3, 40, device=dev), 20, 64, 128, False, 64, SPLITS))
     cases.append(("TQ=37", generate_points_rowwise(7, 3, 20000, device=dev),
-                  generate_queries(8, 3, 6 * 37, device=dev), 37, 5, 64, False))
+                  generate_queries(8, 3, 6 * 37, device=dev), 37, 5, 64, False, 64, SPLITS))
     cases.append(("-1 padding", generate_points_rowwise(9, 3, 20000, device=dev),
-                  generate_queries(10, 3, 8 * 32, device=dev), 32, 7, 128, True))
+                  generate_queries(10, 3, 8 * 32, device=dev), 32, 7, 128, True, 64, SPLITS))
     centers = rng.uniform(-80, 80, (6, 3))
     cl = centers[rng.integers(0, 6, 50000)] + rng.normal(0, 0.5, (50000, 3))
     clq = centers[rng.integers(0, 6, 512)] + rng.normal(0, 0.5, (512, 3))
     cases.append(("clustered", torch.tensor(cl, dtype=torch.float32, device=dev),
-                  torch.tensor(clq, dtype=torch.float32, device=dev), 32, 8, 1024, False))
+                  torch.tensor(clq, dtype=torch.float32, device=dev), 32, 8, 1024, False, 64,
+                  SPLITS))
+    # tie-heavy: ~160 copies of each of 125 lattice sites, queries on sites;
+    # chunks split the copies of one site, so a later chunk can hold k
+    # entries at a distance an earlier chunk also reaches
+    lat = rng.integers(-2, 3, (20000, 3)).astype(np.float32)
+    latq = rng.integers(-2, 3, (256, 3)).astype(np.float32)
+    cases.append(("lattice ties", torch.tensor(lat, device=dev), torch.tensor(latq, device=dev),
+                  8, 16, 1024, False, 16, SPLITS + (64,)))
+    cases.append(("two row chunks per bucket (D=8, B=256)",
+                  generate_points_rowwise(11, 8, 20000, device=dev),
+                  generate_queries(12, 8, 4 * 64, device=dev), 64, 5, 64, False, 256, SPLITS))
+    cases.append(("4-byte copies (B=50)", generate_points_rowwise(13, 3, 20000, device=dev),
+                  generate_queries(14, 3, 4 * 32, device=dev), 32, 5, 128, True, 50, SPLITS))
+    cases.append(("k=40, buffer in device memory", generate_points_rowwise(15, 3, 20000, device=dev),
+                  generate_queries(16, 3, 4 * 32, device=dev), 32, 40, 128, False, 64, SPLITS))
+    cases.append(("D=13, query in device memory", generate_points_rowwise(17, 13, 5000, device=dev),
+                  generate_queries(18, 13, 4 * 32, device=dev), 32, 5, 128, False, 64, SPLITS))
     max_err = 0.0
-    for name, pts, qs, tile, k, cmax, holes in cases:
-        tree = build_morton(pts, bucket_cap=64)
-        (_, cand, _, kk), (kd, ki), (pd, pi), visited = kernel_case(
-            tree, qs, tile, k, cmax, holes)
-        assert torch.equal(kd, pd) and torch.equal(ki, pi), f"kernel != plain: {name}"
-        fin = torch.isfinite(pd)
-        max_err = max(max_err, float((kd[fin] - pd[fin]).abs().max()) if fin.any() else 0.0)
+    for name, pts, qs, tile, k, cmax, holes, bucket, splits in cases:
+        tree = build_morton(pts, bucket_cap=bucket)
+        tq = sorted_tiles(qs, tile)
+        kk = min(k, tree.n_real)
+        cand, lb = collect_inputs(tree, tq, kk, tqm.DEFAULT_SEEDS, cmax)
+        if holes:
+            cand = cand.clone()
+            cand[:, 1::3] = -1  # -1 padding inside the list; its lb stays finite
+        T = tq.shape[0]
+        pd, pi = tqm._scan_tiles(tree, tq, cand, lb, kk, 1, T)
         ncand = (cand >= 0).sum(1)
-        exits = int((visited < ncand).sum())
-        say("kernel", f"{name}: bit-equal (k={kk}, tiles={cand.shape[0]}, "
-                      f"early exits in {exits} tiles)")
-        if name == "clustered":
-            assert exits > 0, "the clustered case never took the early exit"
+        for sp in splits:
+            visited = torch.empty(T, dtype=torch.int32, device=dev)
+            kd, ki, S = kernel_run(tree, tq, cand, lb, kk, sp, visited)
+            torch.cuda.synchronize()
+            assert torch.equal(kd, pd) and torch.equal(ki, pi), f"kernel != plain: {name}, splits {sp}"
+            fin = torch.isfinite(pd)
+            max_err = max(max_err, float((kd[fin] - pd[fin]).abs().max()) if fin.any() else 0.0)
+            exits = int((visited < ncand).sum())
+            say("kernel", f"{name}, {S} block(s)/tile: bit-equal (k={kk}, tiles={T}, "
+                          f"B={tree.bucket_size}, early exits in {exits} tiles)")
+            if name == "clustered" and S == 1:
+                assert exits > 0, "the clustered case never took the early exit"
     return max_err
 
 
-def time_main_shape(tree, queries, plan, k):
-    """Kernel and plain version on one collect-pass batch of the 2^20 run,
-    and the batch's stages (CUDA-event times) for the breakdown."""
+def _roofline(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", t_bytes, t_ops
+
+
+def input_bound(tree, tq, cand, lb, pd, kk):
+    """The least time the card needs for this scan, counted from its inputs
+    query by query: each query must meet every real candidate bucket whose
+    leaf box lies strictly closer than its own final k-th distance (the
+    plain version's output; ``sq_dist_to_box`` is the skip's arithmetic),
+    doing 3 D flops (a subtract and an FMA per axis) per point of it; each
+    bucket that at least one query of its tile needs is read once, B x
+    (D + 1) words and its cand/lb entry. Bytes also count the queries and
+    the outputs. The ``tile_`` keys keep the coarser tile-level count: every
+    query of a tile against each real candidate whose lb is below the
+    tile's final worst k-th."""
+    from kdtree_tpu_torch.ops._arith import sq_dist_to_box
+
+    T, TQ, D = tq.shape
+    C, B = cand.shape[1], tree.bucket_size
+    qk = pd[..., kk - 1]
+    first_leaf = tree.num_buckets - 1
+    pairs = buckets = 0
+    step = max(1, (1 << 22) // (TQ * max(C, 1)))  # tiles per slice: ~4M (query, bucket) pairs
+    for t0 in range(0, T, step):
+        c = cand[t0:t0 + step]
+        leaf = c.clamp(min=0).long() + first_leaf
+        bd = sq_dist_to_box(tq[t0:t0 + step, :, None, :], tree.node_lo[leaf][:, None],
+                            tree.node_hi[leaf][:, None])
+        need = (bd < qk[t0:t0 + step, :, None]) & (c >= 0)[:, None, :]
+        pairs += int(need.sum())
+        buckets += int(need.any(1).sum())
+    bound_ms, bound_by, t_bytes, t_ops = _roofline(
+        buckets * (B * (D + 1) * 4 + 8) + T * TQ * D * 4 + T * TQ * kk * 8,
+        pairs * B * 3 * D)
+
+    below = lb < qk.amax(1)[:, None]
+    tile_need = int(((cand >= 0) & below).sum())
+    tile_ms, tile_by, _, _ = _roofline(
+        tile_need * B * (D + 1) * 4 + (int(below.sum()) + T) * 8 + T * TQ * D * 4
+        + T * TQ * kk * 8, tile_need * B * TQ * 3 * D)
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "bytes_ms": t_bytes, "ops_ms": t_ops,
+            "pairs": pairs, "need": buckets, "tile_bound_ms": tile_ms,
+            "tile_bound_by": tile_by, "tile_need": tile_need}
+
+
+def sweep_splits(tree, tq, cand, lb, kk, planned, want, reps):
+    """The scan and merge at blocks-per-tile counts around the planned one,
+    each checked bit for bit against ``want`` and timed. Returns
+    {blocks per tile: ms}."""
+    import torch
+
+    from kdtree_tpu_torch.kernels.scan_knn import scan_partials, scan_tiles
+
+    C = cand.shape[1]
+    out = {}
+    for f in (0, 1 / 64, 1 / 16, 1 / 4, 1 / 2, 1, 2, 4, 8):
+        sp = max(1, min(C, round(planned * f)))
+        S = scan_partials(tree, tq, cand, lb, kk, splits=sp)[0].shape[1]
+        if S in out:
+            continue
+        d, i = scan_tiles(tree, tq, cand, lb, kk, splits=sp)
+        torch.cuda.synchronize()
+        assert torch.equal(d, want[0]) and torch.equal(i, want[1]), f"kernel != plain at S={S}"
+        out[S] = cuda_ms(lambda: scan_tiles(tree, tq, cand, lb, kk, splits=sp), reps)
+    return out
+
+
+def time_shape(name, tree, tq, cand, lb, kk, plain_v, reps, plain_reps=0, sweep=False):
+    """Kernel(s) vs plain version on one collect-pass batch, bit for bit,
+    then timed (CUDA events), beside the input-defined bound; ``sweep``
+    also times the kernels at other blocks-per-tile counts."""
+    import torch
+
+    from kdtree_tpu_torch.kernels.scan_knn import merge_partials, scan_partials, scan_tiles
+    from kdtree_tpu_torch.ops import tile_query as tqm
+
+    T = tq.shape[0]
+    pd, pi = tqm._scan_tiles(tree, tq, cand, lb, kk, plain_v, T)
+    kd, ki, S = kernel_run(tree, tq, cand, lb, kk, None)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, pd) and torch.equal(ki, pi), f"kernel != plain at {name}"
+    rec = input_bound(tree, tq, cand, lb, pd, kk)
+    rec.update(name=name, shape=f"T={T} TQ={tq.shape[1]} C={cand.shape[1]} k={kk}", splits=S)
+    rec["ms"] = cuda_ms(lambda: scan_tiles(tree, tq, cand, lb, kk), reps)
+    rec["scan_ms"] = cuda_ms(lambda: scan_partials(tree, tq, cand, lb, kk), reps)
+    if S > 1:
+        parts = scan_partials(tree, tq, cand, lb, kk)
+        rec["merge_ms"] = cuda_ms(lambda: merge_partials(*parts), reps)
+        rec["merge_plain_ms"] = cuda_ms(lambda: tqm.merge_partials(*parts), reps)
+        # the merge reads every partial buffer once and writes the answer
+        rec["merge_bound_ms"] = (parts[0].numel() * 8 + T * tq.shape[1] * kk * 8) \
+            / HBM_BYTES_PER_S * 1e3
+    if plain_reps:
+        rec["plain_ms"] = cuda_ms(lambda: tqm._scan_tiles(tree, tq, cand, lb, kk, plain_v, T),
+                                  plain_reps)
+    say("kernel", f"{name} ({rec['shape']}, {S} block(s)/tile): bit-equal; "
+                  f"{rec['ms']:.4f} ms (scan {rec['scan_ms']:.4f}"
+                  + (f", merge {rec['merge_ms']:.4f}" if S > 1 else "")
+                  + f"), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; bytes "
+                  f"{rec['bytes_ms']:.4f}, operations {rec['ops_ms']:.4f}; "
+                  f"{rec['pairs']} (query, bucket) pairs, {rec['need']} (tile, bucket) "
+                  f"reads needed); tile-level bound {rec['tile_bound_ms']:.4f} ms "
+                  f"({rec['tile_bound_by']}, {rec['tile_need']} buckets)"
+                  + (f", plain {rec['plain_ms']:.2f} ms" if plain_reps else ""))
+    if sweep:
+        rec["sweep"] = sweep_splits(tree, tq, cand, lb, kk, S, (pd, pi), 5)
+        say("kernel", f"{name}: ms by blocks per tile (planned {S}): "
+                      + ", ".join(f"{s} {t:.4f}" for s, t in sorted(rec["sweep"].items())))
+    return rec
+
+
+def phase_shapes(tree, sq, plan):
+    """The kernels at the main path's shapes on the 2^24 tree: one collect
+    batch of the tiled run (the plan's tile and cap, as in its first
+    dispatch), and the final collect dispatch of the 8-, 64- and 1024-row
+    serve batches (the requests of phase 4, caps grown until the frontier
+    holds). Returns the records by shape."""
     import torch
 
     from kdtree_tpu_torch.kernels.scan_knn import scan_tiles
     from kdtree_tpu_torch.ops import tile_query as tqm
+    from kdtree_tpu_torch.ops.generate import generate_queries
+    from kdtree_tpu_torch.serve.engine import batch_bucket
 
-    (tq, cand, lb, kk), (kd, ki), (pd, pi), visited = kernel_case(
-        tree, queries[: plan.qbatch], plan.tile, k, plan.cmax)
-    assert torch.equal(kd, pd) and torch.equal(ki, pi), "kernel != plain at main shape"
-    T, TQ, D = tq.shape
-    ms = cuda_ms(lambda: scan_tiles(tree, tq, cand, lb, kk), 20)
-    plain_ms = cuda_ms(lambda: tqm._scan_tiles(tree, tq, cand, lb, kk, 1, T), 1)
-    vis = int(visited.sum())
-    B = tree.bucket_size
-    # bytes: visited buckets' coords + ids, the cand/lb entries read up to
-    # each tile's exit, the tile queries; outputs d2 + ids
-    nbytes = (vis * B * (D + 1) * 4 + (vis + T) * 8 + T * TQ * D * 4
-              + T * TQ * kk * 8)
-    flops = vis * B * TQ * 3 * D
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    dev = sq.device
+    kk = min(K, tree.n_real)
+    tq = sq[: plan.qbatch].reshape(-1, plan.tile, DIM).contiguous()
+    cand, lb = collect_inputs(tree, tq, kk, plan.seeds, plan.cmax)
+    recs = {"main": time_shape("main collect shape", tree, tq, cand, lb, kk, 1, 20, 1)}
+    for sp in (2, 4):
+        ms = cuda_ms(lambda: scan_tiles(tree, tq, cand, lb, kk, splits=sp), 20)
+        say("kernel", f"main collect shape forced to {sp} blocks/tile: {ms:.4f} ms")
 
+    # the batch's stages, for the breakdown
+    T = tq.shape[0]
     blo, bhi = tq.amin(1), tq.amax(1)
-    inf = torch.full((T,), float("inf"), device=tq.device)
+    inf = torch.full((T,), float("inf"), device=dev)
     c0, l0, _ = tqm._frontier(tree, blo, bhi, inf, plan.seeds)
     sd, _ = scan_tiles(tree, tq, c0, l0, kk)
     bound = sd[..., -1].amax(1)
-    stages = {
-        "hilbert sort": cuda_ms(lambda: tqm._sort_queries(queries[: plan.qbatch],
-                                                          plan.bits, 0), 5),
+    recs["stages"] = {
+        "hilbert sort": cuda_ms(lambda: tqm._sort_queries(sq[: plan.qbatch], plan.bits, 0), 5),
         "seed frontier": cuda_ms(lambda: tqm._frontier(tree, blo, bhi, inf, plan.seeds), 5),
         "seed scan": cuda_ms(lambda: scan_tiles(tree, tq, c0, l0, kk), 5),
-        "collect frontier": cuda_ms(lambda: tqm._frontier(tree, blo, bhi, bound,
-                                                          plan.cmax), 5),
-        "collect scan": ms,
+        "collect frontier": cuda_ms(lambda: tqm._frontier(tree, blo, bhi, bound, plan.cmax), 5),
+        "collect scan": recs["main"]["ms"],
     }
-    return {
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bytes_ms": t_bytes, "ops_ms": t_ops, "stages": stages,
-        "shape": f"T={T} TQ={TQ} C={cand.shape[1]} k={kk} visited={vis}",
-    }
+
+    for i, rows in enumerate(REQUEST_ROWS):
+        if rows not in (7, 64, 1000):
+            continue
+        bucket = batch_bucket(rows, MAX_BATCH)
+        q = generate_queries(SEED + 1 + i, DIM, rows, device=dev)
+        q = torch.cat([q, q[-1:].expand(bucket - rows, DIM)])
+        p = tqm.plan_tiled(bucket, DIM, tree.n_real, tree.num_buckets, tree.bucket_size, K,
+                           device=dev)
+        s, _ = tqm._sort_queries(q, p.bits, (-bucket) % p.qbatch)
+        stq = s.reshape(-1, p.tile, DIM).contiguous()
+        c, l = collect_inputs(tree, stq, kk, p.seeds, p.cmax, grow=True)
+        recs[rows] = time_shape(f"serve {rows} rows (bucket {bucket})", tree, stq, c, l, kk,
+                                64, 20, sweep=True)
+    return recs
+
+
+def _start_profiler():
+    """A started torch.profiler over CPU and CUDA, or (None, why not)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as e:  # CUPTI tracing may be unavailable; the request still runs
+        return None, f"{type(e).__name__}: {e}"
+    return prof, None
+
+
+def serve_profile(engine, served):
+    """Serve the 7-, 64- and 1000-row requests once more, each under
+    torch.profiler, and split its device time by kernel family: the scan
+    kernels against the rest, which is the frontier's torch ops. Only the
+    profiler may fail quietly; a failed request raises, and each answer
+    must equal the one served before. Returns one line per request."""
+    import torch
+
+    lines = []
+    for q, d2, ids, rows, bucket, _, _ in served:
+        if rows not in (7, 64, 1000):
+            continue
+        qp = np.concatenate([q, np.broadcast_to(q[-1], (bucket - rows, DIM))])
+        prof, why = _start_profiler()
+        t0 = time.perf_counter()
+        pd2, pids, _ = engine.knn_batch(qp)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        assert np.array_equal(np.asarray(pd2)[:rows], np.asarray(d2)) and \
+            np.array_equal(np.asarray(pids)[:rows], np.asarray(ids)), \
+            f"request of {rows} rows answered differently under the profiler"
+        events = []
+        if prof is not None:
+            try:
+                prof.stop()
+                events = prof.key_averages()
+            except Exception as e:  # the trace, not the request, failed
+                why = f"{type(e).__name__}: {e}"
+        if why is not None:
+            lines.append(f"request {rows} rows: {wall:.2f} ms; device time not measured "
+                         f"(profiler: {why})")
+            continue
+        scan = merge = other = 0.0
+        for e in events:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0.0)
+            if "scan_knn_merge" in e.key:
+                merge += us
+            elif "scan_knn" in e.key:
+                scan += us
+            else:
+                other += us
+        if scan + merge + other == 0:
+            lines.append(f"request {rows} rows: {wall:.2f} ms under the profiler; device time "
+                         f"not measured (the trace holds no device events)")
+        else:
+            lines.append(f"request {rows} rows: {wall:.2f} ms under the profiler; device ms: "
+                         f"scan kernel {scan / 1e3:.3f}, merge kernel {merge / 1e3:.3f}, "
+                         f"other (frontier, sort, copies) {other / 1e3:.3f}")
+    return lines
 
 
 def main() -> int:
@@ -262,6 +513,7 @@ def main() -> int:
     say("main", f"generated {N_POINTS} x {DIM} points in {time.perf_counter() - t0:.3f} s")
 
     scan_mod.scan_tiles.launches = 0
+    scan_mod.merge_partials.launches = 0
     t0 = time.perf_counter()
     tree = build_morton(points, bucket_cap=BUCKET)
     torch.cuda.synchronize()
@@ -298,11 +550,14 @@ def main() -> int:
     torch.cuda.synchronize()
     tiled_s = time.perf_counter() - t0
     launches = scan_mod.scan_tiles.launches
+    merges = scan_mod.merge_partials.launches
     say("main", f"tiled {TILED_QUERIES} queries k={K}: {tiled_s:.3f} s "
                 f"({TILED_QUERIES / tiled_s:.0f} q/s), {stats.batches} batches, "
-                f"{stats.retries} overflow retries, {launches - before} kernel "
-                f"launches; scan_tiles.launches={launches} over the main path")
+                f"{stats.retries} overflow retries, {launches - before} scan kernel "
+                f"launches; over the main path scan_tiles.launches={launches}, "
+                f"merge_partials.launches={merges}")
     assert launches > 0, "the main path never launched the scan kernel"
+    assert merges > 0, "the main path never launched the merge kernel"
 
     # checks against the brute-force oracle (outside the counted window)
     for q, d2, ids, rows, bucket, ms, source in served:
@@ -316,18 +571,18 @@ def main() -> int:
     ties = check_answer(points, tq_all[sample], td2[sample], tids[sample], K, "tiled sample")
     assert td2.shape == (TILED_QUERIES, K) and torch.isfinite(td2).all()
     say("main", f"tiled run: {SAMPLE}-query sample exact vs oracle ({ties} tied slots)")
+    for line in serve_profile(engine, served):
+        say("main", line)
 
+    # 5. the kernels at the main path's shapes
     plan = tqm.plan_tiled(TILED_QUERIES, DIM, tree.n_real, tree.num_buckets,
                           tree.bucket_size, K, device=dev)
     sq, _ = tqm._sort_queries(tq_all, plan.bits, (-TILED_QUERIES) % plan.qbatch)
-    timing = time_main_shape(tree, sq, plan, K)
-    say("kernel", f"main shape ({timing['shape']}): kernel {timing['ms']:.4f} ms, "
-                  f"plain {timing['plain_ms']:.2f} ms, bound {timing['bound_ms']:.4f} ms "
-                  f"({timing['bound_by']}; bytes {timing['bytes_ms']:.4f} ms, "
-                  f"operations {timing['ops_ms']:.4f} ms)")
+    recs = phase_shapes(tree, sq, plan)
     say("main", f"one tiled batch (plan tile={plan.tile} cmax={plan.cmax} "
                 f"seeds={plan.seeds} qbatch={plan.qbatch}), ms by stage: "
-                + ", ".join(f"{n} {t:.3f}" for n, t in timing["stages"].items()))
+                + ", ".join(f"{n} {t:.3f}" for n, t in recs["stages"].items()))
+    main_rec, sparse = recs["main"], recs[7]
 
     record = {"kernels": [{
         "name": "scan_knn",
@@ -336,10 +591,22 @@ def main() -> int:
         "replaces": "kdtree_tpu/pallas/scan_knn.py:46",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
+        "ms": main_rec["ms"],
+        "plain_ms": main_rec["plain_ms"],
+        "bound_ms": main_rec["bound_ms"],
+        "bound_by": main_rec["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "scan_knn_merge",
+        "route": "cuda",
+        "source": "kdtree_tpu_torch/csrc/scan_knn.cu",
+        "replaces": "kdtree_tpu/pallas/scan_knn.py:46",
+        "launches": merges,
+        "max_abs_err": MERGE_ERR[0],
+        "ms": sparse["merge_ms"],
+        "plain_ms": sparse["merge_plain_ms"],
+        "bound_ms": sparse["merge_bound_ms"],
+        "bound_by": "bytes",
         "library_ms": None,
     }]}
     print(json.dumps(record), flush=True)

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface, ``_build/lib<name>-<hash>.so``, where the hash covers
-the source and the flags: an edited source builds anew, an unchanged one
-loads the library already there. Only the sources in this checkout and
-``nvcc`` are used. :func:`build` starts one ``nvcc`` per source, all
-together, and waits for them; a failed build raises with nvcc's output.
+the source, the ``.cuh`` headers beside it and the flags: an edited source
+builds anew, an unchanged one loads the library already there. Only the
+sources in this checkout and ``nvcc`` are used. :func:`build` starts one
+``nvcc`` per source, all together, and waits for them; a failed build
+raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -47,6 +48,8 @@ def _nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):  # headers the sources include
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -53,3 +53,19 @@ def sq_dist(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
         diff = q[..., d] - p[..., d]
         acc = sq_add(torch.zeros_like(diff) if acc is None else acc, diff)
     return acc
+
+
+def sq_dist_to_box(q: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Squared distances from ``q`` to the boxes ``[lo, hi]`` over the last
+    axis (broadcastable), with the scan kernel's per-warp skip arithmetic:
+    per axis the gap ``lo - q`` or ``q - hi``, 0 inside, accumulated
+    d = 0..D-1 with :func:`sq_add`. Rounding is monotone, so the result is
+    never above :func:`sq_dist` to a point inside the box. An empty box
+    (lo = +inf, hi = -inf) is at +inf."""
+    acc = None
+    for d in range(q.shape[-1]):
+        qd, lo_d, hi_d = q[..., d], lo[..., d], hi[..., d]
+        gap = torch.where(qd < lo_d, lo_d - qd,
+                          torch.where(qd > hi_d, qd - hi_d, torch.zeros_like(qd)))
+        acc = sq_add(torch.zeros_like(gap) if acc is None else acc, gap)
+    return acc

@@ -191,6 +191,25 @@ def _scan_tiles(tree: MortonTree, tq, cand, cand_lb, k: int, v: int, tb: int):
     return torch.cat(out_d)[:T], torch.cat(out_i)[:T]
 
 
+def merge_partials(d, i):
+    """The k smallest entries of per-chunk partial buffers by (d2, chunk):
+    the plain version of the CUDA merge kernel.
+
+    d f32[T, S, TQ, k] and i i32[T, S, TQ, k] hold chunk s's ascending
+    buffer for each query, chunk s having scanned the s-th contiguous range
+    of the tile's candidate list. Laid out chunk-major, one stable sort by
+    d2 orders the entries by (d2, chunk, rank in chunk), which is (d2,
+    position in the list): the order of one walk over the whole list, so
+    the result equals :func:`_scan_tiles` on it. Returns (f32[T, TQ, k],
+    i32[T, TQ, k])."""
+    T, S, TQ, k = d.shape
+    dd = d.permute(0, 2, 1, 3).reshape(T, TQ, S * k)
+    ii = i.permute(0, 2, 1, 3).reshape(T, TQ, S * k)
+    srt, order = torch.sort(dd, dim=-1, stable=True)
+    return (srt[..., :k].contiguous(),
+            torch.gather(ii, -1, order[..., :k]).contiguous())
+
+
 def _sort_queries(queries, bits: int, qpad: int):
     """Hilbert-sort the (padded) query set once; padding duplicates the
     last query. Returns (sorted queries, order)."""
