@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path once on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--dfs-round-sweep]
+
+``--dfs-round-sweep`` adds to phase 6 the DFS timed at 4, 8, 16 and 32
+steps per host look on 16,384 of the sparse lane's queries: the run that
+chose ``_ROUND_STEPS`` in ``kdtree_tpu_torch/ops/morton.py``, for when the
+DFS changes.
 
 Phases, one line each (any failure raises and exits non-zero):
 
@@ -28,7 +33,25 @@ Phases, one line each (any failure raises and exits non-zero):
              batches, each beside the bound its inputs define (per
              query, and the coarser tile-level count); at the serve
              shapes also swept over blocks per tile, each count checked
-             bit for bit.
+             bit for bit;
+6. cli     — the DFS engine and the one-shot CLI, with both kernels' launch
+             counts zeroed just before and read just after: the headline
+             (generate_problem + build_morton + morton_knn, 10 queries, k=1,
+             at 2^24 x 3-D; minimum of 5 fresh seeds after a warm-up) and
+             the sparse-DFS lane (65,536 queries, k=16, on phase 4's tree),
+             both exact against the oracle, with their DFS steps and host
+             syncs; the same queries through morton_knn_tiled beside
+             dense_lowd's choice, every answer held against the DFS's;
+             ``python -m kdtree_tpu_torch harness`` on both golden
+             configurations, stdout byte-equal to tests/golden/; then in
+             process ``bench --engine morton`` at 2^24 x 3-D, ``build
+             --out`` at 2^20 -> ``query`` (each line against the oracle),
+             and ``query --queries`` with 2^16 dense rows, which must
+             launch the scan kernel. After the counts are read: the kernels
+             against the plain version, timed beside their bound, at the
+             final collect dispatch of both tiled runs (the sparse lane's
+             and ``query --queries``'s), and the device launches of one DFS
+             step under torch.profiler.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -56,6 +79,11 @@ TILED_QUERIES = 1 << 20
 SAMPLE = 2048
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 FP32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
+SPARSE_Q = 1 << 16  # the sparse-DFS lane's queries (the JAX bench's shape)
+HEADLINE_QUERIES = 10
+CLI_BUILD_N = 1 << 20
+CLI_DENSE_Q = 1 << 16
+GOLDEN_SEEDS = (7, 42)
 SPLITS = (1, None, 2, 7)  # blocks per tile in phase 3: one, the planned count, forced
 MERGE_ERR = [0.0]  # the merge kernel's largest difference from the plain merge
 
@@ -79,18 +107,22 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_answer(points, queries, d2, ids, k, what):
+def check_answer(points, queries, d2, ids, k, what, want=None):
     """d2 must equal the brute-force oracle's bit for bit; ids must equal
     its ids wherever the distance is not tied with a neighbouring rank,
     and every returned id must reproduce its distance (so ties may pick
-    either of the equal points, never a wrong one)."""
+    either of the equal points, never a wrong one). ``want`` = (d2, ids)
+    of another exact engine takes the oracle's place."""
     import torch
 
     from kdtree_tpu_torch.ops import bruteforce
     from kdtree_tpu_torch.ops._arith import sq_dist
 
     q = torch.as_tensor(queries, device=points.device)
-    od, oi = bruteforce.knn(points, q, k=k)
+    if want is None:
+        od, oi = bruteforce.knn(points, q, k=k)
+    else:
+        od, oi = (torch.as_tensor(w, device=points.device) for w in want)
     d2 = torch.as_tensor(d2, device=points.device)
     ids = torch.as_tensor(ids, device=points.device)
     assert d2.shape == od.shape and ids.shape == oi.shape, what
@@ -458,7 +490,275 @@ def serve_profile(engine, served):
     return lines
 
 
-def main() -> int:
+def tiled_dispatch(name, tree, queries, plain_v):
+    """The kernels at the final collect dispatch that ``morton_knn_tiled``
+    plans for ``queries`` on ``tree`` (one batch; the cap grown until the
+    frontier holds, as its overflow retries do), through ``time_shape``."""
+    from kdtree_tpu_torch.ops import tile_query as tqm
+
+    Q = queries.shape[0]
+    kk = min(K, tree.n_real)
+    p = tqm.plan_tiled(Q, DIM, tree.n_real, tree.num_buckets, tree.bucket_size, K,
+                       device=queries.device)
+    assert p.qbatch >= Q, f"{name}: more than one batch"
+    s, _ = tqm._sort_queries(queries, p.bits, (-Q) % p.qbatch)
+    stq = s.reshape(-1, p.tile, DIM).contiguous()
+    c, l = collect_inputs(tree, stq, kk, p.seeds, p.cmax, grow=True)
+    return time_shape(name, tree, stq, c, l, kk, plain_v, 20)
+
+
+def dfs_launches_per_step(tree, queries, want):
+    """Device launches (kernels, copies, fills) of one DFS step on the
+    card: torch.profiler over one extra eager round of the engine's steps,
+    run just before the engine captures its round as a CUDA graph, divided
+    by the steps of a round. An extra round is a valid schedule (each lane
+    goes on with its own pops), so the answer must still equal ``want``.
+    Returns (launches per step or None, note)."""
+    import torch
+
+    import kdtree_tpu_torch.ops.morton as morton_mod
+
+    original = morton_mod._round_runner
+    seen = []
+
+    def counted(steps, dev, st):
+        if not seen:
+            prof, why = _start_profiler()
+            steps()
+            torch.cuda.synchronize()
+            n = 0
+            if prof is not None:
+                try:
+                    prof.stop()
+                    n = sum(1 for e in prof.events()
+                            if e.device_type == torch.autograd.DeviceType.CUDA)
+                except Exception as e:  # the trace, not the DFS, failed
+                    why = f"{type(e).__name__}: {e}"
+            seen.append((n, why))
+        return original(steps, dev, st)
+
+    morton_mod._round_runner = counted
+    try:
+        d, i = morton_mod.morton_knn(tree, queries, k=K)
+    finally:
+        morton_mod._round_runner = original
+    assert torch.equal(d, want[0]) and torch.equal(i, want[1]), \
+        "an extra DFS round changed the answer"
+    n, why = seen[0]
+    if why is not None or n == 0:
+        return None, why or "the trace holds no device events"
+    return n / morton_mod._ROUND_STEPS, f"{n} in one round of {morton_mod._ROUND_STEPS} steps"
+
+
+def dfs_round_sweep(tree, queries, want):
+    """The DFS at 4, 8, 16 and 32 steps per host look (the engine's
+    ``_ROUND_STEPS``, restored after), each answer held against ``want``.
+    Returns the line to print. A run for when the DFS changes
+    (``--dfs-round-sweep``), not part of the default smoke."""
+    import torch
+
+    import kdtree_tpu_torch.ops.morton as morton_mod
+
+    out = {}
+    saved = morton_mod._ROUND_STEPS
+    try:
+        for rs in (4, 8, 16, 32):
+            morton_mod._ROUND_STEPS = rs
+            st = morton_mod.DfsStats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d, i = morton_mod.morton_knn(tree, queries, k=K, stats=st)
+            d[:1].cpu()
+            out[rs] = (time.perf_counter() - t0, st)
+            assert torch.equal(d, want[0]) and torch.equal(i, want[1]), \
+                f"DFS answer changed with {rs} steps per round"
+    finally:
+        morton_mod._ROUND_STEPS = saved
+    return (f"sparse DFS, first {queries.shape[0]} queries, by steps per round (s; steps, "
+            "host syncs): " + "; ".join(f"{rs}: {t:.4f} ({w.steps}, {w.syncs})"
+                                        for rs, (t, w) in out.items()))
+
+
+def run_cli(argv):
+    """(stdout, stderr) of the port's CLI ``main(argv)``, in process; a
+    non-zero exit raises."""
+    import contextlib
+    import io
+
+    from kdtree_tpu_torch.utils import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            cli.main(argv)
+    except SystemExit as e:
+        if e.code not in (0, None):
+            raise AssertionError(f"cli {argv} exited {e.code}: {err.getvalue()[-2000:]}")
+    return out.getvalue(), err.getvalue()
+
+
+def phase_cli(dev, points, tree, here, round_sweep=False):
+    """Phase 6: the DFS engine and the CLI's one-shot path (see the module
+    docstring); ``round_sweep`` adds :func:`dfs_round_sweep`. Returns the
+    lines to print and the launch counts."""
+    import shutil
+
+    import torch
+
+    import kdtree_tpu_torch.kernels.scan_knn as scan_mod
+    from kdtree_tpu_torch import native
+    from kdtree_tpu_torch.ops import bruteforce
+    from kdtree_tpu_torch.ops import tile_query as tqm
+    from kdtree_tpu_torch.ops.generate import generate_problem, generate_queries
+    from kdtree_tpu_torch.ops.morton import DfsStats, build_morton, morton_knn
+    from kdtree_tpu_torch.utils.checkpoint import load_tree
+
+    on_card = dev.type == "cuda"
+    dev_args = [] if on_card else ["--device", str(dev)]
+    lines = []
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    scan_mod.scan_tiles.launches = 0
+    scan_mod.merge_partials.launches = 0
+
+    # the headline: gen + build + 10 x 1-NN, min of 5 fresh seeds
+    def headline(seed, stats=None):
+        pts, qs = generate_problem(seed, DIM, N_POINTS, HEADLINE_QUERIES, device=dev)
+        t = build_morton(pts, bucket_cap=BUCKET)
+        d2, ids = morton_knn(t, qs, k=1, stats=stats)
+        d2[:1].cpu()
+        return pts, qs, d2, ids
+
+    headline(999)
+    times, last, hstats = [], None, None
+    for seed in (1, 2, 3, 4, 5):
+        st = DfsStats()
+        sync()
+        t0 = time.perf_counter()
+        out = headline(seed, st)
+        times.append(time.perf_counter() - t0)
+        last, hstats = out, st
+    check_answer(last[0], last[1], last[2], last[3], 1, "headline")
+    del last
+    lines.append(f"headline gen+build+{HEADLINE_QUERIES}x1-NN at {N_POINTS} x {DIM}: "
+                 f"min {min(times):.4f} s over seeds 1-5 ({N_POINTS / min(times):.0f} pts/s; "
+                 f"runs " + ", ".join(f"{t:.4f}" for t in times) + f"); exact vs oracle; "
+                 f"DFS {hstats.steps} steps, {hstats.scans} scan rounds, {hstats.syncs} host "
+                 f"syncs, {hstats.graphs} graph(s) in {hstats.chunks} chunk(s)")
+
+    # the sparse-DFS lane on phase 4's tree, then the same queries tiled
+    morton_knn(tree, generate_queries(54, DIM, SPARSE_Q, device=dev), k=K)[0][:1].cpu()
+    qs = generate_queries(55, DIM, SPARSE_Q, device=dev)
+    st = DfsStats()
+    sync()
+    t0 = time.perf_counter()
+    sd, si = morton_knn(tree, qs, k=K, stats=st)
+    sd[:1].cpu()
+    dfs_s = time.perf_counter() - t0
+    ties = check_answer(points, qs[:256], sd[:256], si[:256], K, "sparse DFS")
+    tqm.morton_knn_tiled(tree, generate_queries(54, DIM, SPARSE_Q, device=dev), k=K)
+    sync()
+    t0 = time.perf_counter()
+    td, ti = tqm.morton_knn_tiled(tree, qs, k=K)
+    td[:1].cpu()
+    tiled_s = time.perf_counter() - t0
+    # every query: the tiled answer held against the DFS's by the oracle's rule
+    tiled_ties = check_answer(points, qs, td, ti, K, "tiled vs DFS", want=(sd, si))
+    choice = "tiled" if tqm.dense_lowd(SPARSE_Q, tree.n_real, DIM) else "DFS"
+    lines.append(f"sparse DFS Q={SPARSE_Q} k={K} on the {tree.n_real}-point tree: "
+                 f"{dfs_s:.4f} s ({SPARSE_Q / dfs_s:.0f} q/s), 256-query sample exact vs "
+                 f"oracle ({ties} tied slots); {st.chunks} chunks, {st.steps} steps "
+                 f"({st.steps / st.chunks:.1f} per chunk), {st.scans} scan rounds, "
+                 f"{st.syncs} host syncs ({st.syncs / st.chunks:.1f} per chunk), "
+                 f"{st.graphs} graphs")
+    lines.append(f"same queries tiled: {tiled_s:.4f} s ({SPARSE_Q / tiled_s:.0f} q/s), "
+                 f"d2 equal to the DFS on all {SPARSE_Q} queries and ids equal but for "
+                 f"ties ({tiled_ties} tied slots); dense_lowd picks {choice}; tiled/DFS "
+                 f"time {tiled_s / dfs_s:.4f}")
+
+    # the golden grading configurations through the CLI, one process each
+    for seed in GOLDEN_SEEDS:
+        want = (here / "tests" / "golden" / f"ref_seed{seed}_128d_500k.txt").read_text()
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "kdtree_tpu_torch", *dev_args, "harness"],
+                             input=f"{seed}\n", capture_output=True, text=True, timeout=600,
+                             cwd=here)
+        wall = time.perf_counter() - t0
+        assert res.returncode == 0, res.stderr[-2000:]
+        assert res.stdout == want, f"golden seed {seed}: stdout differs\n{res.stdout}"
+        lines.append(f"golden harness seed {seed} (128-D, 500,000 points, mt19937, auto -> "
+                     f"bruteforce): stdout byte-equal, {wall:.2f} s in a new process")
+
+    # the CLI in process: bench, build -> query, query --queries
+    bench = json.loads(run_cli([*dev_args, "--engine", "morton", "bench", "--n",
+                                str(N_POINTS), "--dim", str(DIM)])[0])
+    lines.append(f"cli bench --engine morton --n {N_POINTS} --dim {DIM} (mt19937): "
+                 + json.dumps(bench))
+    assert bench["pts_per_sec"] > 0 and bench["engine"] == "morton"
+    work = here / "kdtree_tpu_torch" / "_build" / "chip_smoke_cli"  # git-ignored
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        ckpt = str(work / "tree.npz")
+        t0 = time.perf_counter()
+        out, _ = run_cli([*dev_args, "build", "--n", str(CLI_BUILD_N), "--out", ckpt])
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out, _ = run_cli([*dev_args, "query", "--tree", ckpt])
+        query_s = time.perf_counter() - t0
+        cpts, cqs = native.generate_problem_mt19937(42, DIM, CLI_BUILD_N, HEADLINE_QUERIES)
+        cpts = torch.from_numpy(cpts).to(dev)
+        ctree, _ = load_tree(ckpt, device=dev)
+        od, _ = bruteforce.knn(cpts, torch.from_numpy(cqs).to(dev), k=1)
+        od = od.cpu().numpy()
+        want = "".join(f"ID: {CLI_BUILD_N + q} \t DISTANCE: {float(np.sqrt(od[q, 0])):g}\n"
+                       for q in range(HEADLINE_QUERIES)) + "DONE\n"
+        assert out == want, f"query protocol lines differ from the oracle\n{out}"
+        lines.append(f"cli build --out at {CLI_BUILD_N} x {DIM} (mt19937) {build_s:.3f} s, "
+                     f"query {query_s:.3f} s: 10 protocol lines equal to the oracle's")
+        qfile = work / "queries.npy"
+        dq = generate_queries(77, DIM, CLI_DENSE_Q, device=dev)
+        np.save(qfile, dq.cpu().numpy())
+        before = scan_mod.scan_tiles.launches
+        t0 = time.perf_counter()
+        run_cli([*dev_args, "query", "--tree", ckpt, "--queries", str(qfile), "--k", str(K),
+                 "--out", str(work / "answer.npz")])
+        dense_s = time.perf_counter() - t0
+        with np.load(work / "answer.npz") as z:
+            ad, ai = z["d2"], z["ids"]
+        assert ad.shape == (CLI_DENSE_Q, K)
+        ties = check_answer(cpts, dq[:256], torch.from_numpy(ad[:256]),
+                            torch.from_numpy(ai[:256]), K, "query --queries")
+        raised = scan_mod.scan_tiles.launches - before
+        if on_card:
+            assert raised > 0, "query --queries did not launch the scan kernel"
+        lines.append(f"cli query --queries {CLI_DENSE_Q} dense rows k={K}: {dense_s:.3f} s, "
+                     f"256-row sample exact vs oracle ({ties} tied slots), {raised} scan "
+                     f"kernel launches")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = (scan_mod.scan_tiles.launches, scan_mod.merge_partials.launches)
+    lines.append(f"over phase 6 scan_tiles.launches={launches[0]}, "
+                 f"merge_partials.launches={launches[1]}")
+
+    # outside the counted window: the kernels against the plain scan at the
+    # two tiled dispatches phase 6 ran, and the launches of one DFS step
+    tiled_dispatch(f"sparse lane tiled ({SPARSE_Q} queries, {N_POINTS} points)", tree, qs, 8)
+    tiled_dispatch(f"query --queries ({CLI_DENSE_Q} rows, {CLI_BUILD_N} points)", ctree, dq, 1)
+    per_step, note = dfs_launches_per_step(tree, qs[:4096], (sd[:4096], si[:4096]))
+    lines.append("DFS device launches per step: "
+                 + (f"{per_step:.2f} ({note}; torch.profiler)" if per_step is not None
+                    else f"not measured (profiler: {note})"))
+    if round_sweep:
+        lines.append(dfs_round_sweep(tree, qs[:4 * 4096], (sd[:4 * 4096], si[:4 * 4096])))
+    return lines, launches
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     try:
         import torch
     except ImportError:
@@ -583,6 +883,11 @@ def main() -> int:
                 f"seeds={plan.seeds} qbatch={plan.qbatch}), ms by stage: "
                 + ", ".join(f"{n} {t:.3f}" for n, t in recs["stages"].items()))
     main_rec, sparse = recs["main"], recs[7]
+
+    # 6. the DFS engine and the CLI
+    cli_lines, _ = phase_cli(dev, points, tree, here, "--dfs-round-sweep" in argv)
+    for line in cli_lines:
+        say("cli", line)
 
     record = {"kernels": [{
         "name": "scan_knn",

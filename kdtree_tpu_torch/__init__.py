@@ -1,8 +1,10 @@
 """kdtree_tpu_torch — the PyTorch/CUDA port of ``kdtree_tpu``.
 
 The exact k-NN main path over a Morton bucket tree: seeded generation,
-the one-sort bucket-tree build, the Hilbert-tiled query engine with its
-hand-written CUDA scan kernel, and the serving engine facade. The JAX
+the one-sort bucket-tree build, the per-query best-first DFS, the
+Hilbert-tiled query engine with its hand-written CUDA scan kernel, the
+serving engine facade, npz checkpoints, and the one-shot CLI
+(``python -m kdtree_tpu_torch``). The JAX
 package ``kdtree_tpu`` stays beside this one as the reference it is held
 against; this package imports neither jax nor ``kdtree_tpu``.
 
@@ -23,6 +25,7 @@ __version__ = "0.1.0"
 _LAZY = {
     "MortonTree": "kdtree_tpu_torch.ops.morton",
     "build_morton": "kdtree_tpu_torch.ops.morton",
+    "morton_knn": "kdtree_tpu_torch.ops.morton",
     "morton_knn_tiled": "kdtree_tpu_torch.ops.tile_query",
     "generate_problem": "kdtree_tpu_torch.ops.generate",
     "generate_queries": "kdtree_tpu_torch.ops.generate",
@@ -31,6 +34,8 @@ _LAZY = {
     "ServeEngine": "kdtree_tpu_torch.serve.engine",
     "tree_from_arrays": "kdtree_tpu_torch.interop",
     "tree_to_arrays": "kdtree_tpu_torch.interop",
+    "save_tree": "kdtree_tpu_torch.utils.checkpoint",
+    "load_tree": "kdtree_tpu_torch.utils.checkpoint",
     "bruteforce": None,
 }
 

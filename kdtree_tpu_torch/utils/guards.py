@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import torch
+
 _MAX_ROWS_I32 = 1 << 31  # global point ids are int32 everywhere
 
 
@@ -16,3 +18,15 @@ def check_rows_fit_i32(n: int, what: str) -> None:
             f"(max {_MAX_ROWS_I32 - 1} rows per index); split the data "
             "across multiple forests"
         )
+
+
+def validate_loaded_tree(tree) -> None:
+    """Checkpoint-load guard: NaN anywhere in a tree's float arrays is
+    corruption (inf is legal padding in bucket and box arrays)."""
+    for t in vars(tree).values():
+        if isinstance(t, torch.Tensor) and t.is_floating_point():
+            if bool(torch.isnan(t).any()):
+                raise ValueError(
+                    f"loaded tree contains NaN in a {tuple(t.shape)} array — "
+                    "checkpoint is corrupt"
+                )

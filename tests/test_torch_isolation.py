@@ -53,6 +53,8 @@ def test_public_surface_resolves_lazily():
     out = _run("import sys, kdtree_tpu_torch as k\n"
                "assert 'kdtree_tpu_torch.ops.tile_query' not in sys.modules\n"
                "assert callable(k.morton_knn_tiled) and callable(k.build_morton)\n"
+               "assert callable(k.morton_knn) and callable(k.save_tree)\n"
+               "assert 'kdtree_tpu_torch.utils.cli' not in sys.modules\n"
                "assert k.bruteforce.knn\n")
     assert out.returncode == 0, out.stderr
 
@@ -64,6 +66,7 @@ def test_public_surface_resolves_lazily():
     lambda: kdtree_tpu_torch.tree_from_arrays([[0.0]], [[0.0]], [[[0.0]]], [[0]], 1, 0),
     lambda: kdtree_tpu_torch.resolve_device(None),
     lambda: kdtree_tpu_torch.resolve_device("cuda"),
+    lambda: kdtree_tpu_torch.load_tree("no-such-checkpoint.npz"),
 ])
 def test_default_device_without_cuda_raises(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
