@@ -52,6 +52,31 @@ Phases, one line each (any failure raises and exits non-zero):
              final collect dispatch of both tiled runs (the sparse lane's
              and ``query --queries``'s), and the device launches of one DFS
              step under torch.profiler.
+7. serve   — the HTTP front over the mutable index, with both kernels' launch
+             counts zeroed after the in-process server's warmup and read
+             after its stop: build_state over phase 4's tree (k=16,
+             max_batch 1024, epoch rebuild at a backlog of 256) and
+             make_server(port=0).start() (the warmup ladder 8..1024); 8
+             client threads send requests of 1, 7, 64 and 1000 rows (some
+             with k < 16); one 1025-row oversized request, with a 1-row
+             request sent while it runs; each size 5 times alone, split
+             into HTTP round trip, the server's admission-to-answer and
+             batch-dispatch ms (flight ring), beside the same batch
+             through the engine directly (timed before the counts are
+             zeroed, so they hold the server's launches alone; the scan
+             kernel's must be > 0 over these requests); then 64 new
+             ids beside query points, 32 moved and 32 deleted (among them
+             1st and 16th hits); then 100 more cross the backlog and an
+             epoch rebuild runs while 4 readers keep querying, /healthz
+             polled until epoch 1. Every answer, before and after the
+             writes and across the swap, is held against the brute-force
+             oracle over the surviving points. /metrics must show the
+             serving, epoch and write families; stop() must answer 4
+             admitted requests. Then ``python -m kdtree_tpu_torch serve``
+             at 2^20 points as a subprocess: its ready line, one answer
+             against the oracle, SIGTERM -> exit 0 and "drained; bye".
+             Prints HTTP ms by row count (concurrent, and one request at
+             a time), the writes' ms and the rebuild's s.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -86,6 +111,10 @@ CLI_DENSE_Q = 1 << 16
 GOLDEN_SEEDS = (7, 42)
 SPLITS = (1, None, 2, 7)  # blocks per tile in phase 3: one, the planned count, forced
 MERGE_ERR = [0.0]  # the merge kernel's largest difference from the plain merge
+SERVE_CLIENTS = 8  # phase 7's concurrent HTTP clients
+SERVE_DELTA_ROWS = 256  # phase 7's epoch-rebuild backlog
+SERVE_NEW = 164  # new ids phase 7 upserts: 64 beside queries, 100 to cross the backlog
+SERVE_CLI_N = 1 << 20  # points of phase 7's CLI server
 
 
 def say(phase: str, msg: str) -> None:
@@ -757,6 +786,429 @@ def phase_cli(dev, points, tree, here, round_sweep=False):
     return lines, launches
 
 
+def _http(port, method, path, body=None, headers=None):
+    """(status, headers, parsed JSON or text) of one request on a fresh
+    connection."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        data = None if body is None else json.dumps(body)
+        conn.request(method, path, body=data,
+                     headers={"Content-Type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        raw = resp.read().decode()
+        ctype = resp.getheader("Content-Type", "")
+        return resp.status, dict(resp.getheaders()), (
+            json.loads(raw) if ctype.startswith("application/json") else raw)
+    finally:
+        conn.close()
+
+
+class Oracle:
+    """The brute-force answer (k=K) for a fixed pool of query rows over one
+    state of the point set: ``ext`` holds every id's current coordinates at
+    its id's row (deleted ids at +inf), so oracle ids are point ids."""
+
+    def __init__(self, ext, pool):
+        import torch
+
+        from kdtree_tpu_torch.ops import bruteforce
+
+        self.ext = ext
+        self.pool = pool
+        q = torch.as_tensor(pool, device=ext.device)
+        d, i = bruteforce.knn(ext, q, k=K)
+        self.d2, self.ids = d.cpu().numpy(), i.cpu().numpy()
+        tied = np.zeros(self.d2.shape, dtype=bool)
+        tied[:, 1:] |= self.d2[:, 1:] == self.d2[:, :-1]
+        tied[:, :-1] |= self.d2[:, :-1] == self.d2[:, 1:]
+        self.tied = tied
+
+    def check(self, rows, resp, k, what):
+        """An HTTP /v1/knn answer for pool rows ``rows`` at ``k``: the d2
+        behind every distance equal to the oracle's (distances are the
+        float64 sqrt of f32 d2, so squaring and rounding to f32 recovers
+        it exactly), ids equal except between exactly tied distances, and
+        every id reproducing its d2. Returns the tied slots."""
+        import torch
+
+        from kdtree_tpu_torch.ops._arith import sq_dist
+
+        dist = np.asarray(resp["distances"], dtype=np.float64)
+        ids = np.asarray(resp["ids"], dtype=np.int64)
+        assert resp["k"] == k and dist.shape == (len(rows), k) == ids.shape, what
+        assert np.isfinite(dist).all(), f"{what}: non-finite distances"
+        d2 = (dist * dist).astype(np.float32)
+        assert np.array_equal(np.sqrt(d2.astype(np.float64)), dist), \
+            f"{what}: distances are not sqrt of f32 d2"
+        assert np.array_equal(d2, self.d2[rows, :k]), f"{what}: d2 differs from the oracle"
+        tied = self.tied[rows, :k]
+        assert np.array_equal(ids[~tied], self.ids[rows, :k][~tied]), f"{what}: ids differ"
+        q = torch.as_tensor(self.pool[rows], device=self.ext.device)
+        again = sq_dist(q[:, None, :], self.ext[torch.as_tensor(ids, device=q.device)])
+        assert np.array_equal(again.cpu().numpy(), d2), f"{what}: ids do not reproduce d2"
+        return int(tied.sum())
+
+
+def _ms_line(name, by_rows):
+    return f"{name}: " + ", ".join(
+        f"{rows} rows median {np.median(t):.2f} max {max(t):.2f} (n={len(t)})"
+        for rows, t in sorted(by_rows.items()))
+
+
+def phase_serve(dev, points, tree, here, smi):
+    """Phase 7: the HTTP front over the mutable index (see the module
+    docstring). Returns the lines to print and the launch counts of the
+    in-process server's run."""
+    import signal
+    import threading
+
+    import torch
+
+    import kdtree_tpu_torch.kernels.scan_knn as scan_mod
+    from kdtree_tpu_torch.obs import flight
+    from kdtree_tpu_torch.obs.registry import get_registry
+    from kdtree_tpu_torch.ops.generate import generate_points_rowwise, generate_queries
+    from kdtree_tpu_torch.serve.engine import build_state
+    from kdtree_tpu_torch.serve.server import make_server
+
+    lines = []
+    rng = np.random.default_rng(SEED + 7)
+    t0 = time.perf_counter()
+    state = build_state(tree=tree, k=K, max_batch=MAX_BATCH, max_delta_rows=SERVE_DELTA_ROWS)
+    # deep enough that 8 clients' concurrent 1000-row requests are admitted,
+    # not shed: the phase checks answers, the 429 path has its CPU tests
+    srv = make_server(state, port=0, queue_rows=16 * MAX_BATCH)
+    srv.start()
+    port = srv.server_address[1]
+    lines.append(f"in-process server on port {port}: build_state + warmup ladder "
+                 f"{state.warmup_buckets()} in {time.perf_counter() - t0:.3f} s")
+    stopped = False
+    try:
+        from kdtree_tpu_torch.serve.engine import batch_bucket
+
+        pool = generate_queries(SEED + 700, DIM, 1100, device=dev).cpu().numpy()
+        o1 = Oracle(points, pool)
+        # the padded batches of the one-at-a-time requests below, through
+        # the engine on this thread: before the counts are zeroed, so the
+        # phase's launch counts are the HTTP server's own
+        seq = {rows: {"http": [], "server": [], "dispatch": [], "engine": []}
+               for rows in (1, 7, 64, 1000)}
+        for rows in seq:
+            b = batch_bucket(rows, MAX_BATCH)
+            for j in range(5):
+                off = min(40 * j, len(pool) - rows)
+                q = pool[off:off + rows]
+                q = np.concatenate([q, np.broadcast_to(q[-1], (b - rows, DIM))])
+                t = time.perf_counter()
+                state.engine.knn_batch(q)
+                seq[rows]["engine"].append((time.perf_counter() - t) * 1e3)
+
+        scan_mod.scan_tiles.launches = 0
+        scan_mod.merge_partials.launches = 0
+
+        # 1. concurrent traffic, every answer against the oracle
+        plan = []  # (thread, rows, k)
+        for i in range(SERVE_CLIENTS):
+            for rows in (1, 7, 64) + ((1000,) if i < 2 else ()):
+                plan.append((i, rows, K if (i + rows) % 3 else 3 + i))
+        results, errors = [], []
+
+        def client(i):
+            try:
+                for j, (ti, rows, k) in enumerate(p for p in plan if p[0] == i):
+                    off = (i * 131 + j * 17) % (len(pool) - rows)
+                    body = {"queries": pool[off:off + rows].tolist(), "k": k}
+                    t = time.perf_counter()
+                    st, _, resp = _http(port, "POST", "/v1/knn", body)
+                    results.append((rows, k, off, st, resp, (time.perf_counter() - t) * 1e3))
+            except Exception as e:  # re-raised below, on the main thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert not errors, errors
+        ties = 0
+        concurrent = {}
+        for rows, k, off, st, resp, ms in results:
+            assert st == 200 and resp["degraded"] is None, (rows, st, resp.get("error"))
+            ties += o1.check(np.arange(off, off + rows), resp, k, f"{rows}-row request k={k}")
+            concurrent.setdefault(rows, []).append(ms)
+        lines.append(f"{len(results)} requests from {SERVE_CLIENTS} client threads at once: "
+                     f"every answer exact vs oracle ({ties} tied slots)")
+        lines.append(_ms_line("concurrent HTTP request ms", concurrent))
+
+        # the oversized request (brute force in its handler thread), and one
+        # 1-row request sent while it runs: both use the card's one stream
+        big = {}
+
+        def oversized():
+            t = time.perf_counter()
+            big["resp"] = _http(port, "POST", "/v1/knn",
+                                {"queries": pool[:MAX_BATCH + 1].tolist()},
+                                headers={"X-Request-Id": "oversized"})
+            big["ms"] = (time.perf_counter() - t) * 1e3
+
+        ot = threading.Thread(target=oversized)
+        ot.start()
+        while not any(e["type"] == "serve.oversized" and e.get("trace") == "oversized"
+                      for e in flight.recorder().snapshot()):
+            time.sleep(0.01)
+        time.sleep(0.5)
+        t = time.perf_counter()
+        st, _, resp = _http(port, "POST", "/v1/knn", {"queries": pool[:1].tolist()})
+        behind_ms = (time.perf_counter() - t) * 1e3
+        assert st == 200
+        o1.check(np.arange(1), resp, K, "1-row request behind the oversized one")
+        ot.join()
+        st, _, resp = big["resp"]
+        assert st == 200 and resp["degraded"] == "oversized", (st, resp.get("error"))
+        ties = o1.check(np.arange(MAX_BATCH + 1), resp, K, "oversized request")
+        lines.append(f"one {MAX_BATCH + 1}-row oversized request: {big['ms']:.2f} ms (brute "
+                     f"force in its handler thread), exact vs oracle ({ties} tied slots); a "
+                     f"1-row request sent 0.5 s into it: {behind_ms:.2f} ms")
+
+        # one request at a time: the client's HTTP ms, the server's own
+        # total (admission to answer, flight ring) and device-dispatch ms,
+        # beside the same padded batch through the engine (timed above)
+        for rows in seq:
+            for j in range(5):
+                off = min(40 * j, len(pool) - rows)
+                t = time.perf_counter()
+                st, _, resp = _http(port, "POST", "/v1/knn",
+                                    {"queries": pool[off:off + rows].tolist()},
+                                    headers={"X-Request-Id": f"seq-{rows}-{j}"})
+                seq[rows]["http"].append((time.perf_counter() - t) * 1e3)
+                assert st == 200
+                o1.check(np.arange(off, off + rows), resp, K, f"sequential {rows} rows")
+        for e in flight.recorder().snapshot():
+            if e["type"] == "serve.request" and str(e.get("trace", "")).startswith("seq-"):
+                rows = int(e["trace"].split("-")[1])
+                seq[rows]["server"].append(e["total_ms"])
+                seq[rows]["dispatch"].append(e["device_ms"])
+        # the HTTP requests alone, before any write or epoch rebuild
+        http_launches = (scan_mod.scan_tiles.launches, scan_mod.merge_partials.launches)
+        if dev.type == "cuda":
+            assert http_launches[0] > 0, "the HTTP requests never launched the scan kernel"
+        lines.append("one request at a time (exact), median (max) ms of HTTP round trip / "
+                     "server admission-to-answer / its batch dispatch / the same batch "
+                     "through the engine on the main thread (outside the counted window): " + "; ".join(
+                         f"{rows} rows " + " / ".join(
+                             f"{np.median(v[key]):.2f} ({max(v[key]):.2f})"
+                             for key in ("http", "server", "dispatch", "engine"))
+                         for rows, v in sorted(seq.items())))
+
+        # 2. writes: 64 new ids beside query points, 32 moved, 32 deleted
+        # (among them the 1st and the 16th hit of some queries)
+        n = points.shape[0]
+        ext = torch.cat([points, torch.full((SERVE_NEW, DIM), float("inf"), device=dev)])
+        near = pool[:64] + np.float32(0.01)
+        moved_to = pool[64:96] + np.float32(0.02)
+        new_ids = np.arange(n, n + 64)
+        moved = o1.ids[200:232, 1].astype(np.int64)  # 2nd hits of other queries
+        deleted = list(dict.fromkeys([int(x) for x in o1.ids[300:316, 0]]
+                                     + [int(x) for x in o1.ids[316:332, K - 1]]))
+        deleted = [x for x in deleted if x not in set(moved.tolist())][:32]
+        assert len(deleted) == 32 and len(set(moved.tolist())) == 32
+        write_ms = {}
+        for op, body in (("upsert", {"ids": new_ids.tolist(), "points": near.tolist()}),
+                         ("upsert", {"ids": moved.tolist(), "points": moved_to.tolist()}),
+                         ("delete", {"ids": deleted})):
+            t = time.perf_counter()
+            st, _, resp = _http(port, "POST", f"/v1/{op}", body)
+            write_ms.setdefault(op, []).append((time.perf_counter() - t) * 1e3)
+            assert st == 200 and resp["applied"] == len(body["ids"]), (op, st, resp)
+        ext[torch.as_tensor(new_ids, device=dev)] = torch.as_tensor(near, device=dev)
+        ext[torch.as_tensor(moved, device=dev)] = torch.as_tensor(moved_to, device=dev)
+        ext[torch.as_tensor(deleted, device=dev)] = float("inf")
+        assert resp["tombstones"] == 64 and resp["delta_rows"] == 96, resp
+        pool2 = np.concatenate([pool[:96], pool[300:332], pool[500:700]])
+        o2 = Oracle(ext, pool2)
+        st, _, resp = _http(port, "POST", "/v1/knn", {"queries": pool2[:64].tolist()})
+        assert st == 200 and resp["ids"] and all(r[0] == n + j for j, r in enumerate(resp["ids"])), \
+            "an upserted point is not its query's nearest neighbour"
+        ties = 0
+        for off in range(0, len(pool2), 64):
+            rows = np.arange(off, min(off + 64, len(pool2)))
+            for k in (K, 1):
+                st, _, resp = _http(port, "POST", "/v1/knn",
+                                    {"queries": pool2[rows].tolist(), "k": k})
+                assert st == 200
+                ties += o2.check(rows, resp, k, f"after writes, rows {off}+ k={k}")
+        hist = srv.write_latency
+        lines.append("writes over HTTP (64 new ids, 32 moved, 32 deleted incl. 1st and 16th "
+                     "hits): client ms " + ", ".join(f"{op} {', '.join(f'{x:.2f}' for x in v)}"
+                                                     for op, v in write_ms.items())
+                     + "; server apply ms (mean) " + ", ".join(
+                         f"{op} {hist[op].sum / max(hist[op].count, 1):.3f}" for op in hist)
+                     + f"; {len(pool2)} queries after the writes exact vs oracle over the "
+                     f"surviving points ({ties} tied slots)")
+
+        # 3. cross the backlog: an epoch rebuild while queries continue
+        extra_ids = np.arange(n + 64, n + SERVE_NEW)
+        extra_pts = rng.uniform(-100, 100, (len(extra_ids), DIM)).astype(np.float32)
+        ext[torch.as_tensor(extra_ids, device=dev)] = torch.as_tensor(extra_pts, device=dev)
+        o3 = Oracle(ext, pool2)
+        stop_q = threading.Event()
+        during, errors = [], []
+
+        def reader(i):
+            j = 0
+            try:
+                while not stop_q.is_set():
+                    off = (i * 29 + j * 8) % (len(pool2) - 8)
+                    t = time.perf_counter()
+                    st, _, resp = _http(port, "POST", "/v1/knn",
+                                        {"queries": pool2[off:off + 8].tolist()})
+                    during.append((off, st, resp, (time.perf_counter() - t) * 1e3,
+                                   t - t_w))
+                    j += 1
+            except Exception as e:
+                errors.append(e)
+
+        t_w = time.perf_counter()
+        st, _, resp = _http(port, "POST", "/v1/upsert",
+                            {"ids": extra_ids.tolist(), "points": extra_pts.tolist()})
+        assert st == 200 and resp["backlog"] >= SERVE_DELTA_ROWS, resp
+        backlog = resp["backlog"]
+        # the readers start after the write, so every answer they get is
+        # held against the same final point set, before and after the swap
+        readers = [threading.Thread(target=reader, args=(i,)) for i in range(4)]
+        for t in readers:
+            t.start()
+        epoch = 0
+        while epoch != 1:
+            assert time.perf_counter() - t_w < 300, "the epoch rebuild did not land in 300 s"
+            time.sleep(0.05)
+            st, _, h = _http(port, "GET", "/healthz")
+            assert st == 200, st
+            epoch = h["epoch"]
+        swap_s = time.perf_counter() - t_w
+        time.sleep(0.5)  # queries keep running on the new epoch
+        stop_q.set()
+        for t in readers:
+            t.join()
+        assert not errors, errors
+        ties = 0
+        before_swap = sum(1 for d in during if d[4] < swap_s)
+        for off, st, resp, _, _ in during:
+            assert st == 200, (st, resp)
+            ties += o3.check(np.arange(off, off + 8), resp, K, "query across the epoch swap")
+        for off in range(0, len(pool2), 64):
+            rows = np.arange(off, min(off + 64, len(pool2)))
+            st, _, resp = _http(port, "POST", "/v1/knn", {"queries": pool2[rows].tolist()})
+            assert st == 200
+            ties += o3.check(rows, resp, K, "after the swap")
+        ev = flight.recorder().snapshot()
+        t_start = [e["ts"] for e in ev if e["type"] == "mutable.rebuild_start"]
+        t_swap = [e["ts"] for e in ev if e["type"] == "mutable.epoch_swap"]
+        span = [e["seconds"] for e in ev if e["type"] == "span"
+                and e.get("span") == "mutable.rebuild"]
+        lines.append(f"epoch rebuild at backlog {backlog}: /healthz epoch 1 "
+                     f"after {swap_s:.3f} s; rebuild_start -> epoch_swap "
+                     f"{(t_swap[-1] - t_start[-1]) if t_swap and t_start else float('nan'):.3f} s "
+                     f"(flight ring), rebuild span {span[-1] if span else float('nan'):.3f} s; "
+                     f"{len(during)} queries during and after it ({before_swap} sent before "
+                     f"/healthz showed the swap), all 200 and exact "
+                     f"({ties} tied slots); their HTTP ms median "
+                     f"{np.median([d[3] for d in during]):.2f} max "
+                     f"{max(d[3] for d in during):.2f}")
+
+        # 4. the scrape
+        st, _, text = _http(port, "GET", "/metrics")
+        assert st == 200
+        for want in ("kdtree_serve_batches_total", "\nkdtree_epoch 1\n",
+                     "kdtree_mutable_writes_total"):
+            assert want in text, f"/metrics lacks {want.strip()!r}"
+        lines.append("/metrics shows kdtree_serve_batches_total, kdtree_epoch 1, "
+                     "kdtree_mutable_writes_total")
+
+        # 5. stop with requests admitted: each must still be answered
+        done = []
+
+        def late(i):
+            st, _, resp = _http(port, "POST", "/v1/knn",
+                                {"queries": pool2[i * 8:i * 8 + 300].tolist()},
+                                headers={"X-Request-Id": f"drain-{i}"})
+            done.append((i, st, resp))
+
+        drainers = [threading.Thread(target=late, args=(i,)) for i in range(4)]
+        for t in drainers:
+            t.start()
+        t = time.perf_counter()
+        while True:
+            admitted = {e.get("trace") for e in flight.recorder().snapshot()
+                        if e["type"] == "serve.admit"}
+            if all(f"drain-{i}" in admitted for i in range(4)):
+                break
+            assert time.perf_counter() - t < 60, "drain requests were never admitted"
+            time.sleep(0.002)
+        srv.stop()
+        stopped = True
+        for t in drainers:
+            t.join()
+        assert sorted(st for _, st, _ in done) == [200] * 4, [d[:2] for d in done]
+        for i, _, resp in done:
+            o3.check(np.arange(i * 8, i * 8 + 300), resp, K, "drained request")
+        launches = (scan_mod.scan_tiles.launches, scan_mod.merge_partials.launches)
+        lines.append(f"stop(): 4 admitted 300-row requests drained, all 200 and exact; "
+                     f"launches by the server from the zeroed counts to stop(): "
+                     f"scan_tiles.launches={launches[0]}, "
+                     f"merge_partials.launches={launches[1]}, of which the "
+                     f"{len(results) + 2 + 5 * len(seq)} requests before any write: "
+                     f"{http_launches[0]} and {http_launches[1]} (the rest: the "
+                     f"requests after the writes, the epoch rebuild's prewarm "
+                     f"ladder and the drain)")
+        reg = get_registry()
+        swaps = reg.counter("kdtree_mutable_rebuilds_total").value
+        assert swaps == 1, swaps
+    finally:
+        if not stopped:
+            srv.stop()
+
+    # 6. the CLI entry point in a subprocess
+    n_cli = SERVE_CLI_N
+    dev_args = [] if dev.type == "cuda" else ["--device", str(dev)]
+    cmd = [sys.executable, "-m", "kdtree_tpu_torch", *dev_args, "serve", "--seed", str(SEED), "--dim",
+           str(DIM), "--n", str(n_cli), "--k", str(K), "--max-batch", "64", "--port", "0"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=here, stderr=subprocess.PIPE, stdout=subprocess.DEVNULL,
+                            text=True)
+    try:
+        err = []
+        port = None
+        while port is None:
+            line = proc.stderr.readline()
+            if not line:
+                raise AssertionError(f"serve exited {proc.wait()} before ready: {''.join(err)}")
+            err.append(line)
+            if line.startswith("ready:"):
+                port = int(line.rsplit(" ", 1)[1])
+        ready_s = time.perf_counter() - t0
+        cpts = generate_points_rowwise(SEED, DIM, n_cli, device=dev)
+        cq = generate_queries(SEED + 800, DIM, 5, device=dev).cpu().numpy()
+        st, _, resp = _http(port, "POST", "/v1/knn", {"queries": cq.tolist(), "k": 4})
+        assert st == 200, (st, resp)
+        Oracle(cpts, cq).check(np.arange(5), resp, 4, "cli serve answer")
+        proc.send_signal(signal.SIGTERM)
+        rest = proc.communicate(timeout=120)[1]
+        err.append(rest)
+        assert proc.returncode == 0 and "drained; bye" in rest, (proc.returncode, "".join(err))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines.append(f"python -m kdtree_tpu_torch serve --n {n_cli} --max-batch 64: ready in "
+                 f"{ready_s:.2f} s, one 5-row k=4 answer exact vs oracle, SIGTERM -> exit 0 "
+                 f"with 'drained; bye'")
+    lines = [f"{line} [{smi}]" if "ms" in line or " s" in line else line for line in lines]
+    return lines, launches
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     try:
@@ -888,6 +1340,11 @@ def main(argv=None) -> int:
     cli_lines, _ = phase_cli(dev, points, tree, here, "--dfs-round-sweep" in argv)
     for line in cli_lines:
         say("cli", line)
+
+    # 7. the HTTP front over the mutable index, in process and as the CLI
+    serve_lines, _ = phase_serve(dev, points, tree, here, smi)
+    for line in serve_lines:
+        say("serve", line)
 
     record = {"kernels": [{
         "name": "scan_knn",

@@ -200,6 +200,32 @@ def build_morton(points, bucket_cap: int = DEFAULT_BUCKET,
                              bits=bits)
 
 
+def morton_view(points, gid=None, n_real: int | None = None,
+                bucket_cap: int = DEFAULT_BUCKET, bits: int | None = None,
+                device=None) -> MortonTree:
+    """A Morton bucket tree over another index's point storage, answering
+    with that index's ids: ``gid`` maps each row of ``points`` to its
+    original point id (-1 for padding rows, which build into +inf leaves
+    the tiled scan prunes). ``n_real`` overrides the real point count;
+    with ``gid`` given and ``n_real`` omitted it is the count of real ids
+    (one host sync). The epoch rebuild of the mutable index builds its
+    next tree this way, from the surviving main rows and the delta rows.
+    The port of ``kdtree_tpu/ops/morton.py::morton_view``."""
+    tree = build_morton(points, bucket_cap=bucket_cap, bits=bits, device=device)
+    if gid is not None:
+        gid = torch.as_tensor(gid, dtype=torch.int32, device=tree.device)
+        if n_real is None:
+            n_real = int((gid >= 0).sum())
+        bg = torch.where(tree.bucket_gid >= 0,
+                         gid[tree.bucket_gid.long().clamp_min(0)], -1)
+        return MortonTree(tree.node_lo, tree.node_hi, tree.bucket_pts, bg,
+                          n_real, tree.num_levels)
+    if n_real is not None and n_real != tree.n_real:
+        return MortonTree(tree.node_lo, tree.node_hi, tree.bucket_pts,
+                          tree.bucket_gid, n_real, tree.num_levels)
+    return tree
+
+
 # ---------------------------------------------------------------------------
 # query: per-query best-first DFS, lockstep over a chunk of queries
 # ---------------------------------------------------------------------------

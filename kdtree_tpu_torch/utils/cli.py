@@ -1,9 +1,10 @@
-"""Command-line interface of the port: the one-shot subcommands.
+"""Command-line interface of the port: the one-shot subcommands and the
+online server.
 
-The port of ``kdtree_tpu/utils/cli.py``'s ``harness``, ``bench``, ``build``
-and ``query``, for the ``auto``, ``morton``, ``tiled`` and ``bruteforce``
-engines and the ``threefry`` and ``mt19937`` generators. Output bytes and
-exit codes are the reference's:
+The port of ``kdtree_tpu/utils/cli.py``'s ``harness``, ``bench``, ``build``,
+``query`` and ``serve``, for the ``auto``, ``morton``, ``tiled`` and
+``bruteforce`` engines and the ``threefry`` and ``mt19937`` generators.
+Output bytes and exit codes are the reference's:
 
 - ``harness``: the course grading protocol — ``READY`` on stdout, seed
   from stdin (interactive; dim=128, n=500000) or ``SEED DIM NUM_POINTS``
@@ -11,7 +12,10 @@ exit codes are the reference's:
 - ``bench``: per-phase timing (generate, build, query) after a warm-up
   run on another seed, as one JSON line;
 - ``build`` / ``query``: build and save / load and query (npz
-  checkpoint, readable by both packages).
+  checkpoint, readable by both packages);
+- ``serve``: the long-lived HTTP server (``serve/server.py``) over a
+  Morton checkpoint, a points file or the seeded threefry problem, until
+  SIGTERM/SIGINT drains it.
 
 Everything runs on the CUDA device unless ``--device cpu`` asks for the
 CPU. ``auto`` picks an engine by the reference's crossovers
@@ -368,7 +372,108 @@ def cmd_query(args) -> None:
     print("DONE")
 
 
-def main(argv=None) -> None:
+def cmd_serve(args) -> None:
+    """Long-lived online k-NN serving: micro-batched ``POST /v1/knn``, the
+    write path, ``GET /healthz`` readiness and the Prometheus ``GET
+    /metrics``. The snapshot flags, ``--recall-sample`` and ``--no-ladder``
+    of the reference are not here yet (ROADMAP items 10 and 12)."""
+    import signal
+    import threading
+    import zipfile
+
+    from kdtree_tpu_torch.obs import flight
+    from kdtree_tpu_torch.obs import history as obs_history
+    from kdtree_tpu_torch.serve import engine as lifecycle
+    from kdtree_tpu_torch.serve import server as srv
+
+    if args.index and args.points:
+        print("serve needs ONE index source: --index, --points, or the "
+              "seeded --seed/--dim/--n problem", file=sys.stderr)
+        sys.exit(1)
+    tree = points = problem = None
+    if args.index:
+        from kdtree_tpu_torch.utils.checkpoint import load_tree
+
+        try:
+            tree, meta = load_tree(args.index, device=args.device)
+        except (OSError, ValueError, zipfile.BadZipFile) as e:
+            print(f"cannot load tree {args.index}: {e}", file=sys.stderr)
+            sys.exit(1)
+    elif args.points:
+        points = _load_array(args.points, "points")
+        meta = {"points": args.points}
+    else:
+        if args.generator != "threefry":
+            print("note: serve's seeded problem is the threefry row "
+                  f"stream; --generator {args.generator} does not apply",
+                  file=sys.stderr)
+        problem = (args.seed, args.dim, args.n)
+        meta = {"seed": args.seed, "generator": "threefry"}
+    try:
+        state = lifecycle.build_state(
+            tree=tree, points=points, problem=problem, k=args.k,
+            max_batch=args.max_batch, meta=meta,
+            id_offset=args.id_offset or 0,
+            max_delta_rows=args.max_delta_rows,
+            max_delta_frac=args.max_delta_frac,
+            device=args.device,
+        )
+    except TypeError as e:
+        # un-servable checkpoint kind — crisp stderr + exit code
+        print(f"cannot serve: {e}", file=sys.stderr)
+        sys.exit(1)
+    try:
+        httpd = srv.make_server(
+            state, host=args.host, port=args.port,
+            max_wait_ms=args.max_wait_ms, queue_rows=args.queue_depth,
+            debug_faults=args.debug_faults,
+        )
+    except srv.FaultSpecError as e:
+        # a typo'd KDTREE_TPU_FAULTS must fail the drill at startup
+        print(f"bad KDTREE_TPU_FAULTS: {e}", file=sys.stderr)
+        sys.exit(1)
+    host, port = httpd.server_address[:2]
+    stop = threading.Event()
+
+    def _on_signal(signum, frame):
+        stop.set()
+
+    signal.signal(signal.SIGINT, _on_signal)
+    signal.signal(signal.SIGTERM, _on_signal)
+    # SIGUSR2 -> atomic flight-recorder dump: the operator's "what is this
+    # process doing" button, no restart needed
+    if flight.install_signal_handler():
+        print("flight recorder armed: kill -USR2 this pid dumps the "
+              "recent-event ring", file=sys.stderr)
+    print(f"slo engine armed: {len(state.slo_engine.specs)} SLOs over a "
+          f"{obs_history.default_period():g}s-period metric-history ring "
+          "(GET /debug/history; burn-rate verdicts in /healthz and "
+          "kdtree_slo_* on /metrics)", file=sys.stderr)
+    thr = state.engine.rebuild_threshold()
+    print("mutable index armed: POST /v1/upsert + /v1/delete, epoch "
+          "rebuild at backlog >= "
+          f"{'disabled' if thr is None else thr} rows", file=sys.stderr)
+    print(f"kdtree-tpu-torch serve: binding http://{host}:{port} "
+          f"(n={state.engine.tree.n_real}, dim={state.engine.tree.dim}, "
+          f"k<={state.engine.k}, device {state.engine.tree.device}); "
+          "warming up...", file=sys.stderr)
+    try:
+        httpd.start()  # returns once the warmup ladder has run
+    except Exception:
+        # a failed warmup must not leave the non-daemon accept thread
+        # holding the process open with /healthz stuck at 503 forever
+        httpd.stop()
+        raise
+    print(f"ready: POST /v1/knn, GET /healthz, GET /metrics on port "
+          f"{port}", file=sys.stderr, flush=True)
+    stop.wait()
+    print("shutting down: draining in-flight requests...", file=sys.stderr)
+    httpd.stop()
+    print("drained; bye", file=sys.stderr, flush=True)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The CLI's argument parser (``main`` parses with it)."""
     p = argparse.ArgumentParser(prog="kdtree-tpu-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--device", default=None,
@@ -416,6 +521,65 @@ def main(argv=None) -> None:
                         "protocol lines")
     q.set_defaults(fn=cmd_query)
 
+    sv = sub.add_parser(
+        "serve",
+        help="online k-NN serving: micro-batched POST /v1/knn + writes + "
+             "/healthz + Prometheus /metrics (docs/SERVING.md)",
+    )
+    sv.add_argument("--index", default=None, metavar="FILE",
+                    help="serve a checkpoint (a `build --out` npz of a "
+                         "Morton tree)")
+    sv.add_argument("--points", default=None, metavar="FILE",
+                    help="build a Morton index over user data ([N, D] "
+                         ".npy/.npz) at startup and serve it")
+    sv.add_argument("--seed", type=int, default=42,
+                    help="seeded threefry problem (with --dim/--n) when no "
+                         "--index/--points is given")
+    sv.add_argument("--dim", type=int, default=3)
+    sv.add_argument("--n", type=int, default=1 << 20)
+    sv.add_argument("--host", default="127.0.0.1",
+                    help="bind address (default loopback; 0.0.0.0 exposes "
+                         "the server)")
+    sv.add_argument("--port", type=int, default=8080,
+                    help="TCP port (0 = ephemeral, printed on stderr)")
+    sv.add_argument("--k", type=int, default=16,
+                    help="max neighbors per query; batches run at this k "
+                         "and per-request k<=K slices the result")
+    sv.add_argument("--max-batch", type=int, default=1024,
+                    help="micro-batch row cap (rounded up to a power of two)")
+    sv.add_argument("--max-wait-ms", type=float, default=2.0,
+                    help="how long the batcher holds the first request of "
+                         "a batch to coalesce arrivals")
+    sv.add_argument("--queue-depth", type=int, default=None, metavar="ROWS",
+                    help="admission budget in query rows; beyond it "
+                         "requests shed with 429 (default 4x max-batch)")
+    sv.add_argument("--id-offset", type=int, default=None, metavar="ROWS",
+                    help="sharded serving: this process holds rows "
+                         "[offset, offset+n) of a partitioned point set "
+                         "and answers GLOBAL ids (local id + offset); "
+                         "default 0")
+    sv.add_argument("--max-delta-rows", type=int, default=None,
+                    metavar="ROWS",
+                    help="mutable index: epoch rebuild triggers when the "
+                         "write backlog (delta rows + tombstones) reaches "
+                         "this many rows (default 4096; <= 0 disables "
+                         "this bound)")
+    sv.add_argument("--max-delta-frac", type=float, default=None,
+                    metavar="FRAC",
+                    help="mutable index: epoch rebuild triggers when the "
+                         "write backlog reaches this fraction of the "
+                         "main tree (default 0.25; <= 0 disables this "
+                         "bound; the tighter of the two bounds wins)")
+    sv.add_argument("--debug-faults", action="store_true",
+                    help="arm POST /debug/faults (live fault injection) — "
+                         "a remote wedge-this-process button, so it is "
+                         "opt-in; setting KDTREE_TPU_FAULTS also arms it")
+    sv.set_defaults(fn=cmd_serve)
+    return p
+
+
+def main(argv=None) -> None:
+    p = build_parser()
     args = p.parse_args(argv)
     if args.cmd == "harness" and args.spec and len(args.spec) != 3:
         print(f"Usage: {p.prog} harness SEED DIM_POINTS  NUM_POINTS", file=sys.stderr)

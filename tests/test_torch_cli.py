@@ -233,3 +233,64 @@ def test_golden_harness(seed):
     code, out, _ = _port(["harness"], stdin=f"{seed}\n")
     assert code == 0
     assert out == (GOLDEN / f"ref_seed{seed}_128d_500k.txt").read_text()
+
+
+def _start_serve(argv):
+    """A ``python -m kdtree_tpu_torch serve`` child and its port, read from
+    the ready line on stderr."""
+    import os
+    import subprocess
+
+    repo = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    proc = subprocess.Popen([sys.executable, "-m", "kdtree_tpu_torch", *argv],
+                            cwd=str(repo), env=env, stderr=subprocess.PIPE,
+                            stdout=subprocess.DEVNULL, text=True)
+    lines = []
+    for line in proc.stderr:
+        lines.append(line)
+        if line.startswith("ready:"):
+            return proc, int(line.rsplit(" ", 1)[1]), lines
+    proc.wait(timeout=60)
+    raise AssertionError(f"serve exited {proc.returncode}: {''.join(lines)}")
+
+
+def test_serve_subprocess_answers_like_the_reference_and_drains():
+    import signal
+    import urllib.request
+
+    from kdtree_tpu.ops.generate import generate_points_rowwise
+    from kdtree_tpu.ops.morton import build_morton
+    from kdtree_tpu.serve.lifecycle import ServeEngine
+
+    proc, port, lines = _start_serve(["--device", "cpu", "serve", "--seed", "42", "--dim",
+                                      "3", "--n", "4000", "--k", "4", "--max-batch", "8",
+                                      "--port", "0"])
+    try:
+        q = np.random.default_rng(3).uniform(-100, 100, (3, 3)).astype(np.float32)
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/knn",
+                                     data=json.dumps({"queries": q.tolist(), "k": 3}).encode())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            got = json.loads(r.read())
+        ref = ServeEngine(build_morton(generate_points_rowwise(42, 3, 4000)), 4)
+        d2, ids, _ = ref.knn_batch(np.concatenate([q, np.repeat(q[-1:], 5, 0)]))
+        assert got["ids"] == ids[:3, :3].tolist()
+        assert got["distances"] == np.sqrt(d2[:3, :3].astype(np.float64)).tolist()
+        proc.send_signal(signal.SIGTERM)
+        rest = proc.communicate(timeout=60)[1]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, "".join(lines) + rest
+    assert "drained; bye" in rest and "mutable index armed" in "".join(lines)
+
+
+@pytest.mark.parametrize("flags, code", [
+    (["--snapshot", "snapdir"], 2), (["--recall-sample", "0.1"], 2), (["--no-ladder"], 2),
+    (["--index", "a.npz", "--points", "b.npy"], 1), (["--index", "missing.npz"], 1),
+])
+def test_serve_flags_not_ported_or_conflicting(flags, code):
+    c, out, err = _port(["serve", "--port", "0", *flags])
+    assert c == code and out == ""
+    assert ("unrecognized arguments" in err) == (code == 2)

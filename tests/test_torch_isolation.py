@@ -26,6 +26,24 @@ def _modules():
     return names
 
 
+def _serve_engine():
+    from kdtree_tpu_torch.serve import engine
+
+    return engine
+
+
+def _server():
+    from kdtree_tpu_torch.serve import server
+
+    return server
+
+
+def _cli():
+    from kdtree_tpu_torch.utils import cli
+
+    return cli
+
+
 def _run(code, env_extra=None):
     env = dict(os.environ, **(env_extra or {}))
     env["PYTHONPATH"] = str(REPO)
@@ -67,6 +85,10 @@ def test_public_surface_resolves_lazily():
     lambda: kdtree_tpu_torch.resolve_device(None),
     lambda: kdtree_tpu_torch.resolve_device("cuda"),
     lambda: kdtree_tpu_torch.load_tree("no-such-checkpoint.npz"),
+    lambda: _serve_engine().build_state(problem=(1, 3, 64)),
+    lambda: _serve_engine().build_state(points=torch.zeros(64, 3).numpy()),
+    lambda: _server().make_server(_serve_engine().build_state(problem=(1, 3, 64))),
+    lambda: _cli().cmd_serve(_cli().build_parser().parse_args(["serve", "--n", "64"])),
 ])
 def test_default_device_without_cuda_raises(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
