@@ -77,6 +77,31 @@ Phases, one line each (any failure raises and exits non-zero):
              against the oracle, SIGTERM -> exit 0 and "drained; bye".
              Prints HTTP ms by row count (concurrent, and one request at
              a time), the writes' ms and the rebuild's s.
+8. snapshot — on phase 4's tree: save_snapshot (timed, bytes) and
+             load_snapshot (timed; the sha256 pass and the
+             host-to-device copies apart), arrays torch.equal to the built
+             ones, 1/7/64/1000-row requests the same from both; load s beside
+             phase 4's build s. Blue/green: an in-process primary over the
+             loaded tree with a snapshot sink (bootstrap emit v1, epoch
+             rebuild at a backlog of 64) and a read-only secondary loaded
+             from its directory with a follower (poll 0.2 s); a write to the
+             secondary gets 403; 64 writes to the primary -> epoch 1 -> the
+             sink writes v2 -> the secondary adopts it (its /healthz shows
+             version 2), while 4 readers query the secondary, each answer
+             held against the oracle over the epoch that answered it (the
+             batch's flight event). The verbs over HTTP on the secondary:
+             /v1/radius (r=1.5), /v1/range (cubes of side 3), /v1/count in
+             both forms at 1, 64 and 1000 rows, and one 1025-row radius
+             request (the oracle in its handler thread), every answer equal
+             to verbs/oracle.py on the card; HTTP ms and engine ms by verb and
+             rows, overflow retries, and the frontier/fold split of a
+             1000-row radius batch under torch.profiler. Scan-kernel
+             launches are counted from the end of the secondary's warmup to
+             its stop and over its k-NN requests alone; both must be > 0.
+             Then ``build --save`` at 2^20 points in process and ``python -m
+             kdtree_tpu_torch serve --snapshot`` as a subprocess: its ready
+             line, one /v1/knn and one /v1/radius answer against the oracle,
+             SIGTERM -> exit 0.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -115,6 +140,13 @@ SERVE_CLIENTS = 8  # phase 7's concurrent HTTP clients
 SERVE_DELTA_ROWS = 256  # phase 7's epoch-rebuild backlog
 SERVE_NEW = 164  # new ids phase 7 upserts: 64 beside queries, 100 to cross the backlog
 SERVE_CLI_N = 1 << 20  # points of phase 7's CLI server
+SNAP_DELTA_ROWS = 64  # phase 8's primary: epoch-rebuild backlog
+SNAP_READERS = 4  # phase 8's reader threads on the secondary
+VERB_R = 1.5  # phase 8's radius: about 30 hits per query at 2^24 points
+VERB_SIDE = 3.0  # phase 8's range cubes
+VERB_ROWS = (1, 64, 1000)
+SNAP_CLI_N = 1 << 20  # points of phase 8's `build --save` / `serve --snapshot`
+SNAP_CLI_R = 4.0  # its radius: about 35 hits per query at 2^20 points
 
 
 def say(phase: str, msg: str) -> None:
@@ -491,7 +523,7 @@ def serve_profile(engine, served):
         if prof is not None:
             try:
                 prof.stop()
-                events = prof.key_averages()
+                events = _device_events(prof)
             except Exception as e:  # the trace, not the request, failed
                 why = f"{type(e).__name__}: {e}"
         if why is not None:
@@ -500,15 +532,12 @@ def serve_profile(engine, served):
             continue
         scan = merge = other = 0.0
         for e in events:
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0.0)
-            if "scan_knn_merge" in e.key:
-                merge += us
-            elif "scan_knn" in e.key:
-                scan += us
+            if "scan_knn_merge" in e.name:
+                merge += _event_us(e)
+            elif "scan_knn" in e.name:
+                scan += _event_us(e)
             else:
-                other += us
+                other += _event_us(e)
         if scan + merge + other == 0:
             lines.append(f"request {rows} rows: {wall:.2f} ms under the profiler; device time "
                          f"not measured (the trace holds no device events)")
@@ -1209,6 +1238,441 @@ def phase_serve(dev, points, tree, here, smi):
     return lines, launches
 
 
+def _device_events(prof):
+    """The device-side events (kernels, copies, memsets) a stopped
+    torch.profiler holds, each once: ``key_averages()`` would count a
+    kernel twice, under its own name and as the self device time of the
+    CPU op that launched it, and add the device spans of
+    ``record_function`` ranges."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def _event_us(e) -> float:
+    us = getattr(e, "device_time_total", None)
+    return us if us is not None else e.cuda_time_total
+
+
+def _device_us(prof) -> float:
+    """Device microseconds of every kernel and copy a stopped
+    torch.profiler holds."""
+    return sum(_event_us(e) for e in _device_events(prof))
+
+
+def _range_device_ms(prof, name):
+    """(device ms, instances) of the kernels launched inside every
+    ``record_function(name)`` range a stopped torch.profiler holds."""
+    from torch.autograd import DeviceType
+
+    total, n = 0.0, 0
+    for e in prof.events():
+        if e.name == name and e.device_type == DeviceType.CPU:
+            total += _event_us(e)  # the kernels of the range and its children
+            n += 1
+    return total / 1e3, n
+
+
+def verb_split(tree, queries, r):
+    """The frontier/fold split of one radius_search call under
+    torch.profiler, read from the ``verbs.frontier`` and ``verbs.fold``
+    ranges that verbs/device.py opens on every pass (overflow retries
+    included). Returns one line."""
+    import torch
+
+    from kdtree_tpu_torch.verbs import device as vd
+
+    Q = queries.shape[0]
+    prof, why = _start_profiler()
+    t0 = time.perf_counter()
+    res = vd.radius_search(tree, queries, r)
+    if tree.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    split = None
+    if prof is not None:
+        try:
+            prof.stop()
+            whole = _device_us(prof) / 1e3
+            front, nf = _range_device_ms(prof, "verbs.frontier")
+            fold, nd = _range_device_ms(prof, "verbs.fold")
+            split = (whole, front, nf, fold, nd)
+        except Exception as e:  # the trace, not the call, failed
+            why = f"{type(e).__name__}: {e}"
+    if split is not None and (split[0] == 0.0 or split[2] == 0 or split[4] == 0):
+        split, why = None, "the trace holds no device events in the verbs' ranges"
+    head = (f"{Q}-row radius batch (r={r}, {int(res.counts.sum())} hits) under torch.profiler: "
+            f"{wall:.2f} ms wall, {res.retries} overflow retries")
+    if split is None:
+        return f"{head}; device split not measured (profiler: {why})"
+    whole, front, nf, fold, nd = split
+    return (f"{head}; device {whole:.3f} ms: verbs.frontier {front:.3f} ms over {nf} passes, "
+            f"verbs.fold {fold:.3f} ms over {nd} passes, the rest (query sort, padding, "
+            f"copies) {whole - front - fold:.3f} ms")
+
+
+def _check_verb(what, resp, ora, verb, degraded=None):
+    """A verb answer against its oracle: counts equal; ids (and the
+    distances, float64 sqrt of the f32 d2) equal row by row, in the
+    canonical order; nothing truncated."""
+    assert resp["truncated"] is False and resp["degraded"] == degraded, (what, resp.get("error"))
+    assert resp["counts"] == ora.counts.astype(np.int64).tolist(), f"{what}: counts differ"
+    rows = range(len(resp["counts"]))
+    if verb == "radius":
+        assert resp["ids"] == [ora.ids[q, :ora.counts[q]].astype(np.int64).tolist()
+                               for q in rows], f"{what}: ids differ"
+        assert resp["distances"] == [np.sqrt(ora.d2[q, :ora.counts[q]].astype(np.float64))
+                                     .tolist() for q in rows], f"{what}: distances differ"
+    elif verb == "range":
+        assert resp["ids"] == [ora.ids[q, :ora.counts[q]].astype(np.int64).tolist()
+                               for q in rows], f"{what}: ids differ"
+    else:
+        assert "ids" not in resp and "distances" not in resp, what
+
+
+def phase_snapshot(dev, points, tree, here, smi, build_s):
+    """Phase 8: snapshots, the blue/green follower and the query verbs (see
+    the module docstring). Returns the lines to print."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    import torch
+
+    import kdtree_tpu_torch.kernels.scan_knn as scan_mod
+    from kdtree_tpu_torch import snapshot as snap
+    from kdtree_tpu_torch.obs import flight
+    from kdtree_tpu_torch.ops.generate import generate_points_rowwise, generate_queries
+    from kdtree_tpu_torch.serve.engine import ServeEngine, batch_bucket, build_state
+    from kdtree_tpu_torch.serve.server import make_server
+    from kdtree_tpu_torch.verbs import oracle as vo
+
+    on_card = dev.type == "cuda"
+    dev_args = [] if on_card else ["--device", str(dev)]
+    lines = []
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-snapshots-")
+    # the port's plan store for this run (and the serve subprocess) only
+    os.environ["KDTREE_TPU_TORCH_PLAN_CACHE"] = os.path.join(tmp, "plans")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def last_event(kind):
+        ev = [e for e in flight.recorder().snapshot() if e["type"] == kind]
+        return ev[-1] if ev else {}
+
+    servers = []
+    follower = None
+    try:
+        # 1. the round trip: save, load with the checksum pass, same arrays
+        # and the same answers as the built tree
+        d = os.path.join(tmp, "roundtrip")
+        sync()
+        t0 = time.perf_counter()
+        man = snap.save_snapshot(d, tree, plan_keys=snap.plan_keys_for(tree, K, MAX_BATCH))
+        save_s = time.perf_counter() - t0
+        nbytes = sum(seg["bytes"] for seg in man["segments"].values())
+        t0 = time.perf_counter()
+        loaded, man2 = snap.load_snapshot(d, device=dev)
+        sync()
+        load_s = time.perf_counter() - t0
+        ev = last_event("snapshot.load")
+        for name in ("node_lo", "node_hi", "bucket_pts", "bucket_gid"):
+            assert torch.equal(getattr(tree, name), getattr(loaded, name)), name
+        assert (loaded.n_real, loaded.num_levels) == (tree.n_real, tree.num_levels)
+        built, from_snap = ServeEngine(tree, K), ServeEngine(loaded, K)
+        for rows in (1, 7, 64, 1000):
+            q = generate_queries(SEED + 810 + rows, DIM, rows, device=dev).cpu().numpy()
+            b = batch_bucket(rows, MAX_BATCH)
+            qp = np.concatenate([q, np.broadcast_to(q[-1], (b - rows, DIM))])
+            a, c = built.knn_batch(qp), from_snap.knn_batch(qp)
+            assert np.array_equal(a[0], c[0]) and np.array_equal(a[1], c[1]), rows
+        lines.append(f"snapshot of the 2^{N_POINTS.bit_length() - 1}-point tree: save "
+                     f"{save_s:.3f} s ({nbytes} bytes in 4 segments, each array fetched once, "
+                     f"sha256 while writing); load_snapshot {load_s:.3f} s "
+                     f"(sha256 pass {ev.get('verify_seconds', float('nan')):.3f} s, "
+                     f"host-to-device copies {ev.get('copy_seconds', float('nan')):.3f} s) "
+                     f"beside phase 4's build {build_s:.3f} s; loaded arrays torch.equal to the "
+                     "built ones; 1-, 7-, 64- and 1000-row requests answer the same from both")
+        del built, from_snap
+
+        # 2. blue/green: a primary that emits on every epoch swap, and a
+        # read-only secondary that follows its directory
+        bg = os.path.join(tmp, "bluegreen")
+
+        def sink(t, epoch):
+            keys = snap.plan_keys_for(t, K, MAX_BATCH)
+            snap.save_snapshot(bg, t, epoch=epoch, plan_keys=keys,
+                               plan_profiles=snap.collect_plan_profiles(keys))
+
+        t0 = time.perf_counter()
+        pstate = build_state(tree=loaded, k=K, max_batch=MAX_BATCH,
+                             max_delta_rows=SNAP_DELTA_ROWS, snapshot_sink=sink,
+                             meta={"snapshot": {"dir": bg, "version": 1, "epoch": 0,
+                                                "role": "primary"}})
+        sink(pstate.engine.tree, pstate.engine.epoch)  # the bootstrap emit
+        psrv = make_server(pstate, port=0)
+        psrv.start()
+        servers.append(psrv)
+        stree, sman = snap.load_snapshot(bg, device=dev)
+        blk = {"dir": bg, "version": sman["version"], "epoch": sman["epoch"],
+               "role": "secondary"}
+        sstate = build_state(tree=stree, k=K, max_batch=MAX_BATCH, read_only=True,
+                             epoch0=sman["epoch"], meta={"snapshot": blk})
+        ssrv = make_server(sstate, port=0, queue_rows=16 * MAX_BATCH)
+        ssrv.start()
+        servers.append(ssrv)
+        up_s = time.perf_counter() - t0
+        pport, sport = psrv.server_address[1], ssrv.server_address[1]
+
+        def on_adopt(m, _blk=blk):
+            _blk["version"] = int(m.get("version", 0))
+            _blk["epoch"] = int(m.get("epoch", 0))
+
+        from kdtree_tpu_torch.snapshot import SnapshotFollower
+
+        follower = SnapshotFollower(sstate.engine, bg, poll_s=0.2,
+                                    start_version=sman["version"], on_adopt=on_adopt)
+        follower.start()
+        # the secondary's warmup is over: its launches are counted from here
+        scan_mod.scan_tiles.launches = 0
+        scan_mod.merge_partials.launches = 0
+        st, _, resp = _http(sport, "POST", "/v1/upsert",
+                            {"ids": [0], "points": [[0.0] * DIM]})
+        assert st == 403 and "primary" in resp["error"], (st, resp)
+        lines.append(f"primary (snapshot_save, bootstrap emit v1) and read-only secondary "
+                     f"(load_snapshot + follower, poll 0.2 s) up with their warmup ladders "
+                     f"in {up_s:.3f} s; a write to the secondary: 403")
+
+        n = points.shape[0]
+        pool = generate_queries(SEED + 900, DIM, 256, device=dev).cpu().numpy()
+        new_pts = (pool[:SNAP_DELTA_ROWS] + np.float32(0.01)).astype(np.float32)
+        ext = torch.cat([points, torch.as_tensor(new_pts, device=dev)])
+        o0, o1 = Oracle(points, pool), Oracle(ext, pool)
+        stop_q = threading.Event()
+        during, errors = [], []
+
+        def reader(i):
+            j = 0
+            try:
+                while not stop_q.is_set():
+                    off = (i * 37 + j * 8) % (len(pool) - 8)
+                    trace = f"bg-{i}-{j}"
+                    t = time.perf_counter()
+                    st, _, resp = _http(sport, "POST", "/v1/knn",
+                                        {"queries": pool[off:off + 8].tolist()},
+                                        headers={"X-Request-Id": trace})
+                    ms = (time.perf_counter() - t) * 1e3
+                    # the epoch that answered: the batch event names its
+                    # traces, and is recorded before the answer leaves
+                    epochs = [e["epoch"] for e in flight.recorder().snapshot()
+                              if e["type"] == "serve.batch" and trace in e.get("traces", ())]
+                    during.append((off, st, resp, ms, epochs[-1] if epochs else None))
+                    j += 1
+            except Exception as e:  # re-raised below, on the main thread
+                errors.append(e)
+
+        readers = [threading.Thread(target=reader, args=(i,)) for i in range(SNAP_READERS)]
+        for t in readers:
+            t.start()
+        time.sleep(0.2)
+        t_w = time.perf_counter()
+        st, _, resp = _http(pport, "POST", "/v1/upsert",
+                            {"ids": list(range(n, n + SNAP_DELTA_ROWS)),
+                             "points": new_pts.tolist()})
+        assert st == 200 and resp["backlog"] >= SNAP_DELTA_ROWS, (st, resp)
+        version = 1
+        while version != 2:
+            assert time.perf_counter() - t_w < 300, "the secondary did not adopt v2 in 300 s"
+            time.sleep(0.05)
+            st, _, h = _http(sport, "GET", "/healthz")
+            assert st == 200, st
+            version = h["snapshot"]["version"]
+        adopt_s = time.perf_counter() - t_w
+        assert h["epoch"] == 1 and h["snapshot"]["epoch"] == 1 and h["read_only"] is True, h
+        time.sleep(0.5)  # the readers go on over the adopted epoch
+        stop_q.set()
+        for t in readers:
+            t.join()
+        assert not errors, errors
+        ties, by_epoch = 0, {0: 0, 1: 0}
+        for off, st, resp, _, epoch in during:
+            assert st == 200 and epoch in (0, 1), (st, epoch, resp.get("error"))
+            by_epoch[epoch] += 1
+            ties += (o0 if epoch == 0 else o1).check(np.arange(off, off + 8), resp, K,
+                                                    f"secondary answer at epoch {epoch}")
+        assert by_epoch[1] > 0, "no answer came from the adopted epoch"
+        sv = last_event("snapshot.save")
+        ld = last_event("snapshot.load")
+        sw = last_event("snapshot.follow_swap")
+        lines.append(f"64 writes to the primary -> epoch rebuild -> sink v2 -> the secondary's "
+                     f"/healthz shows version 2, epoch 1 after {adopt_s:.3f} s (v2 save "
+                     f"{sv.get('seconds', float('nan')):.3f} s, its load "
+                     f"{ld.get('seconds', float('nan')):.3f} s, follow_swap at "
+                     f"{sw.get('ts', float('nan')) - sv.get('ts', float('nan')):.3f} s after "
+                     f"the save, flight ring); {len(during)} reader requests of 8 rows "
+                     f"through the adoption ({by_epoch[0]} answered by epoch 0, {by_epoch[1]} "
+                     f"by epoch 1), each exact vs the oracle over its epoch ({ties} tied slots); "
+                     f"HTTP ms median {np.median([x[3] for x in during]):.2f} max "
+                     f"{max(x[3] for x in during):.2f}")
+
+        # 3. the verbs over HTTP on the secondary (epoch 1: the 2^24 points
+        # and the 64 written ones), every answer against verbs/oracle.py.
+        # Each request's queries are the first rows of one query set, so
+        # one oracle answer per verb serves every size (rows are
+        # independent, and an answer is checked by its counts' prefix)
+        vq = generate_queries(SEED + 950, DIM, MAX_BATCH + 1, device=dev).cpu().numpy()
+        half = np.float32(VERB_SIDE / 2)
+        t = time.perf_counter()
+        rad_all = vo.radius_oracle(ext, vq, VERB_R)
+        box_all = vo.range_oracle(ext, vq - half, vq + half)
+        oracle_s = time.perf_counter() - t
+
+        def head(res, rows):
+            return res._replace(counts=res.counts[:rows],
+                                d2=None if res.d2 is None else res.d2[:rows],
+                                ids=res.ids[:rows])
+
+        http_ms, eng_ms, retries = {}, {}, {}
+        for rows in VERB_ROWS:
+            q = vq[:rows]
+            lo, hi = q - half, q + half
+            rad, box = head(rad_all, rows), head(box_all, rows)
+            assert int(rad.counts.sum()) > 0 and int(box.counts.sum()) > 0, "vacuous verbs"
+            b = batch_bucket(rows, MAX_BATCH)
+            qp = np.concatenate([q, np.broadcast_to(q[-1], (b - rows, DIM))])
+            lop = np.concatenate([lo, np.broadcast_to(lo[-1], (b - rows, DIM))])
+            hip = np.concatenate([hi, np.broadcast_to(hi[-1], (b - rows, DIM))])
+            rp = np.full(b, VERB_R, np.float32)
+            for verb, path, body, ora, call in (
+                ("radius", "/v1/radius", {"queries": q.tolist(), "r": VERB_R}, rad,
+                 lambda: sstate.engine.radius_batch(qp, rp)),
+                ("range", "/v1/range", {"lo": lo.tolist(), "hi": hi.tolist()}, box,
+                 lambda: sstate.engine.range_batch(lop, hip)),
+                ("count (radius)", "/v1/count", {"queries": q.tolist(), "r": VERB_R}, rad,
+                 lambda: sstate.engine.radius_batch(qp, rp, with_ids=False)),
+                ("count (box)", "/v1/count", {"lo": lo.tolist(), "hi": hi.tolist()}, box,
+                 lambda: sstate.engine.range_batch(lop, hip, with_ids=False)),
+            ):
+                t = time.perf_counter()
+                st, _, resp = _http(sport, "POST", path, body)
+                http_ms[(verb, rows)] = (time.perf_counter() - t) * 1e3
+                assert st == 200, (verb, rows, st, resp)
+                _check_verb(f"{verb} {rows} rows", resp, ora, verb.split()[0])
+                t = time.perf_counter()
+                res = call()
+                eng_ms[(verb, rows)] = (time.perf_counter() - t) * 1e3
+                retries[(verb, rows)] = res.retries
+                assert res.counts[:rows].tolist() == resp["counts"], (verb, rows)
+        big = vq[:MAX_BATCH + 1]
+        t = time.perf_counter()
+        st, _, resp = _http(sport, "POST", "/v1/radius", {"queries": big.tolist(), "r": VERB_R})
+        big_ms = (time.perf_counter() - t) * 1e3
+        assert st == 200, (st, resp)
+        _check_verb("oversized radius", resp, rad_all, "radius", degraded="oversized")
+        verbs_seen = sorted({v for v, _ in http_ms}, key=[
+            "radius", "range", "count (radius)", "count (box)"].index)
+        lines.append("verbs over HTTP on the secondary, every answer equal to verbs/oracle.py "
+                     "on the same device (counts, ids, distances); HTTP ms / engine ms (overflow "
+                     "retries) by verb and rows: " + "; ".join(
+                         f"{v} " + ", ".join(
+                             f"{rows}: {http_ms[(v, rows)]:.2f} / {eng_ms[(v, rows)]:.2f} "
+                             f"({retries[(v, rows)]})" for rows in VERB_ROWS)
+                         for v in verbs_seen)
+                     + f"; one {MAX_BATCH + 1}-row radius request (the oracle in its handler "
+                     f"thread): {big_ms:.2f} ms, exact; the checks' radius and range oracles "
+                     f"over {MAX_BATCH + 1} rows: {oracle_s:.2f} s")
+
+        # the snapshot-served path alone: the secondary's k-NN requests
+        before = scan_mod.scan_tiles.launches
+        for rows in (1, 64, len(pool)):
+            st, _, resp = _http(sport, "POST", "/v1/knn", {"queries": pool[:rows].tolist()})
+            assert st == 200
+            o1.check(np.arange(rows), resp, K, f"secondary {rows}-row k-NN")
+        served_launches = scan_mod.scan_tiles.launches - before
+        follower.stop()
+        follower = None
+        ssrv.stop()
+        servers.remove(ssrv)
+        launches = (scan_mod.scan_tiles.launches, scan_mod.merge_partials.launches)
+        psrv.stop()
+        servers.remove(psrv)
+        if on_card:
+            assert served_launches > 0, "the snapshot-served k-NN never launched the scan kernel"
+            assert launches[0] > 0, "no scan kernel launch after the secondary's warmup"
+        lines.append(f"scan kernel launches from the end of the secondary's warmup to its "
+                     f"stop: scan_tiles.launches={launches[0]}, "
+                     f"merge_partials.launches={launches[1]} (the secondary's requests and "
+                     f"adoption prewarm, and the primary's epoch-rebuild prewarm); of which "
+                     f"the secondary's three k-NN requests after the adoption: "
+                     f"{served_launches}")
+        lines.append(verb_split(sstate.engine.tree, vq[:1000], VERB_R))
+
+        # 4. the CLI: build --save, then serve --snapshot as a subprocess
+        cd = os.path.join(tmp, "cli")
+        n_cli = SNAP_CLI_N
+        t0 = time.perf_counter()
+        out, _ = run_cli([*dev_args, "--generator", "threefry", "--engine", "morton", "build",
+                          "--seed", str(SEED), "--dim", str(DIM), "--n", str(n_cli),
+                          "--save", cd])
+        cli_build_s = time.perf_counter() - t0
+        assert out.startswith("serving snapshot v1 (epoch 0, n="), out
+        cmd = [sys.executable, "-m", "kdtree_tpu_torch", *dev_args, "serve", "--snapshot", cd,
+               "--k", str(K), "--max-batch", "64", "--port", "0"]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=here, stderr=subprocess.PIPE,
+                                stdout=subprocess.DEVNULL, text=True)
+        try:
+            err, port = [], None
+            while port is None:
+                line = proc.stderr.readline()
+                if not line:
+                    raise AssertionError(f"serve exited {proc.wait()} before ready: "
+                                         f"{''.join(err)}")
+                err.append(line)
+                if line.startswith("ready:"):
+                    port = int(line.rsplit(" ", 1)[1])
+            ready_s = time.perf_counter() - t0
+            assert any(x.startswith("snapshot loaded: v1 epoch 0") for x in err), err
+            cpts = generate_points_rowwise(SEED, DIM, n_cli, device=dev)
+            cq = generate_queries(SEED + 960, DIM, 5, device=dev).cpu().numpy()
+            st, _, resp = _http(port, "POST", "/v1/knn", {"queries": cq.tolist(), "k": 4})
+            assert st == 200, (st, resp)
+            Oracle(cpts, cq).check(np.arange(5), resp, 4, "serve --snapshot k-NN answer")
+            st, _, resp = _http(port, "POST", "/v1/radius",
+                                {"queries": cq.tolist(), "r": SNAP_CLI_R})
+            assert st == 200, (st, resp)
+            ora = vo.radius_oracle(cpts, cq, SNAP_CLI_R)
+            assert int(ora.counts.sum()) > 0, "vacuous CLI radius"
+            _check_verb("serve --snapshot radius answer", resp, ora, "radius")
+            proc.send_signal(signal.SIGTERM)
+            rest = proc.communicate(timeout=120)[1]
+            err.append(rest)
+            assert proc.returncode == 0 and "drained; bye" in rest, (proc.returncode,
+                                                                      "".join(err))
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        lines.append(f"build --save at 2^{n_cli.bit_length() - 1} points in {cli_build_s:.2f} s, "
+                     f"then python -m kdtree_tpu_torch serve --snapshot: 'snapshot loaded: v1 "
+                     f"epoch 0' and ready in {ready_s:.2f} s; one 5-row k=4 /v1/knn and one "
+                     f"5-row /v1/radius (r={SNAP_CLI_R}, {int(ora.counts.sum())} hits) answer "
+                     f"exact vs the oracle; SIGTERM -> exit 0 with 'drained; bye'")
+    finally:
+        if follower is not None:
+            follower.stop()
+        for srv in servers:
+            srv.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return [f"{line} [{smi}]" if "ms" in line or " s" in line else line for line in lines]
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     try:
@@ -1345,6 +1809,10 @@ def main(argv=None) -> int:
     serve_lines, _ = phase_serve(dev, points, tree, here, smi)
     for line in serve_lines:
         say("serve", line)
+
+    # 8. snapshots, the blue/green follower and the query verbs
+    for line in phase_snapshot(dev, points, tree, here, smi, build_s):
+        say("snapshot", line)
 
     record = {"kernels": [{
         "name": "scan_knn",

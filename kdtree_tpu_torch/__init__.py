@@ -3,7 +3,8 @@
 The exact k-NN main path over a Morton bucket tree: seeded generation,
 the one-sort bucket-tree build, the per-query best-first DFS, the
 Hilbert-tiled query engine with its hand-written CUDA scan kernel, the
-serving engine facade, npz checkpoints, and the one-shot CLI
+query verbs (radius, range, count), the serving engine facade and HTTP
+front, npz checkpoints, serving snapshots, and the CLI
 (``python -m kdtree_tpu_torch``). The JAX
 package ``kdtree_tpu`` stays beside this one as the reference it is held
 against; this package imports neither jax nor ``kdtree_tpu``.
@@ -36,6 +37,10 @@ _LAZY = {
     "tree_to_arrays": "kdtree_tpu_torch.interop",
     "save_tree": "kdtree_tpu_torch.utils.checkpoint",
     "load_tree": "kdtree_tpu_torch.utils.checkpoint",
+    "save_snapshot": "kdtree_tpu_torch.snapshot.store",
+    "load_snapshot": "kdtree_tpu_torch.snapshot.store",
+    "radius_search": "kdtree_tpu_torch.verbs.device",
+    "range_search": "kdtree_tpu_torch.verbs.device",
     "bruteforce": None,
 }
 

@@ -18,6 +18,10 @@ while keeping every answer **exact at every moment**:
   might be one candidate short at the k boundary — so the result is
   byte-identical to a rebuild-from-scratch index over the surviving
   points, always.
+- **Verbs** (radius / range / count) overlay the same way: tombstoned
+  hits are struck, delta hits brute-forced and unioned; a count answer
+  subtracts the tombstoned points inside its region and adds the
+  delta's.
 
 A background **epoch rebuilder** compacts main+delta into a fresh Morton
 tree once the write backlog (delta rows + tombstones) crosses the
@@ -25,7 +29,10 @@ configured threshold, pre-warms it, and swaps it in atomically between
 batches: queries snapshot the epoch state per call, so an in-flight
 batch finishes on the epoch it started on and the next batch runs on the
 new one. Writes that arrive during a rebuild apply live AND append to a
-journal that is replayed onto the new epoch before the swap.
+journal that is replayed onto the new epoch before the swap. A primary
+hands each new epoch's tree to its ``snapshot_sink`` after the swap (the
+blue/green artifact), and a snapshot-following replica swaps in a loaded
+tree through :meth:`MutableEngine.adopt_tree`.
 
 Tombstones are copy-on-write: each mask batch builds NEW masked tensors
 with the out-of-place ``Tensor.index_put`` (JAX's ``.at[].set``), never
@@ -36,8 +43,7 @@ Threading model: one RLock serializes writers, epoch swaps, and the
 per-query snapshot read; queries hold it only long enough to copy
 references. All threads launch on the device's current (default) stream,
 so their device work is ordered; nothing here synchronizes a stream or
-captures a graph. The verb overlay (ROADMAP item 11), ``adopt_tree`` and
-the snapshot sink (item 10) are not ported yet.
+captures a graph.
 """
 
 from __future__ import annotations
@@ -220,7 +226,8 @@ class _Snapshot:
     """One query's consistent view of the epoch (plain references)."""
 
     __slots__ = ("inner", "epoch", "delta_rows", "delta_view",
-                 "dead_sorted", "masked_pts", "masked_gid")
+                 "dead_sorted", "masked_pts", "masked_gid", "gid_sorted",
+                 "gid_pos")
 
     def __init__(self, st: _EpochState) -> None:
         self.inner = st.inner
@@ -230,6 +237,10 @@ class _Snapshot:
         self.dead_sorted = st.dead_sorted
         self.masked_pts = st.masked_pts
         self.masked_gid = st.masked_gid
+        # the epoch's host id map (built once per epoch, never replaced):
+        # the count overlay locates tombstoned main rows through it
+        self.gid_sorted = st.gid_sorted
+        self.gid_pos = st.gid_pos
 
     @property
     def empty(self) -> bool:
@@ -240,8 +251,9 @@ class MutableEngine:
     """The write-capable engine facade the serving stack dispatches
     through. Duck-compatible with
     :class:`~kdtree_tpu_torch.serve.engine.ServeEngine` (``tree``, ``k``,
-    ``knn_batch``, ``fallback_knn``, ``bounds``) plus the write path
-    (``upsert``/``delete``), epoch introspection, and ``close``."""
+    ``knn_batch``, ``fallback_knn``, the verbs, ``bounds``) plus the
+    write path (``upsert``/``delete``), epoch introspection, the
+    blue/green ``adopt_tree``, and ``close``."""
 
     def __init__(
         self,
@@ -250,9 +262,18 @@ class MutableEngine:
         max_delta_frac: float = DEFAULT_MAX_DELTA_FRAC,
         requested_k: Optional[int] = None,
         epoch0: int = 0,
+        snapshot_sink=None,
     ) -> None:
         self._lock = locks.make_rlock("mutable.engine")
+        # epoch numbering continues from the snapshot this process booted
+        # from: a primary restarted at epoch E compacts to E+1, and
+        # followers comparing /healthz epochs see one monotone sequence
         self._epoch0 = int(epoch0)
+        # called (tree, epoch) on the rebuild thread AFTER each swap — the
+        # epoch compactor IS a snapshot build, so the primary emits the
+        # artifact secondaries adopt. Never allowed to fail the swap that
+        # already landed.
+        self._snapshot_sink = snapshot_sink
         # the CONFIGURED k, not inner.k: the bootstrap ServeEngine clamps
         # k to its n_real, and pinning that clamp as the forever-k would
         # cap every future epoch at the seed index's size
@@ -269,6 +290,8 @@ class MutableEngine:
         # epoch of the latest knn_batch answer
         self.last_answer_epoch = self._epoch0
         self._rebuilding = False
+        # (dead_sorted identity, host coords) — see _dead_points
+        self._dead_pts_cache: Optional[tuple] = None
         self._journal: Optional[List[tuple]] = None
         self._rebuild_thread: Optional[threading.Thread] = None
         self._closed = False
@@ -323,12 +346,12 @@ class MutableEngine:
             return st.box_lo.copy(), st.box_hi.copy()
 
     def warmup(self, buckets: List[int]) -> None:
-        """The serving warmup ladder on the current epoch's engine (the
-        overlay of a new server is empty, a passthrough); the epoch
-        rebuilder runs the same ladder on each new epoch before its
-        swap."""
+        """The serving warmup ladder on the current epoch's engine, k-NN
+        and verbs (the overlay of a new server is empty, a passthrough);
+        the epoch rebuilder and :meth:`adopt_tree` run its k-NN rungs on
+        each new epoch before its swap."""
         self.warm_buckets = list(buckets)
-        self._snapshot().inner.warmup(self.warm_buckets)
+        self._snapshot().inner.warmup(self.warm_buckets, verbs=True)
 
     def _snapshot(self) -> _Snapshot:
         with self._lock:
@@ -372,6 +395,175 @@ class MutableEngine:
             ids = np.concatenate([ids, dids], axis=1)
         d2, ids = merge_rows(d2, ids, k)
         return _pad_cols(d2, ids, k)
+
+    # -- query verbs (radius / range / count) --------------------------------
+
+    def radius_batch(
+        self, queries: np.ndarray, r: np.ndarray,
+        recall_target: Optional[float] = None, with_ids: bool = True,
+    ):
+        """Radius (or radius-count) with the write overlay: the main
+        tree's pruned answer, minus tombstoned hits, plus delta hits —
+        exact over the surviving points."""
+        snap = self._snapshot()
+        res = snap.inner.radius_batch(queries, r, recall_target,
+                                      with_ids=with_ids)
+        self.last_answer_epoch = snap.epoch
+        if snap.empty:
+            return res
+        return self._verb_overlay("radius", res, snap, queries=queries,
+                                  r=r, with_ids=with_ids)
+
+    def range_batch(
+        self, box_lo: np.ndarray, box_hi: np.ndarray,
+        recall_target: Optional[float] = None, with_ids: bool = True,
+    ):
+        """Box-range (or box-count) with the write overlay — same
+        contract as :meth:`radius_batch`."""
+        snap = self._snapshot()
+        res = snap.inner.range_batch(box_lo, box_hi, recall_target,
+                                     with_ids=with_ids)
+        self.last_answer_epoch = snap.epoch
+        if snap.empty:
+            return res
+        return self._verb_overlay("range", res, snap, box_lo=box_lo,
+                                  box_hi=box_hi, with_ids=with_ids)
+
+    def fallback_radius(self, queries: np.ndarray, r: np.ndarray,
+                        with_ids: bool = True):
+        """The verb degradation path, mutable-aware: brute force over
+        the tombstone-masked flat storage (masked rows carry +inf
+        coords / -1 ids and self-exclude) merged with the delta — exact
+        over the surviving points."""
+        from kdtree_tpu_torch.verbs import device as verb_device
+        from kdtree_tpu_torch.verbs import oracle as verb_oracle
+
+        snap = self._snapshot()
+        if snap.empty:
+            return snap.inner.fallback_radius(queries, r, with_ids=with_ids)
+        main = verb_oracle.radius_oracle(snap.masked_pts, queries, r,
+                                         gid=snap.masked_gid,
+                                         with_ids=with_ids)
+        if not snap.delta_rows:
+            return main
+        return verb_device.merge_results(
+            "radius", main,
+            self._delta_verb("radius", snap, queries=queries, r=r,
+                             with_ids=with_ids))
+
+    def fallback_range(self, box_lo: np.ndarray, box_hi: np.ndarray,
+                       with_ids: bool = True):
+        """Brute-force box-range over masked storage + delta."""
+        from kdtree_tpu_torch.verbs import device as verb_device
+        from kdtree_tpu_torch.verbs import oracle as verb_oracle
+
+        snap = self._snapshot()
+        if snap.empty:
+            return snap.inner.fallback_range(box_lo, box_hi,
+                                             with_ids=with_ids)
+        main = verb_oracle.range_oracle(snap.masked_pts, box_lo, box_hi,
+                                        gid=snap.masked_gid,
+                                        with_ids=with_ids)
+        if not snap.delta_rows:
+            return main
+        return verb_device.merge_results(
+            "range", main,
+            self._delta_verb("range", snap, box_lo=box_lo, box_hi=box_hi,
+                             with_ids=with_ids))
+
+    def _verb_overlay(self, kind: str, res, snap: _Snapshot, *,
+                      queries=None, r=None, box_lo=None, box_hi=None,
+                      with_ids: bool = True):
+        """Correct a main-tree verb answer for writes.
+
+        Id-materializing form: tombstoned hits are struck from the
+        buffers (and the counts — verb results are not k-capped, so
+        unlike k-NN no replacement fetch is ever needed), delta hits are
+        brute-forced and unioned, rows re-canonicalized.
+
+        Count form (no ids to strike by): main count minus the dead
+        points inside the region (their coordinates gathered once per
+        write generation and cached) plus the delta's count."""
+        from kdtree_tpu_torch.verbs import device as verb_device
+        from kdtree_tpu_torch.verbs import oracle as verb_oracle
+        from kdtree_tpu_torch.verbs.device import VerbResult
+
+        if not with_ids:
+            counts = res.counts.copy()
+            dead_pts = self._dead_points(snap)
+            if dead_pts is not None:
+                if kind == "radius":
+                    dw = verb_oracle.radius_count_oracle(dead_pts, queries, r)
+                else:
+                    dw = verb_oracle.range_count_oracle(dead_pts, box_lo,
+                                                        box_hi)
+                counts = np.maximum(counts - dw, 0)
+            if snap.delta_rows:
+                counts = counts + self._delta_verb(
+                    kind, snap, queries=queries, r=r, box_lo=box_lo,
+                    box_hi=box_hi, with_ids=False).counts
+            return VerbResult(counts, None, None, res.truncated,
+                              res.retries)
+        counts = res.counts.copy()
+        ids = res.ids.copy()
+        d2 = res.d2.copy() if res.d2 is not None else None
+        if snap.dead_sorted.size:
+            hit = in_sorted(snap.dead_sorted, ids)
+            if hit.any():
+                counts = counts - hit.sum(axis=1)
+                ids[hit] = -1
+                if d2 is not None:
+                    d2[hit] = np.inf
+        if kind == "radius":
+            cd2, cids = verb_device.canonical_radius_rows(d2, ids)
+            out = VerbResult(counts, cd2, cids, res.truncated, res.retries)
+        else:
+            out = VerbResult(counts, None,
+                             verb_device.canonical_range_rows(ids),
+                             res.truncated, res.retries)
+        if snap.delta_rows:
+            out = verb_device.merge_results(
+                kind, out,
+                self._delta_verb(kind, snap, queries=queries, r=r,
+                                 box_lo=box_lo, box_hi=box_hi,
+                                 with_ids=True))
+        return verb_device.trim_result(out)
+
+    def _delta_verb(self, kind: str, snap: _Snapshot, *, queries=None,
+                    r=None, box_lo=None, box_hi=None,
+                    with_ids: bool = True):
+        """Exact verb answer over the delta buffer — dropped slots hold
+        +inf coords / -1 gid and self-exclude, the same convention as
+        the k-NN delta scan."""
+        from kdtree_tpu_torch.verbs import oracle as verb_oracle
+
+        dev_pts, gid_host = snap.delta_view
+        if kind == "radius":
+            return verb_oracle.radius_oracle(dev_pts, queries, r,
+                                             gid=gid_host,
+                                             with_ids=with_ids)
+        return verb_oracle.range_oracle(dev_pts, box_lo, box_hi,
+                                        gid=gid_host, with_ids=with_ids)
+
+    def _dead_points(self, snap: _Snapshot) -> Optional[torch.Tensor]:
+        """Device coordinates of the tombstoned main rows, for the count
+        overlay's subtraction. Gathered once per write generation — the
+        write path replaces ``dead_sorted`` (never mutates it), so the
+        array's identity keys the cache."""
+        ds = snap.dead_sorted
+        if ds.size == 0:
+            return None
+        cached = self._dead_pts_cache
+        if cached is not None and cached[0] is ds:
+            return cached[1]
+        idx = np.searchsorted(snap.gid_sorted, ds)
+        idx_c = np.minimum(idx, max(snap.gid_sorted.size - 1, 0))
+        ok = (idx < snap.gid_sorted.size) & (snap.gid_sorted[idx_c] == ds)
+        pos = torch.from_numpy(snap.gid_pos[idx_c][ok].astype(np.int64))
+        flat = snap.inner._flat_pts
+        pts = flat[pos.to(flat.device)]
+        self._dead_pts_cache = (ds, pts)
+        return pts
 
     # -- query overlay -------------------------------------------------------
 
@@ -654,6 +846,11 @@ class MutableEngine:
                         delta_rows=new_st.delta.rows,
                         tombstones=len(new_st.dead),
                     )
+            # a compaction IS a snapshot build: emit the new epoch's
+            # artifact for blue/green secondaries (off the lock, on this
+            # thread — the swap already landed, so serving never waits on
+            # the disk write)
+            self._emit_snapshot(new_st)
             # rebuild-overlap serving impact, joined through the history
             # ring AFTER the swap (off the lock, on this thread)
             self._note_rebuild_impact(old.epoch, new_st.epoch, t0_unix,
@@ -717,6 +914,50 @@ class MutableEngine:
             bruteforce.knn(st.masked_pts, q, k=kk)
         except Exception:
             pass
+
+    def _emit_snapshot(self, st: _EpochState) -> None:
+        """Hand the new epoch's tree to the snapshot sink (rebuild
+        thread, off the lock). A failed emit is an incident for the
+        fleet's convergence — counted and flight-dumped — but never
+        undoes the in-process swap that already serves."""
+        if self._snapshot_sink is None:
+            return
+        try:
+            self._snapshot_sink(st.inner.tree, st.epoch)
+        except Exception as e:
+            obs.get_registry().counter(
+                "kdtree_snapshot_sink_errors_total").inc()
+            flight.record("snapshot.sink_error", epoch=st.epoch,
+                          error=repr(e)[:200])
+            flight.auto_dump("snapshot-sink-error")
+
+    def adopt_tree(self, tree, epoch: int) -> None:
+        """Blue/green handoff for snapshot-following read replicas
+        (``snapshot/follower.py``): wrap a freshly loaded tree in a new
+        epoch state, run its k-NN warmup rungs on the CALLING thread (the
+        first use of every batch shape stays off the serving path — the
+        epoch rebuilder's own discipline), then swap atomically between
+        batches. The configured k is preserved across the swap.
+
+        A follower replica is read-only, so the overlay it discards is
+        empty; if local writes somehow exist, the adoption wins — the
+        snapshot is the shard's authoritative state — and the discarded
+        backlog is flight-recorded rather than silently dropped."""
+        from kdtree_tpu_torch.serve.engine import ServeEngine
+
+        new_inner = ServeEngine(tree, self._k_cfg)
+        new_inner.warmup(list(self.warm_buckets))
+        new_st = _EpochState(new_inner, epoch=int(epoch),
+                             min_cap=self._min_cap)
+        self._warm_overlay(new_st)
+        with self._lock:
+            if self._closed:
+                return
+            discarded = self._state.backlog()
+            self._state = new_st
+            self._update_gauges(new_st)
+            flight.record("snapshot.adopt", epoch=new_st.epoch,
+                          n=new_st.n_main, discarded_backlog=discarded)
 
     def _note_rebuild_impact(self, old_epoch: int, new_epoch: int,
                              t0_unix: float, t1_unix: float) -> None:

@@ -39,6 +39,45 @@ METRIC_HELP = {
     "kdtree_serve_ready": "1 once the index is loaded and warmup compiled",
     "kdtree_serve_warmup_buckets":
         "pow2 row buckets compiled by the warmup ladder",
+    # query verbs (docs/SERVING.md "Query verbs")
+    "kdtree_verb_requests_total":
+        "verb requests dispatched, by verb (radius/range/count)",
+    "kdtree_verb_batch_rows":
+        "coalesced rows per dispatched verb micro-batch, by verb",
+    "kdtree_verb_truncated_total":
+        "verb answers flagged truncated (sound lower bound under a "
+        "visit cap), by verb",
+    "kdtree_verb_overflow_retries_total":
+        "verb hit-buffer doubling re-runs (buffer settling)",
+    # snapshots & replica fleets (docs/SERVING.md)
+    "kdtree_snapshot_saves_total": "serving snapshots written",
+    "kdtree_snapshot_loads_total": "serving snapshots loaded",
+    "kdtree_snapshot_load_errors_total":
+        "snapshot loads refused, by reason (missing/manifest/schema/"
+        "checksum/segment) — never served half-read",
+    "kdtree_snapshot_sink_errors_total":
+        "epoch-swap snapshot emits that failed (the swap itself stood)",
+    "kdtree_snapshot_version":
+        "manifest version of the last snapshot saved or loaded",
+    "kdtree_snapshot_epoch":
+        "index epoch of the last snapshot saved or loaded",
+    "kdtree_snapshot_bytes": "total segment bytes of the last save",
+    "kdtree_snapshot_save_seconds": "duration of the last snapshot save",
+    "kdtree_snapshot_load_seconds":
+        "duration of the last snapshot load (verify + mmap + device "
+        "transfer — the replica cold-start cost the build no longer "
+        "pays)",
+    "kdtree_snapshot_follow_version":
+        "manifest version this follower replica currently serves",
+    "kdtree_snapshot_adoptions_total":
+        "blue/green snapshot swaps adopted by this follower",
+    "kdtree_snapshot_gc_generations_total":
+        "retained snapshot generations removed by --snapshot-keep GC",
+    "kdtree_snapshot_plan_seeded_total":
+        "plan profiles seeded into the local store from a snapshot "
+        "manifest's pre-shipped plan_profiles payload",
+    "kdtree_plan_cache_writes_total":
+        "tiled-plan profiles written to the store",
     # mutable index (docs/SERVING.md "Mutable index")
     "kdtree_epoch":
         "index epoch generation; increments on each delta compaction "

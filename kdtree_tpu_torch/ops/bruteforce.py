@@ -49,6 +49,13 @@ def _smallest(keys: torch.Tensor, k: int) -> torch.Tensor:
     return torch.topk(keys, k, dim=1, largest=False, sorted=True).values
 
 
+def block_d2_exact(queries: torch.Tensor, ptile: torch.Tensor) -> torch.Tensor:
+    """[Q, T] squared distances by direct subtraction, accumulated axis by
+    axis in the arithmetic of the JAX package's jitted ``_block_d2_exact``
+    (:func:`~kdtree_tpu_torch.ops._arith.sq_dist`)."""
+    return sq_dist(queries[:, None, :], ptile[None, :, :])
+
+
 def _matmul_d2(queries: torch.Tensor, ptile: torch.Tensor) -> torch.Tensor:
     qn = (queries * queries).sum(dim=1, keepdim=True)
     pn = (ptile * ptile).sum(dim=1)
@@ -86,7 +93,7 @@ def knn(points: torch.Tensor, queries: torch.Tensor, k: int = 1,
         idx = torch.arange(base, base + t, dtype=torch.int64,
                            device=points.device)
         if method == "exact":
-            d2 = sq_dist(queries[:, None, :], ptile[None, :, :])
+            d2 = block_d2_exact(queries, ptile)
             cand = _smallest(_keys(d2, idx[None, :].expand(Q, t)), min(k, t))
         else:
             kk = min(k + REFINE_SLACK, t)

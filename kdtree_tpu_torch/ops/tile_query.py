@@ -295,7 +295,8 @@ def dense_lowd(q: int, n: int, dim: int) -> bool:
 class TiledPlan(NamedTuple):
     """Static launch configuration of a tiled run. ``source`` is
     ``"heuristic"`` (the density model) or ``"explicit"`` (caller-forced
-    knobs); the port has no plan store yet, so no plan is ``"warm"``."""
+    knobs); :func:`plan_tiled` does not read the plan store yet, so no
+    plan is ``"warm"``."""
 
     tile: int
     cmax: int
@@ -319,7 +320,9 @@ def plan_tiled(
     ``use_kernel=None`` takes the CUDA scan kernel on a CUDA ``device``
     (``None`` means CUDA) and the plain scan on the CPU. ``scan_v`` /
     ``scan_tb`` force the plain scan's block shape; exactness never
-    depends on either."""
+    depends on either. The plan store (:mod:`kdtree_tpu_torch.tuning.store`)
+    is not consulted yet (ROADMAP queue 1 item 13): every auto plan comes
+    from the density heuristic."""
     if use_kernel is None:
         use_kernel = resolve_device(device).type == "cuda"
     auto = (tile is None and cmax == DEFAULT_CMAX and seeds == DEFAULT_SEEDS

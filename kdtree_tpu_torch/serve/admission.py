@@ -54,21 +54,37 @@ class QueueClosedError(Exception):
 
 
 class PendingRequest:
-    """One in-flight k-NN request: inputs, the completion event the
-    handler thread waits on, and the result slots the worker fills."""
+    """One in-flight k-NN or verb request: inputs, the completion event
+    the handler thread waits on, and the result slots the worker fills."""
 
     __slots__ = (
         "queries", "k", "deadline", "enqueued_at", "dispatched_at",
-        "event", "d2", "ids", "degraded", "error", "trace_id",
+        "event", "d2", "ids", "degraded", "error", "trace_id", "verb",
+        "radius", "box_hi", "counts", "truncated",
     )
 
     def __init__(
         self, queries: np.ndarray, k: int,
         deadline: Optional[float] = None,
         trace_id: str = "",
+        verb: str = "knn",
+        radius: Optional[np.ndarray] = None,
+        box_hi: Optional[np.ndarray] = None,
     ) -> None:
         self.queries = queries  # f32[q, D], validated by the handler
         self.k = k
+        # the query verb: "knn" (the default, result in d2/ids at k
+        # columns), "radius" / "range" / "count_radius" / "count_box".
+        # Per-query parameters ride WITH the request — radius f32[q] for
+        # the radius forms, box corners as (queries=lo, box_hi=hi) for the
+        # box forms — so a batch needs only a shared verb. The worker
+        # fills counts (+ truncated) for verb requests; verbs reuse ids
+        # for their hit lists and d2 for radius distances.
+        self.verb = verb
+        self.radius = radius
+        self.box_hi = box_hi
+        self.counts: Optional[np.ndarray] = None
+        self.truncated: bool = False
         self.deadline = deadline  # absolute time.monotonic(), or None
         # per-request trace id (client X-Request-Id or server-generated):
         # threads admission -> batcher -> dispatch, so one slow request's
@@ -92,10 +108,14 @@ class PendingRequest:
             (now if now is not None else time.monotonic()) > self.deadline
 
     def fulfill(
-        self, d2: np.ndarray, ids: np.ndarray,
+        self, d2: Optional[np.ndarray], ids: Optional[np.ndarray],
         degraded: Optional[str] = None,
+        counts: Optional[np.ndarray] = None,
+        truncated: bool = False,
     ) -> None:
         self.d2, self.ids, self.degraded = d2, ids, degraded
+        self.counts = counts
+        self.truncated = truncated
         self.event.set()
 
     def fail(self, message: str) -> None:

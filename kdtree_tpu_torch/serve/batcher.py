@@ -1,12 +1,14 @@
 """Micro-batching: coalesce concurrent requests into pow2-bucket batches.
 
-The port of ``kdtree_tpu/serve/batcher.py`` on the exact k-NN path. The
-tiled engine's unit of efficiency is the batch, so the worker here does
-two things at once:
+The port of ``kdtree_tpu/serve/batcher.py`` on the exact paths: k-NN and
+the query verbs. The tiled engine's unit of efficiency is the batch, so
+the worker here does two things at once:
 
 1. **Coalesce**: pop the oldest admitted request, then keep absorbing
-   arrivals until ``max_batch`` rows or ``max_wait_ms`` elapse —
-   concurrency is converted into batch width instead of queue depth.
+   arrivals of the same verb until ``max_batch`` rows or ``max_wait_ms``
+   elapse — concurrency is converted into batch width instead of queue
+   depth. One batch is one verb: a mixed batch has no single engine call
+   (the per-query radii and boxes ride in each request).
 2. **Quantize**: pad the coalesced rows up to the next power of two
    (floor ``MIN_BUCKET``), so the steady state cycles through the handful
    of shapes the warmup ladder already ran.
@@ -14,9 +16,10 @@ two things at once:
 Requests whose deadline expired while queued are split off and answered
 through the engine's brute-force degradation path (exact, flagged
 ``degraded``), so one slow burst degrades its stragglers instead of
-erroring them. Each request gets its own k columns of the batch's
-answer. The verb batches (ROADMAP item 11) and the recall dial, ladder
-and online recall sampler (item 12) are not ported yet.
+erroring them. Each k-NN request gets its own k columns of the batch's
+answer, each verb request its rows of counts (and hits). The recall dial,
+ladder and online recall sampler (ROADMAP queue 1 item 12) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -100,6 +103,27 @@ class MicroBatcher:
             for reason in ("deadline", "oversized")
         }
         self._errors = reg.counter("kdtree_serve_batch_errors_total")
+        # the query verbs: request and batch-row accounting per verb
+        # FAMILY — a bounded label set: the two count forms share the
+        # "count" label, the geometry rides in the flight ring
+        self._verb_requests = {
+            v: reg.counter("kdtree_verb_requests_total",
+                           labels={"verb": v})
+            for v in ("radius", "range", "count")
+        }
+        self._verb_rows = {
+            v: reg.histogram("kdtree_verb_batch_rows",
+                             buckets=_BATCH_ROW_BUCKETS,
+                             labels={"verb": v})
+            for v in ("radius", "range", "count")
+        }
+        self._verb_truncated = {
+            v: reg.counter("kdtree_verb_truncated_total",
+                           labels={"verb": v})
+            for v in ("radius", "range", "count")
+        }
+        self._verb_retries = reg.counter(
+            "kdtree_verb_overflow_retries_total")
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -135,7 +159,8 @@ class MicroBatcher:
 
     def _collect(self, first: PendingRequest) -> List[PendingRequest]:
         """Absorb arrivals behind ``first`` until the batch is full or
-        ``max_wait`` has elapsed since coalescing began."""
+        ``max_wait`` has elapsed since coalescing began. Only requests
+        sharing ``first``'s verb join: one batch = one dispatch kind."""
         batch = [first]
         rows = first.rows
         t_end = time.monotonic() + self.max_wait
@@ -146,7 +171,7 @@ class MicroBatcher:
             nxt = self.queue.pop_wait(remaining)
             if nxt is None:
                 break
-            if rows + nxt.rows > self.max_batch:
+            if rows + nxt.rows > self.max_batch or nxt.verb != first.verb:
                 self.queue.push_front(nxt)  # keeps FIFO; next batch leads with it
                 break
             batch.append(nxt)
@@ -170,7 +195,10 @@ class MicroBatcher:
         live = [r for r in batch if not r.expired(now)]
         late = [r for r in batch if r.expired(now)]
         if live:
-            self._run_batch(live)
+            if live[0].verb != "knn":
+                self._run_verb_batch(live)
+            else:
+                self._run_batch(live)
         for req in late:
             self._deadline.inc()
             self._run_fallback(req, reason="deadline")
@@ -227,11 +255,103 @@ class MicroBatcher:
             r.fulfill(d2[off:off + r.rows, :r.k], ids[off:off + r.rows, :r.k])
             off += r.rows
 
-    def _run_fallback(self, req: PendingRequest, reason: str) -> None:
-        """Answer one straggler through the exact brute-force path."""
-        self._degraded[reason].inc()
+    @staticmethod
+    def _verb_family(verb: str) -> str:
+        """Metric label for a request verb: the two count forms share one
+        bounded "count" label."""
+        return "count" if verb.startswith("count") else verb
+
+    def _run_verb_batch(self, live: List[PendingRequest]) -> None:
+        """Dispatch one verb-homogeneous batch (radius / range / either
+        count form) through the engine's verb methods: the k-NN path's
+        pow2 row quantization, the result back per request as (counts,
+        ids, distances) row slices."""
+        verb = live[0].verb
+        fam = self._verb_family(verb)
+        rows = sum(r.rows for r in live)
+        bucket = batch_bucket(rows, self.max_batch)
+        q = np.concatenate([r.queries for r in live], axis=0)
+        if verb in ("radius", "count_radius"):
+            aux = np.concatenate([r.radius for r in live])
+        else:
+            aux = np.concatenate([r.box_hi for r in live], axis=0)
+        if bucket > rows:
+            pad = np.broadcast_to(q[-1], (bucket - rows, q.shape[1]))
+            q = np.concatenate([q, pad], axis=0)
+            ap = np.broadcast_to(aux[-1], (bucket - rows,) + aux.shape[1:])
+            aux = np.concatenate([aux, ap], axis=0)
+        with_ids = not verb.startswith("count")
         try:
-            d2, ids = self.engine.fallback_knn(req.queries, req.k)
+            if verb in ("radius", "count_radius"):
+                res = self.engine.radius_batch(q, aux, with_ids=with_ids)
+            else:
+                res = self.engine.range_batch(q, aux, with_ids=with_ids)
+        except Exception as e:
+            self._errors.inc()
+            flight.record("serve.batch_error", rows=rows,
+                          requests=len(live), verb=verb,
+                          error=repr(e)[:200],
+                          traces=[r.trace_id for r in live])
+            flight.auto_dump("serve-error")
+            for r in live:
+                r.fail(f"batch dispatch failed: {e!r}")
+            return
+        done = time.monotonic()
+        self._verb_requests[fam].inc(len(live))
+        self._verb_rows[fam].observe(rows)
+        if res.truncated:
+            self._verb_truncated[fam].inc(len(live))
+        if res.retries:
+            self._verb_retries.inc(res.retries)
+        self._batch_rows.observe(rows)
+        self._batch_reqs.observe(len(live))
+        flight.record(
+            "serve.batch", rows=rows, bucket=bucket, requests=len(live),
+            verb=verb, gear="exact", truncated=bool(res.truncated),
+            retries=int(res.retries),
+            dispatch_ms=round((done - live[0].dispatched_at) * 1e3, 3),
+            epoch=getattr(self.engine, "last_answer_epoch", 0),
+            traces=[r.trace_id for r in live],
+        )
+        off = 0
+        for r in live:
+            self._lat["dispatch"].observe(done - r.dispatched_at)
+            self._lat["total"].observe(done - r.enqueued_at,
+                                       exemplar=r.trace_id)
+            flight.record(
+                "serve.request", trace=r.trace_id, rows=r.rows, verb=verb,
+                queue_ms=round((r.dispatched_at - r.enqueued_at) * 1e3, 3),
+                device_ms=round((done - r.dispatched_at) * 1e3, 3),
+                total_ms=round((done - r.enqueued_at) * 1e3, 3),
+            )
+            r.fulfill(
+                None if res.d2 is None else res.d2[off:off + r.rows],
+                None if res.ids is None else res.ids[off:off + r.rows],
+                counts=res.counts[off:off + r.rows],
+                truncated=bool(res.truncated),
+            )
+            off += r.rows
+
+    def _run_fallback(self, req: PendingRequest, reason: str) -> None:
+        """Answer one straggler through the exact brute-force path (the
+        k-NN one, or the verb's)."""
+        self._degraded[reason].inc()
+        counts = None
+        try:
+            if req.verb == "knn":
+                d2, ids = self.engine.fallback_knn(req.queries, req.k)
+            else:
+                with_ids = not req.verb.startswith("count")
+                if req.verb in ("radius", "count_radius"):
+                    res = self.engine.fallback_radius(
+                        req.queries, req.radius, with_ids=with_ids)
+                else:
+                    res = self.engine.fallback_range(
+                        req.queries, req.box_hi, with_ids=with_ids)
+                d2, ids, counts = res.d2, res.ids, res.counts
+                fam = self._verb_family(req.verb)
+                self._verb_requests[fam].inc()
+                self._verb_rows[fam].observe(req.rows)
         except Exception as e:
             self._errors.inc()
             flight.record("serve.batch_error", rows=req.rows, requests=1,
@@ -251,4 +371,4 @@ class MicroBatcher:
         )
         # fulfill last, same response-implies-ring-event ordering as the
         # batch path above
-        req.fulfill(d2, ids, degraded=reason)
+        req.fulfill(d2, ids, degraded=reason, counts=counts)

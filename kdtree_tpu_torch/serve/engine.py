@@ -1,19 +1,22 @@
 """Serving lifecycle: the engine facade, the serving state, startup.
 
-The port of ``kdtree_tpu/serve/lifecycle.py`` on the k-NN path:
-``ServeEngine`` (exact ``knn_batch``, brute-force ``fallback_knn``, the
+The port of ``kdtree_tpu/serve/lifecycle.py``: ``ServeEngine`` (exact
+``knn_batch``, the verbs' ``radius_batch``/``range_batch``, the
+brute-force ``fallback_knn``/``fallback_radius``/``fallback_range``, the
 root-box ``bounds``, the warmup ladder), ``ServeState`` (what the HTTP
-layer reads: engine, knobs, readiness), ``tree_for_serving`` and
-``build_state``, with ``batch_bucket`` from ``serve/batcher.py``.
+layer reads: engine, knobs, readiness, the read-only flag),
+``tree_for_serving`` and ``build_state``, with ``batch_bucket`` from
+``serve/batcher.py``.
 
 Startup does the expensive things once, before the first request can
 observe them: load or build the index on the device, wrap it in the
 write-capable :class:`~kdtree_tpu_torch.mutable.engine.MutableEngine`,
-and run one dummy batch per pow2 row bucket — ``/healthz`` turns ready
-only after that, so the first real batch of every shape finds its kernels
-built and its allocations made. Every micro-batch is one tiled dispatch
-on the tree's device; results come back to the host here, at the
-response boundary, so the batcher and HTTP layers stay host code.
+and run one dummy batch per pow2 row bucket (k-NN and each verb) —
+``/healthz`` turns ready only after that, so the first real batch of
+every shape finds its kernels built and its allocations made. Every
+micro-batch is one tiled dispatch on the tree's device; results come back
+to the host here, at the response boundary, so the batcher and HTTP
+layers stay host code.
 """
 
 from __future__ import annotations
@@ -110,6 +113,67 @@ class ServeEngine:
             out = d2.cpu().numpy(), gid.cpu().numpy()
         return out[0], out[1], plan.source
 
+    def _verb_visit_cap(self, recall_target: Optional[float]) -> None:
+        """The bounded-visit cap a verb batch runs at: None (exact)
+        without a ``recall_target``. The recall dial comes with ROADMAP
+        queue 1 item 12."""
+        if recall_target is None:
+            return None
+        raise NotImplementedError(
+            "recall_target on the verbs is not ported to kdtree_tpu_torch "
+            "yet (ROADMAP queue 1 item 12)")
+
+    def radius_batch(self, queries: np.ndarray, r: np.ndarray,
+                     recall_target: Optional[float] = None,
+                     with_ids: bool = True):
+        """Radius (or radius-count, ``with_ids=False``) for one
+        micro-batch via the tree-pruned verb search, exact. Returns a host
+        :class:`~kdtree_tpu_torch.verbs.device.VerbResult`."""
+        from kdtree_tpu_torch.verbs import device as verb_device
+
+        visit_cap = self._verb_visit_cap(recall_target)
+        with obs.span("serve.verb", sync=False, verb="radius",
+                      q=int(queries.shape[0]), visit_cap=visit_cap,
+                      ids=with_ids):
+            return verb_device.radius_search(self.tree, queries, r,
+                                             visit_cap=visit_cap,
+                                             with_ids=with_ids)
+
+    def range_batch(self, box_lo: np.ndarray, box_hi: np.ndarray,
+                    recall_target: Optional[float] = None,
+                    with_ids: bool = True):
+        """Box-range (or box-count) for one micro-batch — same contract
+        as :meth:`radius_batch`."""
+        from kdtree_tpu_torch.verbs import device as verb_device
+
+        visit_cap = self._verb_visit_cap(recall_target)
+        with obs.span("serve.verb", sync=False, verb="range",
+                      q=int(box_lo.shape[0]), visit_cap=visit_cap,
+                      ids=with_ids):
+            return verb_device.range_search(self.tree, box_lo, box_hi,
+                                            visit_cap=visit_cap,
+                                            with_ids=with_ids)
+
+    def fallback_radius(self, queries: np.ndarray, r: np.ndarray,
+                        with_ids: bool = True):
+        """Brute-force radius over the flat bucket storage — the verb
+        analog of :meth:`fallback_knn` (exact, no batch coupling);
+        padding rows self-exclude through the gid mask."""
+        from kdtree_tpu_torch.verbs import oracle as verb_oracle
+
+        return verb_oracle.radius_oracle(self._flat_pts, queries, r,
+                                         gid=self._flat_gid,
+                                         with_ids=with_ids)
+
+    def fallback_range(self, box_lo: np.ndarray, box_hi: np.ndarray,
+                       with_ids: bool = True):
+        """Brute-force box-range over the flat bucket storage."""
+        from kdtree_tpu_torch.verbs import oracle as verb_oracle
+
+        return verb_oracle.range_oracle(self._flat_pts, box_lo, box_hi,
+                                        gid=self._flat_gid,
+                                        with_ids=with_ids)
+
     def fallback_knn(self, queries: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """Exact brute force over the flat bucket storage — no tiles, no
         plans: the path for an oversized or already-late request."""
@@ -119,18 +183,28 @@ class ServeEngine:
         ids = torch.where(idx >= 0, self._flat_gid[idx.long().clamp_min(0)], -1)
         return d2.cpu().numpy(), ids.cpu().numpy()
 
-    def warmup(self, buckets: List[int]) -> None:
+    def warmup(self, buckets: List[int], verbs: bool = False) -> None:
         """One dummy batch per row bucket (:func:`ladder_batch`), so every
-        serving shape has run once."""
+        serving shape has run once; with ``verbs``, each rung also runs
+        the radius and range forms, ids and counts (a tiny radius keeps
+        the hit buffers at their floor; the box form shares the range
+        search)."""
         for b in buckets:
-            self.knn_batch(ladder_batch(self.tree, b))
+            q = ladder_batch(self.tree, b)
+            self.knn_batch(q)
+            if verbs:
+                tiny = np.full(b, 1e-6, dtype=np.float32)
+                self.radius_batch(q, tiny)
+                self.radius_batch(q, tiny, with_ids=False)
+                self.range_batch(q, q)
+                self.range_batch(q, q, with_ids=False)
 
 
 class ServeState:
     """Everything the HTTP layer needs: the engine, the knobs, readiness."""
 
     def __init__(self, engine, max_batch: int, meta: Optional[dict] = None,
-                 id_offset: int = 0) -> None:
+                 id_offset: int = 0, read_only: bool = False) -> None:
         self.engine = engine
         self.max_batch = max_batch
         self.meta = dict(meta or {})
@@ -138,6 +212,10 @@ class ServeState:
         # n) of a larger partitioned point set and answers GLOBAL ids —
         # the offset is added at the response boundary (padding stays -1)
         self.id_offset = int(id_offset)
+        # snapshot-following read replicas reject writes (403): writes go
+        # to the shard primary only, and a secondary's local delta would
+        # silently diverge from the snapshot stream it converges by
+        self.read_only = bool(read_only)
         # the server's history sampler evaluates these on every tick and
         # /healthz reports the verdict in an "slo" block (readiness is NOT
         # gated on it): the process-default specs (request p99,
@@ -199,19 +277,26 @@ def build_state(
     max_delta_rows: Optional[int] = None,
     max_delta_frac: Optional[float] = None,
     device=None,
+    read_only: bool = False,
+    epoch0: int = 0,
+    snapshot_sink=None,
 ) -> ServeState:
     """Assemble a ready-to-warmup :class:`ServeState` from exactly one
-    index source: a loaded ``tree`` (served on its own device), a
-    ``points`` array, or a seeded ``problem`` (seed, dim, n) on the
-    threefry row stream — the last two built on ``device`` (CUDA unless
-    the caller asks for the CPU).
+    index source: a loaded ``tree`` (served on its own device — a
+    snapshot's, say), a ``points`` array, or a seeded ``problem`` (seed,
+    dim, n) on the threefry row stream — the last two built on ``device``
+    (CUDA unless the caller asks for the CPU).
 
     The engine is always write-capable
     (:class:`~kdtree_tpu_torch.mutable.engine.MutableEngine`):
     ``/v1/upsert`` and ``/v1/delete`` append to the delta buffer, and the
     epoch rebuilder compacts once the backlog crosses
     ``min(max_delta_rows, max_delta_frac * n)`` (either knob <= 0
-    disables that bound)."""
+    disables that bound). Snapshot plumbing: epoch numbering starts at
+    ``epoch0`` (the loaded snapshot's), a primary's compactor emits each
+    new epoch through ``snapshot_sink(tree, epoch)``, and a
+    ``read_only`` follower answers writes 403. ``meta`` rides to
+    ``/healthz`` (its ``"snapshot"`` block, when the CLI sets one)."""
     from kdtree_tpu_torch.mutable.engine import (
         DEFAULT_MAX_DELTA_FRAC,
         DEFAULT_MAX_DELTA_ROWS,
@@ -240,6 +325,8 @@ def build_state(
         # the configured k, so an epoch rebuilt over a grown index can
         # serve the full k even when the bootstrap index was smaller
         requested_k=int(k),
+        epoch0=int(epoch0),
+        snapshot_sink=snapshot_sink,
     )
     return ServeState(engine, max_batch=_pow2_ceil(max_batch), meta=meta,
-                      id_offset=id_offset)
+                      id_offset=id_offset, read_only=read_only)

@@ -1,8 +1,9 @@
 """The HTTP layer: stdlib ``ThreadingHTTPServer`` in front of the batcher.
 
-The port of ``kdtree_tpu/serve/server.py`` on the exact k-NN path and the
-write path. Answers are byte-identical to a reference server's on the
-same points and requests (``tests/test_torch_server.py``).
+The port of ``kdtree_tpu/serve/server.py`` on the exact paths: k-NN, the
+query verbs and the write path. Answers are byte-identical to a reference
+server's on the same points and requests (``tests/test_torch_server.py``,
+``tests/test_torch_verbs.py``, ``tests/test_torch_snapshot.py``).
 
 - ``POST /v1/knn`` — JSON ``{"queries": [[x, y, ...], ...], "k": int?,
   "deadline_ms": number?}`` in; ``{"k": int, "ids": [[...]],
@@ -13,11 +14,23 @@ same points and requests (``tests/test_torch_server.py``).
   path: ``{"ids": [...], "points": [[...]]}`` / ``{"ids": [...]}`` with
   GLOBAL ids (this shard's ``--id-offset`` is subtracted; ids below it
   are rejected). Answers stay exact at every moment and the epoch
-  rebuilder compacts in the background (``kdtree_epoch``).
+  rebuilder compacts in the background (``kdtree_epoch``). A read-only
+  replica (a snapshot follower) answers writes 403, after reading the
+  body.
+- ``POST /v1/radius`` / ``POST /v1/range`` / ``POST /v1/count`` — the
+  query verbs: ``{"queries": [[...]], "r": f | [f]}`` (radius),
+  ``{"lo": [[...]], "hi": [[...]]}`` (range), either form for count;
+  ``{"counts": [...], "ids": [[...]]?, "distances": [[...]]?,
+  "truncated": false, "degraded": null | reason, "trace_id": str}`` out
+  (``kdtree_tpu_torch/verbs/wire.py`` validates and shapes both). A
+  request past ``max_batch`` rows is answered by the verb oracle in its
+  handler thread, flagged ``oversized``.
 - ``GET /healthz`` — 200 once the index is loaded and warmed up, 503
   (with ``Retry-After``) while warming. The body carries the mutable
-  block (epoch, delta rows, tombstones), the box, ``id_offset`` and the
-  SLO verdicts — every key of the reference's but ``headroom``.
+  block (epoch, delta rows, tombstones), the box, ``id_offset``,
+  ``read_only`` and the ``snapshot`` block (role, dir, live version) when
+  they apply, and the SLO verdicts — every key of the reference's but
+  ``headroom`` and ``ladder``.
 - ``GET /metrics`` — the Prometheus text exposition of the registry
   (``?openmetrics=1`` for the exemplar flavour).
 - ``GET /debug/flight`` — the flight recorder's ring as JSON
@@ -29,9 +42,9 @@ same points and requests (``tests/test_torch_server.py``).
 
 What the reference serves beyond this answers 501 naming its ROADMAP
 item, after reading the request body (an unread body would desync a
-keep-alive connection): ``/v1/radius``, ``/v1/range`` and ``/v1/count``
-(item 11), a ``/v1/knn`` body with a ``recall_target`` (item 12), and
-``/debug/profile``, ``/debug/trace`` and ``/debug/costs`` (item 15).
+keep-alive connection): a ``/v1/knn`` or verb body with a
+``recall_target`` (item 12), and ``/debug/profile``, ``/debug/trace`` and
+``/debug/costs`` (item 15).
 
 429 shed responses carry a ``Retry-After`` header derived from the
 admission queue's measured drain rate. Every ``/v1/knn`` request carries
@@ -39,7 +52,7 @@ a trace id (client ``X-Request-Id`` or server-generated, echoed as
 ``trace_id``) that threads admission, batcher and dispatch in the flight
 ring. Handler threads are glue: validate, admit, block on the request
 future, serialize. All engine work happens in the batch worker — except
-the oversized-request degradation, which runs brute force right here.
+the oversized-request degradations, which run brute force right here.
 """
 
 from __future__ import annotations
@@ -76,6 +89,7 @@ from kdtree_tpu_torch.serve.faults import (
     FaultSpecError,
     from_env,
 )
+from kdtree_tpu_torch.verbs import wire as verb_wire
 
 __all__ = ["GracefulHTTPServer", "JsonRequestHandler", "KnnRequestHandler",
            "KnnServer", "make_server",
@@ -94,7 +108,6 @@ _WRITE_LATENCY_BUCKETS_MS = (
 # the reference's endpoints this port answers 501, by the ROADMAP queue 1
 # item that brings them
 _NOT_PORTED = {
-    "/v1/radius": 11, "/v1/range": 11, "/v1/count": 11,
     "/debug/profile": 15, "/debug/trace": 15, "/debug/costs": 15,
 }
 
@@ -347,6 +360,13 @@ class KnnRequestHandler(JsonRequestHandler):
         # k_max is the CONFIGURED request cap (stable across deletes and
         # epoch swaps); k_effective says how many real neighbors exist
         body["k_effective"] = mut["k_effective"]
+        if state.read_only:
+            body["read_only"] = True
+        if "snapshot" in state.meta:
+            # the snapshot block (role, dir, live version): the follower
+            # updates version on each blue/green adopt, so a fleet's
+            # convergence is one /healthz sweep
+            body["snapshot"] = state.meta["snapshot"]
         # SLO verdict rides along without gating readiness
         body["slo"] = state.slo_engine.health_block()
         return body
@@ -361,9 +381,10 @@ class KnnRequestHandler(JsonRequestHandler):
         if path in ("/v1/upsert", "/v1/delete"):
             self._do_write("upsert" if path == "/v1/upsert" else "delete")
             return
+        if path in ("/v1/radius", "/v1/range", "/v1/count"):
+            self._do_verb(path.rsplit("/", 1)[1])
+            return
         if path in _NOT_PORTED:
-            if path.startswith("/v1/") and self._fire_fault(SITE_VERB):
-                return
             self._drain_body()
             self._send_json(501, _not_ported(f"POST {path}", _NOT_PORTED[path]))
             return
@@ -384,10 +405,22 @@ class KnnRequestHandler(JsonRequestHandler):
                             extra_headers={"Retry-After": "1"})
             return
         if queries.shape[0] > state.max_batch:
-            self._do_oversized(state, queries, k, trace)
+            out = self._oversized(trace, int(queries.shape[0]),
+                                  lambda: state.engine.fallback_knn(queries, k))
+            if out is not None:
+                self._send_json(200, self._result_json(
+                    out[0], out[1], k, degraded="oversized", trace_id=trace))
             return
         deadline = (time.monotonic() + deadline_s) if deadline_s else None
         req = PendingRequest(queries, k, deadline, trace_id=trace)
+        if self._submit_and_wait(req, trace):
+            self._send_json(200, self._result_json(
+                req.d2, req.ids, k, degraded=req.degraded, trace_id=trace))
+
+    def _submit_and_wait(self, req: PendingRequest, trace: str) -> bool:
+        """Admit ``req`` to the batcher and wait for its answer. False
+        with the 429/503/504/500 already written; True once the answer is
+        in ``req`` (counted ok or degraded) for the caller to send."""
         try:
             self.server.queue.submit(req)
         except QueueFullError:
@@ -396,35 +429,33 @@ class KnnRequestHandler(JsonRequestHandler):
                                            "at capacity",
                                   "trace_id": trace},
                             extra_headers=self._retry_after(req.rows))
-            return
+            return False
         except QueueClosedError:
             _count_request("unready")
             self._send_json(503, {"error": "server is shutting down",
                                   "trace_id": trace})
-            return
+            return False
         if not req.event.wait(timeout=REQUEST_TIMEOUT_S):
             _count_request("timeout")
             flight.record("serve.timeout", trace=trace, rows=req.rows)
             flight.auto_dump("serve-error")
             self._send_json(504, {"error": "request timed out in service",
                                   "trace_id": trace})
-            return
+            return False
         if req.error is not None:
             _count_request("error")
             self._send_json(500, {"error": req.error, "trace_id": trace})
-            return
+            return False
         _count_request("degraded" if req.degraded else "ok")
-        self._send_json(200, self._result_json(
-            req.d2, req.ids, k, degraded=req.degraded, trace_id=trace))
+        return True
 
-    def _do_oversized(self, state: ServeState, queries: np.ndarray, k: int,
-                      trace: str) -> None:
-        """One request bigger than any micro-batch: answered HERE via
-        brute force — exact, flagged degraded — instead of erroring or
-        distorting the batch pipeline. The rows still charge the
-        admission budget (reserve/release): the most expensive requests
-        must be the first the 429 gate can refuse."""
-        rows = int(queries.shape[0])
+    def _oversized(self, trace: str, rows: int, answer, **fields):
+        """One request bigger than any micro-batch: ``answer()`` (the
+        brute-force path) runs HERE — exact, flagged degraded — instead of
+        erroring or distorting the batch pipeline. The rows still charge
+        the admission budget (reserve/release): the most expensive
+        requests must be the first the 429 gate can refuse. Returns the
+        answer, or None with the error response already written."""
         try:
             charge = self.server.queue.reserve(rows, trace_id=trace)
         except QueueFullError:
@@ -433,30 +464,29 @@ class KnnRequestHandler(JsonRequestHandler):
                                            "queue at capacity",
                                   "trace_id": trace},
                             extra_headers=self._retry_after(rows))
-            return
+            return None
         except QueueClosedError:
             _count_request("unready")
             self._send_json(503, {"error": "server is shutting down",
                                   "trace_id": trace})
-            return
+            return None
         obs.get_registry().counter(
             "kdtree_serve_degraded_total", labels={"reason": "oversized"}
         ).inc()
-        flight.record("serve.oversized", trace=trace, rows=rows)
+        flight.record("serve.oversized", trace=trace, rows=rows, **fields)
         try:
-            d2, ids = state.engine.fallback_knn(queries, k)
+            out = answer()
         except Exception as e:
             _count_request("error")
             flight.record("serve.error", trace=trace, error=repr(e)[:200])
             flight.auto_dump("serve-error")
             self._send_json(500, {"error": f"engine failure: {e!r}",
                                   "trace_id": trace})
-            return
+            return None
         finally:
             self.server.queue.release(charge)
         _count_request("degraded")
-        self._send_json(200, self._result_json(
-            d2, ids, k, degraded="oversized", trace_id=trace))
+        return out
 
     def _parse_knn_body(
         self,
@@ -517,6 +547,119 @@ class KnnRequestHandler(JsonRequestHandler):
             return None
         return queries, k, deadline_s
 
+    def _do_verb(self, endpoint: str) -> None:
+        """``POST /v1/radius`` / ``/v1/range`` / ``/v1/count``: the k-NN
+        flow — parse, admit, block on the request future, answer — with
+        the verb and its per-query geometry riding the
+        :class:`PendingRequest` so the batcher can group per-verb
+        micro-batches; the oversized degradation runs the brute-force
+        verb oracle right here, exactly like oversized k-NN."""
+        if self._fire_fault(SITE_VERB):
+            return
+        trace = _trace_id(self.headers)
+        parsed = self._parse_verb_body(endpoint)
+        if parsed is None:
+            return  # error response already sent
+        verb, queries, radius, box_hi, deadline_s = parsed
+        state: ServeState = self.server.state
+        if not state.ready:
+            _count_request("unready")
+            self._send_json(503, {"error": "index is still warming up"},
+                            extra_headers={"Retry-After": "1"})
+            return
+        if queries.shape[0] > state.max_batch:
+            # oversized verb request: the brute-force verb oracle here,
+            # like the oversized k-NN path
+            by_radius = verb in ("radius", "count_radius")
+            fallback = (state.engine.fallback_radius if by_radius
+                        else state.engine.fallback_range)
+            res = self._oversized(
+                trace, int(queries.shape[0]),
+                lambda: fallback(queries, radius if by_radius else box_hi,
+                                 with_ids=not verb.startswith("count")),
+                verb=verb)
+            if res is not None:
+                self._send_json(200, self._verb_result_json(
+                    verb, res.counts, res.d2, res.ids, bool(res.truncated),
+                    degraded="oversized", trace_id=trace))
+            return
+        deadline = (time.monotonic() + deadline_s) if deadline_s else None
+        req = PendingRequest(queries, state.engine.k, deadline,
+                             trace_id=trace, verb=verb, radius=radius,
+                             box_hi=box_hi)
+        if self._submit_and_wait(req, trace):
+            self._send_json(200, self._verb_result_json(
+                verb, req.counts, req.d2, req.ids, req.truncated,
+                degraded=req.degraded, trace_id=trace))
+
+    def _parse_verb_body(self, endpoint: str):
+        """Validated (verb, queries|lo, r|None, hi|None, deadline seconds
+        | None) for a verb endpoint, or None with the 4xx/501 already
+        written. Geometry validation lives in
+        :mod:`kdtree_tpu_torch.verbs.wire`; the deadline check is the
+        k-NN one."""
+        state: ServeState = self.server.state
+        payload = self._read_json_object()
+        if payload is None:
+            return None
+        dim = state.engine.tree.dim
+        radius: Optional[np.ndarray] = None
+        box_hi: Optional[np.ndarray] = None
+        try:
+            if endpoint == "radius":
+                verb = "radius"
+                queries, radius = verb_wire.parse_radius_body(payload, dim)
+            elif endpoint == "range":
+                verb = "range"
+                queries, box_hi = verb_wire.parse_range_body(payload, dim)
+            else:
+                form, q_or_lo, r, lo, hi = verb_wire.parse_count_body(
+                    payload, dim)
+                if form == "radius":
+                    verb, queries, radius = "count_radius", q_or_lo, r
+                else:
+                    verb, queries, box_hi = "count_box", lo, hi
+        except verb_wire.VerbParseError as e:
+            self._send_json(400, {"error": str(e)})
+            return None
+        deadline_ms = payload.get("deadline_ms")
+        deadline_s: Optional[float] = None
+        if deadline_ms is not None:
+            if not isinstance(deadline_ms, (int, float)) or \
+                    isinstance(deadline_ms, bool) or deadline_ms <= 0:
+                self._send_json(400, {"error": "deadline_ms must be a "
+                                               "positive number"})
+                return None
+            deadline_s = float(deadline_ms) / 1e3
+        if payload.get("recall_target") is not None:
+            # absent (or null) is the exact path; the recall dial itself
+            # is not here yet
+            self._send_json(501, _not_ported(
+                f"recall_target on /v1/{endpoint}", 12))
+            return None
+        return verb, queries, radius, box_hi, deadline_s
+
+    def _verb_result_json(
+        self, verb: str, counts: np.ndarray,
+        d2: Optional[np.ndarray], ids: Optional[np.ndarray],
+        truncated: bool, degraded: Optional[str], trace_id: str = "",
+    ) -> dict:
+        offset = self.server.state.id_offset
+        out = {
+            "counts": np.asarray(counts).astype(np.int64).tolist(),
+            # the soundness flag: true only when a bounded visit made the
+            # answer a lower bound — false on every exact answer
+            "truncated": bool(truncated),
+            "degraded": degraded,
+            "trace_id": trace_id,
+        }
+        if verb == "radius" and ids is not None and d2 is not None:
+            out["ids"], out["distances"] = verb_wire.radius_rows_json(
+                d2, ids, counts, offset)
+        elif verb == "range" and ids is not None:
+            out["ids"] = verb_wire.range_rows_json(ids, counts, offset)
+        return out
+
     def _do_write(self, op: str) -> None:
         """``POST /v1/upsert`` / ``/v1/delete``: validates, converts GLOBAL
         ids to this shard's local ids (``--id-offset``), applies through
@@ -529,6 +672,15 @@ class KnnRequestHandler(JsonRequestHandler):
         # still unread leaves its bytes on the keep-alive socket
         payload = self._read_json_object()
         if payload is None:
+            return
+        if state.read_only:
+            # snapshot-following secondary: writes belong to the shard
+            # primary; a local delta here would silently diverge from the
+            # snapshot stream this replica converges by
+            self._send_json(403, {"error": "this replica is read-only "
+                                           "(snapshot follower) — send "
+                                           "writes to the shard primary",
+                                  "trace_id": trace})
             return
         if self.server.queue.closed:
             self._send_json(503, {"error": "server is shutting down",

@@ -12,10 +12,13 @@ Output bytes and exit codes are the reference's:
 - ``bench``: per-phase timing (generate, build, query) after a warm-up
   run on another seed, as one JSON line;
 - ``build`` / ``query``: build and save / load and query (npz
-  checkpoint, readable by both packages);
+  checkpoint, readable by both packages); ``build --save DIR`` also
+  writes a serving snapshot (``snapshot/store.py``);
 - ``serve``: the long-lived HTTP server (``serve/server.py``) over a
-  Morton checkpoint, a points file or the seeded threefry problem, until
-  SIGTERM/SIGINT drains it.
+  serving snapshot, a Morton checkpoint, a points file or the seeded
+  threefry problem, until SIGTERM/SIGINT drains it; a primary emits
+  snapshots on every epoch swap (``--snapshot-save``), a read-only
+  secondary follows them (``--snapshot-follow``).
 
 Everything runs on the CUDA device unless ``--device cpu`` asks for the
 CPU. ``auto`` picks an engine by the reference's crossovers
@@ -298,8 +301,9 @@ def _load_array(path: str, what: str) -> "np.ndarray":
 def cmd_build(args) -> None:
     from kdtree_tpu_torch.utils.checkpoint import save_tree
 
-    if not args.out:
-        print("build needs --out FILE (npz checkpoint)", file=sys.stderr)
+    if not args.out and not args.save:
+        print("build needs --out FILE (npz checkpoint) and/or --save DIR "
+              "(serving snapshot)", file=sys.stderr)
         sys.exit(1)
     if args.points:
         # user data, not a seeded problem
@@ -310,8 +314,24 @@ def cmd_build(args) -> None:
         meta = {"seed": args.seed, "generator": gen_used}
     tree = _build_tree_for_engine(points, args.engine)
     n, dim = points.shape
-    save_tree(args.out, tree, meta=meta)
-    print(f"saved {type(tree).__name__} (n={n}, dim={dim}) to {args.out}")
+    if args.out:
+        save_tree(args.out, tree, meta=meta)
+        print(f"saved {type(tree).__name__} (n={n}, dim={dim}) to {args.out}")
+    if args.save:
+        # serving snapshot: the built index's arrays as checksummed flat
+        # .npy segments + a versioned manifest, so `serve --snapshot`
+        # replicas start without re-running the build
+        from kdtree_tpu_torch import snapshot as snap
+
+        keys = snap.plan_keys_for(tree, k=16)
+        man = snap.save_snapshot(
+            args.save, tree, epoch=0, plan_keys=keys,
+            plan_profiles=snap.collect_plan_profiles(keys),
+            meta=dict(meta), keep=max(args.snapshot_keep or 1, 1),
+        )
+        print(f"serving snapshot v{man['version']} (epoch "
+              f"{man['epoch']}, n={man['signature']['n_real']}) saved "
+              f"to {snap.resolve_dir(args.save)}")
 
 
 def cmd_query(args) -> None:
@@ -373,10 +393,11 @@ def cmd_query(args) -> None:
 
 
 def cmd_serve(args) -> None:
-    """Long-lived online k-NN serving: micro-batched ``POST /v1/knn``, the
-    write path, ``GET /healthz`` readiness and the Prometheus ``GET
-    /metrics``. The snapshot flags, ``--recall-sample`` and ``--no-ladder``
-    of the reference are not here yet (ROADMAP items 10 and 12)."""
+    """Long-lived online serving: micro-batched ``POST /v1/knn`` and the
+    verbs, the write path, ``GET /healthz`` readiness and the Prometheus
+    ``GET /metrics``, over a snapshot, a checkpoint, a points file or the
+    seeded problem. ``--recall-sample`` and ``--no-ladder`` of the
+    reference are not here yet (ROADMAP item 12)."""
     import signal
     import threading
     import zipfile
@@ -386,12 +407,111 @@ def cmd_serve(args) -> None:
     from kdtree_tpu_torch.serve import engine as lifecycle
     from kdtree_tpu_torch.serve import server as srv
 
-    if args.index and args.points:
-        print("serve needs ONE index source: --index, --points, or the "
-              "seeded --seed/--dim/--n problem", file=sys.stderr)
+    snap_dir = args.snapshot
+    follow_s = args.snapshot_follow
+    save_dir = args.snapshot_save
+    snap_version = args.snapshot_version
+    if (args.index and args.points) or (args.index and snap_dir):
+        print("serve needs ONE index source: --snapshot, --index, "
+              "--points, or the seeded --seed/--dim/--n problem "
+              "(--snapshot may pair with --points as the corruption "
+              "fallback)", file=sys.stderr)
+        sys.exit(1)
+    if follow_s is not None and not snap_dir:
+        print("--snapshot-follow needs --snapshot DIR (the manifest the "
+              "secondary polls)", file=sys.stderr)
+        sys.exit(1)
+    if follow_s is not None and save_dir:
+        print("--snapshot-follow and --snapshot-save are exclusive: a "
+              "secondary adopts snapshots, only the shard primary emits "
+              "them", file=sys.stderr)
+        sys.exit(1)
+    if snap_version is not None and not snap_dir:
+        print("--snapshot-version needs --snapshot DIR (the retained "
+              "generation to roll back to)", file=sys.stderr)
+        sys.exit(1)
+    if snap_version is not None and follow_s is not None:
+        print("--snapshot-version and --snapshot-follow are exclusive: "
+              "a follower converges to the LIVE manifest, which would "
+              "immediately replace the pinned generation",
+              file=sys.stderr)
         sys.exit(1)
     tree = points = problem = None
-    if args.index:
+    meta = {}
+    epoch0 = 0
+    loaded_version = 0
+    loaded_from_snapshot = False
+    # an explicit --id-offset always wins; a snapshot of a non-zero-offset
+    # shard carries its partition start in the manifest, and a replica
+    # started without the flag inherits it
+    id_offset = args.id_offset if args.id_offset is not None else 0
+    if snap_dir:
+        from kdtree_tpu_torch import snapshot as snap
+
+        try:
+            tree, man = snap.load_snapshot(snap_dir, version=snap_version,
+                                           device=args.device)
+            epoch0 = int(man.get("epoch", 0))
+            loaded_version = int(man.get("version", 0))
+            loaded_from_snapshot = True
+            if args.id_offset is None and man.get("id_offset"):
+                id_offset = int(man["id_offset"])
+                print(f"id_offset {id_offset} inherited from the "
+                      "snapshot manifest (pass --id-offset to "
+                      "override)", file=sys.stderr)
+            meta = {"snapshot": {
+                "dir": snap.resolve_dir(snap_dir),
+                "version": loaded_version,
+                "epoch": epoch0,
+                "role": ("secondary" if follow_s is not None
+                         else "primary" if save_dir else "static"),
+            }}
+            seeded = snap.seed_plan_store(man)
+            if seeded:
+                print(f"plan store seeded with {seeded} pre-shipped "
+                      "profile(s) from the snapshot manifest",
+                      file=sys.stderr)
+            print(f"snapshot loaded: v{loaded_version} epoch {epoch0} "
+                  f"(n={tree.n_real}) from {snap.resolve_dir(snap_dir)}",
+                  file=sys.stderr)
+        except snap.SnapshotError as e:
+            # named failure (schema skew / checksum mismatch / missing
+            # segment — never a half-read snapshot), already counted in
+            # kdtree_snapshot_load_errors_total by the store. Fall back to
+            # a from-source rebuild when one was provided; otherwise fail
+            # crisply.
+            if args.points or args.snapshot_fallback:
+                src = "--points" if args.points else "the seeded problem"
+                print(f"snapshot load failed: {e}", file=sys.stderr)
+                print(f"falling back to a from-scratch rebuild from "
+                      f"{src} (--snapshot-fallback contract)",
+                      file=sys.stderr)
+                meta = {"snapshot": {
+                    "dir": snap.resolve_dir(snap_dir),
+                    "role": "fallback-rebuild",
+                    "error": str(e)[:200],
+                    # pre-seed the keys the follower's on-adopt hook
+                    # updates: this dict is shared with the /healthz body,
+                    # and ADDING keys during a concurrent json.dumps
+                    # raises; overwriting existing values does not
+                    "version": 0,
+                    "epoch": 0,
+                }}
+                if args.points:
+                    points = _load_array(args.points, "points")
+                    meta["points"] = args.points
+                else:
+                    problem = (args.seed, args.dim, args.n)
+                    meta.update(seed=args.seed, generator="threefry")
+            else:
+                print(f"cannot load snapshot {snap_dir}: {e}",
+                      file=sys.stderr)
+                print("hint: pass --points FILE (or --snapshot-fallback "
+                      "with the seeded --seed/--dim/--n) to rebuild "
+                      "from source when the snapshot is unusable",
+                      file=sys.stderr)
+                sys.exit(1)
+    elif args.index:
         from kdtree_tpu_torch.utils.checkpoint import load_tree
 
         try:
@@ -409,19 +529,49 @@ def cmd_serve(args) -> None:
                   file=sys.stderr)
         problem = (args.seed, args.dim, args.n)
         meta = {"seed": args.seed, "generator": "threefry"}
+    snapshot_sink = None
+    if save_dir:
+        from kdtree_tpu_torch import snapshot as snap
+
+        def snapshot_sink(tree_, epoch, _dir=save_dir, _off=id_offset,
+                          _k=args.k, _mb=args.max_batch,
+                          _keep=max(args.snapshot_keep or 1, 1)):
+            keys = snap.plan_keys_for(tree_, _k, _mb)
+            snap.save_snapshot(
+                _dir, tree_, epoch=epoch, id_offset=_off, plan_keys=keys,
+                plan_profiles=snap.collect_plan_profiles(keys), keep=_keep,
+            )
     try:
         state = lifecycle.build_state(
             tree=tree, points=points, problem=problem, k=args.k,
             max_batch=args.max_batch, meta=meta,
-            id_offset=args.id_offset or 0,
+            id_offset=id_offset,
             max_delta_rows=args.max_delta_rows,
             max_delta_frac=args.max_delta_frac,
             device=args.device,
+            read_only=follow_s is not None,
+            epoch0=epoch0,
+            snapshot_sink=snapshot_sink,
         )
     except TypeError as e:
         # un-servable checkpoint kind — crisp stderr + exit code
         print(f"cannot serve: {e}", file=sys.stderr)
         sys.exit(1)
+    if save_dir:
+        # primary bootstrap emit: make the save dir's artifact match the
+        # epoch this process serves, so secondaries can start from it at
+        # once. Skipped only when this process just loaded the identical
+        # content from the same dir.
+        from kdtree_tpu_torch import snapshot as snap
+
+        same = (loaded_from_snapshot and snap_dir
+                and snap.resolve_dir(snap_dir) == snap.resolve_dir(save_dir))
+        if not same or snap.read_manifest(snap.resolve_dir(save_dir)) is None:
+            snapshot_sink(state.engine.tree, state.engine.epoch)
+            print(f"serving snapshot emitted to "
+                  f"{snap.resolve_dir(save_dir)} (epoch "
+                  f"{state.engine.epoch}); epoch rebuilds re-emit on "
+                  "every swap", file=sys.stderr)
     try:
         httpd = srv.make_server(
             state, host=args.host, port=args.port,
@@ -464,10 +614,35 @@ def cmd_serve(args) -> None:
         # holding the process open with /healthz stuck at 503 forever
         httpd.stop()
         raise
+    follower = None
+    if follow_s is not None:
+        # blue/green secondary: poll the snapshot manifest, adopt new
+        # versions (load -> pre-warm -> atomic engine swap), report the
+        # adopted epoch on /healthz. Started AFTER warmup so the adoption
+        # pre-warms exactly the batch shapes serving ran.
+        from kdtree_tpu_torch.snapshot import SnapshotFollower
+
+        snap_block = state.meta.setdefault("snapshot", {})
+
+        def _on_adopt(man, _blk=snap_block):
+            _blk["version"] = int(man.get("version", 0))
+            _blk["epoch"] = int(man.get("epoch", 0))
+
+        follower = SnapshotFollower(
+            state.engine, snap_dir, poll_s=follow_s,
+            start_version=loaded_version, on_adopt=_on_adopt,
+        )
+        follower.start()
+        print(f"snapshot follower armed: polling {follower.dir} every "
+              f"{follower.poll_s:g}s for blue/green epoch swaps "
+              "(this replica is read-only — writes 403)",
+              file=sys.stderr)
     print(f"ready: POST /v1/knn, GET /healthz, GET /metrics on port "
           f"{port}", file=sys.stderr, flush=True)
     stop.wait()
     print("shutting down: draining in-flight requests...", file=sys.stderr)
+    if follower is not None:
+        follower.stop()
     httpd.stop()
     print("drained; bye", file=sys.stderr, flush=True)
 
@@ -505,7 +680,20 @@ def build_parser() -> argparse.ArgumentParser:
     bu.add_argument("--points", default=None, metavar="FILE",
                     help="build over user data ([N, D] .npy/.npz) instead of a "
                          "seeded problem")
-    bu.add_argument("--out", default=None, help="npz checkpoint path")
+    bu.add_argument("--out", default=None,
+                    help="npz checkpoint path (required unless --save "
+                         "is given)")
+    bu.add_argument("--save", default=None, metavar="DIR",
+                    help="also write a versioned SERVING snapshot "
+                         "(checksummed flat .npy segments + manifest) "
+                         "that `serve --snapshot DIR` replicas load "
+                         "without a build")
+    bu.add_argument("--snapshot-keep", type=int, default=1, metavar="N",
+                    help="with --save: retain the last N snapshot "
+                         "generations (segments refcounted by manifest; "
+                         "older generations GC'd) — `serve --snapshot "
+                         "DIR --snapshot-version V` rolls back to a "
+                         "retained one (default 1)")
     bu.set_defaults(fn=cmd_build)
 
     q = sub.add_parser("query", help="load a tree and run the 10 protocol queries")
@@ -570,6 +758,38 @@ def build_parser() -> argparse.ArgumentParser:
                          "write backlog reaches this fraction of the "
                          "main tree (default 0.25; <= 0 disables this "
                          "bound; the tighter of the two bounds wins)")
+    sv.add_argument("--snapshot", default=None, metavar="DIR",
+                    help="load the index from a serving snapshot "
+                         "(`build --save` / a primary's epoch emits): "
+                         "checksum-verified, mmap-read, one device copy "
+                         "per segment — no rebuild. Pairs with --points "
+                         "or --snapshot-fallback as the corruption "
+                         "fallback")
+    sv.add_argument("--snapshot-save", default=None, metavar="DIR",
+                    help="shard PRIMARY: emit a snapshot at startup and "
+                         "re-emit on every epoch rebuild swap — the "
+                         "blue/green artifact secondaries adopt")
+    sv.add_argument("--snapshot-follow", type=float, default=None,
+                    metavar="SECONDS",
+                    help="read SECONDARY: poll --snapshot DIR's manifest "
+                         "at this period and blue/green-swap new "
+                         "versions in (load -> warm -> atomic engine "
+                         "swap; /healthz reports the adopted epoch). "
+                         "Implies read-only — writes 403")
+    sv.add_argument("--snapshot-fallback", action="store_true",
+                    help="on snapshot load failure (checksum/schema), "
+                         "rebuild from the seeded --seed/--dim/--n "
+                         "problem instead of exiting (--points falls "
+                         "back automatically)")
+    sv.add_argument("--snapshot-keep", type=int, default=1, metavar="N",
+                    help="with --snapshot-save: retain the last N "
+                         "snapshot generations across epoch emits "
+                         "(rollback-by-version; default 1)")
+    sv.add_argument("--snapshot-version", type=int, default=None,
+                    metavar="V",
+                    help="with --snapshot: load a RETAINED generation V "
+                         "instead of the live manifest — the rollback "
+                         "button --snapshot-keep enables")
     sv.add_argument("--debug-faults", action="store_true",
                     help="arm POST /debug/faults (live fault injection) — "
                          "a remote wedge-this-process button, so it is "

@@ -287,7 +287,7 @@ def test_serve_subprocess_answers_like_the_reference_and_drains():
 
 
 @pytest.mark.parametrize("flags, code", [
-    (["--snapshot", "snapdir"], 2), (["--recall-sample", "0.1"], 2), (["--no-ladder"], 2),
+    (["--snapshot", "snapdir"], 1), (["--recall-sample", "0.1"], 2), (["--no-ladder"], 2),
     (["--index", "a.npz", "--points", "b.npy"], 1), (["--index", "missing.npz"], 1),
 ])
 def test_serve_flags_not_ported_or_conflicting(flags, code):

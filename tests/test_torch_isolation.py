@@ -54,6 +54,9 @@ def _run(code, env_extra=None):
 def test_every_module_imports_without_jax_or_the_reference():
     mods = _modules()
     assert "kdtree_tpu_torch.kernels.scan_knn" in mods and len(mods) >= 12
+    for sub in ("snapshot.store", "snapshot.follower", "verbs.device", "verbs.oracle",
+                "verbs.wire", "tuning.store"):
+        assert f"kdtree_tpu_torch.{sub}" in mods, sub
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -94,6 +97,51 @@ def test_default_device_without_cuda_raises(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
+
+
+@pytest.fixture(scope="module")
+def snapdir(tmp_path_factory):
+    """A small snapshot, saved from a CPU tree (saving needs no CUDA)."""
+    from kdtree_tpu_torch import snapshot
+
+    d = str(tmp_path_factory.mktemp("snap") / "s")
+    tree = kdtree_tpu_torch.build_morton(torch.zeros(64, 3).numpy(), device="cpu")
+    snapshot.save_snapshot(d, tree)
+    return d
+
+
+def _load(d):
+    from kdtree_tpu_torch import snapshot
+
+    return snapshot.load_snapshot(d)[0]
+
+
+def _verbs():
+    from kdtree_tpu_torch.verbs import device, oracle
+
+    return device, oracle
+
+
+_Q = [[0.0, 0.0, 0.0]]
+
+
+@pytest.mark.parametrize("call", [
+    lambda d: _load(d),
+    lambda d: _verbs()[0].radius_search(_load(d), _Q, 1.0),
+    lambda d: _verbs()[0].range_search(_load(d), _Q, _Q),
+    lambda d: _verbs()[1].radius_oracle(torch.zeros(4, 3).numpy(), _Q, 1.0),
+    lambda d: _verbs()[1].range_oracle(torch.zeros(4, 3).numpy(), _Q, _Q),
+    lambda d: _serve_engine().build_state(tree=_load(d)),
+    lambda d: _cli().cmd_serve(_cli().build_parser().parse_args(
+        ["serve", "--snapshot", d, "--port", "0"])),
+])
+def test_snapshot_and_verb_entry_points_raise_without_cuda(call, snapdir, monkeypatch):
+    """Loading a snapshot, the verbs over a snapshot's tree, the verb
+    oracles over host points, and a server from a snapshot all run on CUDA
+    by default and raise without it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call(snapdir)
 
 
 def test_explicit_cpu_runs(monkeypatch):

@@ -3,7 +3,8 @@ the same seeded points: the same requests get byte-identical k / ids /
 distances / degraded answers (concurrent clients, per-request k,
 oversized, an expired deadline, id_offset, writes over HTTP), the same
 4xx / 429 / 403 answers, the same /healthz keys, a drained shutdown, and
-501s for what the port does not serve yet."""
+501s for what the port does not serve yet (recall_target on k-NN and the
+verbs, the profiling endpoints)."""
 
 from __future__ import annotations
 
@@ -218,9 +219,9 @@ def test_fault_drill_matches():
 
 
 @pytest.mark.parametrize("path,body", [
-    ("/v1/radius", {"queries": [[0.0, 0.0, 0.0]], "r": 1.0}),
-    ("/v1/range", {"lo": [[0.0, 0.0, 0.0]], "hi": [[1.0, 1.0, 1.0]]}),
-    ("/v1/count", {"queries": [[0.0, 0.0, 0.0]], "r": 1.0}),
+    ("/v1/radius", {"queries": [[0.0, 0.0, 0.0]], "r": 1.0, "recall_target": 0.9}),
+    ("/v1/range", {"lo": [[0.0, 0.0, 0.0]], "hi": [[1.0, 1.0, 1.0]], "recall_target": 0.9}),
+    ("/v1/count", {"queries": [[0.0, 0.0, 0.0]], "r": 1.0, "recall_target": 0.9}),
     ("/v1/knn", {"queries": [[0.0, 0.0, 0.0]], "recall_target": 0.9}),
     ("/debug/profile", {}),
 ])
