@@ -17,7 +17,8 @@ Phases, one line each (any failure raises and exits non-zero):
              PyTorch versions on the card, bit for bit (d2 and ids): D, k,
              k > n_real, ragged tiles, -1 candidate padding, a clustered
              cloud, a tie-heavy lattice, two row chunks per bucket, 4-byte
-             copies (B % 4 != 0), k > 32 and D > 8, each at 1 block per tile,
+             copies (B % 4 != 0), k > 32, D > 8, D = 40 (window sums) and
+             D = 1,100 (two levels of windows), each at 1 block per tile,
              the planned count, and forced to 2 and 7;
 4. main    — 2^24 x 3-D points (seed 42) -> Morton build (B=256) ->
              ServeEngine(k=16) with its warmup ladder 8..1024 -> served
@@ -102,8 +103,30 @@ Phases, one line each (any failure raises and exits non-zero):
              kdtree_tpu_torch serve --snapshot`` as a subprocess: its ready
              line, one /v1/knn and one /v1/radius answer against the oracle,
              SIGTERM -> exit 0.
+9. recall  — (a) distances above 32 axes: 2^20-point trees at D = 47 and
+             D = 64, morton_knn_tiled at k=16 over 4,096 queries, the scan
+             kernel against the plain scan bit for bit at its final collect
+             dispatch and a query sample against the exact brute-force
+             oracle (the largest difference joins the scan kernel's
+             max_abs_err); (b) the recall harness on phase 4's tree:
+             sweep_recall over 65,536 queries at k=16 and every cap of
+             default_caps, recall monotone, the full cap byte-identical to
+             the exact run, the kernel against the plain scan at one
+             truncated cap, the curve printed and the calibration persisted
+             into this run's plan store; (c) a server over that tree and
+             store with the ladder armed and the recall sampler at 1.0:
+             /v1/knn at recall_target 0.9 and 0.99 and 1, 64 and 1,000 rows
+             (gear echoed, every returned (id, d2) true, recall against the
+             oracle printed), radius and count under a target (counts at
+             most the exact ones, ``truncated`` set wherever one is short),
+             the ladder ticked down to approx-0.99 and brute-deadline and
+             back up (answers flagged degraded), kdtree_recall_sampled set,
+             and the scan-kernel launches over the approximate requests
+             (> 0); (d) ``tune`` on a 2^16-query sample with small grids,
+             its winner, and the next plan_tiled "warm" with exact answers.
 
-The last lines are the kernels' JSON record, the nvidia-smi line, and
+Every phase runs on a plan store of this run's own (a temporary
+directory). The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -147,6 +170,13 @@ VERB_SIDE = 3.0  # phase 8's range cubes
 VERB_ROWS = (1, 64, 1000)
 SNAP_CLI_N = 1 << 20  # points of phase 8's `build --save` / `serve --snapshot`
 SNAP_CLI_R = 4.0  # its radius: about 35 hits per query at 2^20 points
+WIDE_DIMS = (47, 64)  # phase 9a: 47 pads each row with 8 zeros in front, 9 behind
+WIDE_N = 1 << 20
+WIDE_Q = 4096
+WIDE_SAMPLE = 256
+RECALL_Q = 1 << 16  # phase 9b's sweep sample
+RECALL_ROWS = (1, 64, 1000)
+TUNE_Q = 1 << 16
 
 
 def say(phase: str, msg: str) -> None:
@@ -166,6 +196,13 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
 
 
 def check_answer(points, queries, d2, ids, k, what, want=None):
@@ -293,6 +330,12 @@ def phase_kernel(dev):
                   generate_queries(16, 3, 4 * 32, device=dev), 32, 40, 128, False, 64, SPLITS))
     cases.append(("D=13, query in device memory", generate_points_rowwise(17, 13, 5000, device=dev),
                   generate_queries(18, 13, 4 * 32, device=dev), 32, 5, 128, False, 64, SPLITS))
+    # above 32 axes the squares are rounded and summed in windows of 32;
+    # past 1,024 axes the window sums take a second level
+    cases.append(("D=40, window sums", generate_points_rowwise(19, 40, 5000, device=dev),
+                  generate_queries(20, 40, 4 * 32, device=dev), 32, 5, 128, False, 64, SPLITS))
+    cases.append(("D=1100, two window levels", generate_points_rowwise(21, 1100, 2000, device=dev),
+                  generate_queries(22, 1100, 2 * 16, device=dev), 16, 3, 128, False, 16, SPLITS))
     max_err = 0.0
     for name, pts, qs, tile, k, cmax, holes, bucket, splits in cases:
         tree = build_morton(pts, bucket_cap=bucket)
@@ -1673,6 +1716,292 @@ def phase_snapshot(dev, points, tree, here, smi, build_s):
     return [f"{line} [{smi}]" if "ms" in line or " s" in line else line for line in lines]
 
 
+def phase_wide(dev, smi):
+    """Phase 9a: the D > 32 arithmetic on the card. Prints its lines as it
+    goes; returns the largest kernel-vs-plain and tiled-vs-oracle
+    difference."""
+    import torch
+
+    import kdtree_tpu_torch.kernels.scan_knn as scan_mod
+    from kdtree_tpu_torch.ops import bruteforce
+    from kdtree_tpu_torch.ops import tile_query as tqm
+    from kdtree_tpu_torch.ops.generate import generate_points_rowwise, generate_queries
+    from kdtree_tpu_torch.ops.morton import build_morton
+
+    max_err = 0.0
+    rng = np.random.default_rng(SEED + 9)
+    for d in WIDE_DIMS:
+        t0 = time.perf_counter()
+        pts = generate_points_rowwise(SEED + d, d, WIDE_N, device=dev)
+        tree = build_morton(pts, bucket_cap=BUCKET)
+        qs = generate_queries(SEED + d + 1, d, WIDE_Q, device=dev)
+        _sync(dev)
+        build_s = time.perf_counter() - t0
+        # the plan the timed run uses, resolved once: its source is printed
+        p = tqm.plan_tiled(WIDE_Q, d, tree.n_real, tree.num_buckets, tree.bucket_size, K,
+                           device=dev)
+        assert p.qbatch >= WIDE_Q, f"D={d}: more than one batch"
+        before = scan_mod.scan_tiles.launches
+        t0 = time.perf_counter()
+        d2, ids = tqm.morton_knn_tiled(tree, qs, k=K, plan=p)
+        _sync(dev)
+        run_s = time.perf_counter() - t0
+        launches = scan_mod.scan_tiles.launches - before
+        assert launches > 0, f"D={d}: the tiled run never launched the scan kernel"
+        # the final collect dispatch (the cap grown as the run's overflow
+        # retry grows it): kernel against the plain scan
+        s, _ = tqm._sort_queries(qs, p.bits, (-WIDE_Q) % p.qbatch)
+        stq = s.reshape(-1, p.tile, d).contiguous()
+        kk = min(K, tree.n_real)
+        cand, lb = collect_inputs(tree, stq, kk, p.seeds, p.cmax, grow=True)
+        kd, ki, S = kernel_run(tree, stq, cand, lb, kk, None)
+        t0 = time.perf_counter()
+        pd, pi = tqm._scan_tiles(tree, stq, cand, lb, kk, 1, stq.shape[0])
+        _sync(dev)
+        plain_s = time.perf_counter() - t0
+        assert torch.equal(kd, pd) and torch.equal(ki, pi), f"D={d}: kernel != plain"
+        fin = torch.isfinite(pd)
+        max_err = max(max_err, float((kd[fin] - pd[fin]).abs().max()) if fin.any() else 0.0)
+        sample = torch.as_tensor(rng.choice(WIDE_Q, WIDE_SAMPLE, replace=False), device=dev)
+        od, oi = bruteforce.knn(pts, qs[sample], k=K, method="exact")
+        ties = check_answer(pts, qs[sample], d2[sample], ids[sample], K, f"D={d} tiled sample",
+                            want=(od, oi))
+        max_err = max(max_err, float((d2[sample] - od).abs().max()))
+        say("recall",
+            f"D={d}: 2^{WIDE_N.bit_length() - 1} points built in {build_s:.3f} s; "
+            f"morton_knn_tiled {WIDE_Q} queries "
+            f"k={K} in {run_s:.3f} s ({launches} scan launches, plan tile={p.tile} "
+            f"cmax={p.cmax} {p.source}); final collect dispatch (T={stq.shape[0]} "
+            f"C={cand.shape[1]}, {S} block(s)/tile) kernel == plain scan bit for bit (plain "
+            f"{plain_s:.2f} s); {WIDE_SAMPLE}-query sample exact vs the oracle ({ties} tied "
+            f"slots) [{smi}]")
+        del pts, tree, qs, d2, ids, cand, lb, kd, ki, pd, pi
+    return max_err
+
+
+def phase_recall(dev, points, tree, smi):
+    """Phase 9b-d: the recall harness, the dial over HTTP with the ladder,
+    and ``tune``, on phase 4's tree (see the module docstring). Prints its
+    lines as it goes."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    import kdtree_tpu_torch.kernels.scan_knn as scan_mod
+    from kdtree_tpu_torch import approx, tuning
+    from kdtree_tpu_torch.approx import recall as rc
+    from kdtree_tpu_torch.obs.registry import get_registry
+    from kdtree_tpu_torch.ops import bruteforce
+    from kdtree_tpu_torch.ops import tile_query as tqm
+    from kdtree_tpu_torch.ops._arith import sq_dist
+    from kdtree_tpu_torch.ops.generate import generate_queries
+    from kdtree_tpu_torch.serve.engine import build_state
+    from kdtree_tpu_torch.serve.server import make_server
+    from kdtree_tpu_torch.tuning import tuner
+
+    def note(line):
+        say("recall", f"{line} [{smi}]" if "ms" in line or " s" in line else line)
+
+    # the calibration and tune's winner go to a store of their own, and the
+    # run's store is back in place for the phases after this one
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-recall-")
+    run_store = os.environ.get("KDTREE_TPU_TORCH_PLAN_CACHE")
+    os.environ["KDTREE_TPU_TORCH_PLAN_CACHE"] = tmp
+    kk = min(K, tree.n_real)
+    try:
+        # (b) the recall harness
+        queries = generate_queries(SEED + 900, DIM, RECALL_Q, device=dev)
+        t0 = time.perf_counter()
+        block = rc.sweep_recall(tree, queries, k=K)
+        sweep_s = time.perf_counter() - t0
+        curve = block["curve"]
+        recalls = [r["recall"] for r in curve]
+        assert recalls == sorted(recalls), f"recall not monotone in the cap: {recalls}"
+        assert recalls[-1] == 1.0 and curve[-1]["visit_cap"] == tree.num_buckets
+        plan = tqm.plan_tiled(RECALL_Q, DIM, tree.n_real, tree.num_buckets,
+                              tree.bucket_size, K, use_kernel=True, device=dev)
+        ed, ei = tqm.morton_knn_tiled(tree, queries, k=K, plan=plan)
+        fd, fi = approx.morton_knn_approx(tree, queries, k=K, visit_cap=tree.num_buckets,
+                                          plan=plan)
+        _sync(dev)
+        assert torch.equal(ed, fd) and torch.equal(ei, fi), "full cap != exact run"
+        cal = rc.persist_calibration(tree, RECALL_Q, DIM, K, block)
+        caps = cal["recall_caps"]
+        assert cal["persisted"] and "0.9" in caps, cal
+        note(f"sweep_recall {RECALL_Q} queries k={K} over {len(curve)} caps in "
+                     f"{sweep_s:.2f} s (plan tile={plan.tile} cmax={plan.cmax}), exact "
+                     f"{block['exact_qps']:.0f} q/s; recall monotone, full cap byte-identical "
+                     f"to the exact run; calibration {caps}")
+        note("curve (cap recall q/s speedup): " + "; ".join(
+            f"{r['visit_cap']} {r['recall']:.6f} {r['qps']:.0f} {r['speedup']:.3f}x"
+            for r in curve))
+        # the kernel against the plain scan at a truncated cap, one batch
+        cap = int(caps["0.9"])
+        sq, _ = tqm._sort_queries(queries, plan.bits, (-RECALL_Q) % plan.qbatch)
+        stq = sq[:plan.qbatch].reshape(-1, plan.tile, DIM).contiguous()
+        cand, lb = collect_inputs(tree, stq, kk, plan.seeds, plan.cmax, grow=True)
+        assert cap < cand.shape[1], (cap, cand.shape)
+        cand, lb = cand[:, :cap].contiguous(), lb[:, :cap].contiguous()
+        kd, ki, S = kernel_run(tree, stq, cand, lb, kk, None)
+        pd, pi = tqm._scan_tiles(tree, stq, cand, lb, kk, 1, stq.shape[0])
+        _sync(dev)
+        assert torch.equal(kd, pd) and torch.equal(ki, pi), "kernel != plain at a truncated cap"
+        note(f"truncated cap {cap} (the 0.9 calibration; T={stq.shape[0]}, "
+                     f"{S} block(s)/tile): kernel == plain scan bit for bit")
+
+        # (c) the dial over HTTP with the ladder and the sampler
+        pool = generate_queries(SEED + 901, DIM, max(RECALL_ROWS), device=dev)
+        od, oi = bruteforce.knn(points, pool, k=K)
+        pool_h, od_h, oi_h = pool.cpu().numpy(), od.cpu().numpy(), oi.cpu().numpy()
+        # the sampler ticks once at start, then not for an hour: the ladder
+        # is stepped by hand below
+        period = os.environ.get("KDTREE_TPU_HISTORY_PERIOD_S")
+        os.environ["KDTREE_TPU_HISTORY_PERIOD_S"] = "3600"
+        state = build_state(tree=tree, k=K, max_batch=MAX_BATCH, ladder_enabled=True)
+        hist = state.slo_engine.history
+        ticks0 = len(hist.samples())
+        srv = make_server(state, port=0, recall_sample=1.0)
+        try:
+            srv.start(warmup_buckets=[8, 64, 1024])
+        finally:
+            if period is None:
+                os.environ.pop("KDTREE_TPU_HISTORY_PERIOD_S", None)
+            else:
+                os.environ["KDTREE_TPU_HISTORY_PERIOD_S"] = period
+        port = srv.server_address[1]
+        try:
+            deadline = time.monotonic() + 60
+            while len(hist.samples()) <= ticks0 and time.monotonic() < deadline:
+                time.sleep(0.01)  # the start tick: no other tick races ours
+
+            def knn(rows, **extra):
+                st, _, resp = _http(port, "POST", "/v1/knn",
+                                    {"queries": pool_h[:rows].tolist(), "k": K, **extra})
+                assert st == 200, resp
+                dist = np.asarray(resp["distances"], dtype=np.float64)
+                d2 = (dist * dist).astype(np.float32)
+                ids = np.asarray(resp["ids"], dtype=np.int64)
+                again = sq_dist(pool[:rows, None, :], points[torch.as_tensor(ids, device=dev)])
+                assert np.array_equal(again.cpu().numpy(), d2), "a returned (id, d2) is not true"
+                return resp, rc.recall_at_k(ids, oi_h[:rows]), d2
+
+            # the sampler re-answers every approximate batch exactly on the
+            # batch worker, launching the kernel too: its launches are
+            # counted apart and taken off, so what is asserted is the
+            # approximate dispatches' own
+            shadow = {"calls": 0, "scan": 0, "merge": 0}
+            sample_batch = srv.batcher._shadow_sample
+
+            def counted_sample(*a, **kw):
+                s0 = scan_mod.scan_tiles.launches
+                m0 = scan_mod.merge_partials.launches
+                try:
+                    return sample_batch(*a, **kw)
+                finally:
+                    shadow["scan"] += scan_mod.scan_tiles.launches - s0
+                    shadow["merge"] += scan_mod.merge_partials.launches - m0
+                    shadow["calls"] += 1
+
+            srv.batcher._shadow_sample = counted_sample
+            scan_mod.scan_tiles.launches = 0
+            scan_mod.merge_partials.launches = 0
+            out = []
+            for target in (0.9, 0.99):
+                for rows in RECALL_ROWS:
+                    t = time.perf_counter()
+                    resp, rec, _ = knn(rows, recall_target=target)
+                    ms = (time.perf_counter() - t) * 1e3
+                    assert resp["gear"] == f"approx:{target:g}" and resp["degraded"] is None
+                    out.append(f"{target:g}/{rows} rows recall {rec:.4f} {ms:.2f} ms")
+            # one batch per request, each sampled after its answer left
+            deadline = time.monotonic() + 60
+            while shadow["calls"] < len(out) and time.monotonic() < deadline:
+                time.sleep(0.01)
+            assert shadow["calls"] == len(out), shadow
+            approx_launches = scan_mod.scan_tiles.launches - shadow["scan"]
+            approx_merges = scan_mod.merge_partials.launches - shadow["merge"]
+            assert approx_launches > 0, "no scan launch over the approximate requests"
+            note(f"/v1/knn under recall_target (target/rows): " + ", ".join(out)
+                         + f"; gear echoed, every (id, d2) true; scan launches of these "
+                         f"{len(out)} approximate dispatches: {approx_launches} (merge "
+                         f"{approx_merges}); of their {shadow['calls']} exact shadow "
+                         f"samples: {shadow['scan']} (merge {shadow['merge']})")
+            vq = pool_h[:64]
+            for verb, body in (("radius", {"queries": vq.tolist(), "r": VERB_R}),
+                               ("count", {"queries": vq.tolist(), "r": VERB_R}),
+                               ("range", {"lo": (vq - VERB_SIDE / 2).tolist(),
+                                          "hi": (vq + VERB_SIDE / 2).tolist()})):
+                st, _, ex = _http(port, "POST", f"/v1/{verb}", body)
+                st2, _, ap = _http(port, "POST", f"/v1/{verb}", dict(body, recall_target=0.5))
+                assert st == st2 == 200 and ap["gear"] == "approx:0.5", ap
+                ec, ac = np.asarray(ex["counts"]), np.asarray(ap["counts"])
+                assert (ac <= ec).all() and not ex["truncated"], verb
+                assert ap["truncated"] or (ac == ec).all(), f"{verb}: short and not truncated"
+                note(f"/v1/{verb} 64 rows at recall_target 0.5: {int(ac.sum())} of "
+                             f"{int(ec.sum())} exact hits, truncated={ap['truncated']}")
+            lad = srv.ladder
+            lad.tick(burning=True)
+            assert lad.tick(burning=True) == 1
+            resp, rec, _ = knn(64)
+            assert resp["degraded"] == "approx:0.99" == resp["gear"], resp["degraded"]
+            for _ in range(4):
+                lad.tick(burning=True)
+            assert lad.spec().brute
+            t = time.perf_counter()
+            resp, _, d2 = knn(7)
+            brute_ms = (time.perf_counter() - t) * 1e3
+            assert resp["degraded"] == "brute-deadline" and np.array_equal(
+                d2, od_h[:7]), "brute-deadline answer"
+            for _ in range(15):
+                lad.tick(burning=False)
+            assert lad.gear() == 0
+            resp, _, d2 = knn(64)
+            assert resp["degraded"] is None and "gear" not in resp
+            assert np.array_equal(d2, od_h[:64]), "the exact gear's answer"
+            deadline = time.monotonic() + 60
+            while get_registry().snapshot()["gauges"].get("kdtree_recall_sampled") is None \
+                    and time.monotonic() < deadline:
+                time.sleep(0.05)
+            sampled = get_registry().snapshot()["gauges"].get("kdtree_recall_sampled")
+            assert sampled is not None, "kdtree_recall_sampled never set"
+            note(f"ladder: two burning ticks -> approx-0.99 (64 rows flagged degraded, "
+                         f"recall {rec:.4f}), four more -> brute-deadline (7 rows {brute_ms:.2f} "
+                         f"ms, exact), fifteen quiet ticks -> exact again; "
+                         f"kdtree_recall_sampled={sampled}")
+        finally:
+            srv.stop()
+
+        # (d) tune
+        tq = generate_queries(SEED + 902, DIM, TUNE_Q, device=dev)
+        t0 = time.perf_counter()
+        # around the density plan of 2^16 queries on this tree (tile 32,
+        # cmax 1,024)
+        res = tuner.sweep(tree, tq, k=K, tiles=(16, 32), cmaxs=(1024, 4096))
+        tune_s = time.perf_counter() - t0
+        assert res["persisted"], res.get("reason")
+        w = res["winner"]
+        warm = tqm.plan_tiled(TUNE_Q, DIM, tree.n_real, tree.num_buckets, tree.bucket_size, K,
+                              device=dev)
+        assert warm.source == "warm" and (warm.tile, warm.cmax) == (w["tile"], w["cmax"])
+        stats = tqm.TileStats()
+        d2, ids = tqm.morton_knn_tiled(tree, tq, k=K, stats=stats)
+        sample = torch.arange(0, TUNE_Q, TUNE_Q // 512, device=dev)
+        ties = check_answer(points, tq[sample], d2[sample], ids[sample], K, "tuned run")
+        note(f"tune {TUNE_Q} queries: {len(res['results']) + len(res['block_results'])} "
+                     f"candidates in {tune_s:.2f} s, winner tile={w['tile']} cmax={w['cmax']} "
+                     f"{w['seconds'] * 1e3:.2f} ms ({w['qps']:.0f} q/s); next plan warm, "
+                     f"{stats.retries} retries, a 512-query sample exact vs the oracle "
+                     f"({ties} tied slots)")
+    finally:
+        if run_store is None:
+            os.environ.pop("KDTREE_TPU_TORCH_PLAN_CACHE", None)
+        else:
+            os.environ["KDTREE_TPU_TORCH_PLAN_CACHE"] = run_store
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     try:
@@ -1690,6 +2019,22 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(here))
+    import os
+    import shutil
+    import tempfile
+
+    t_run = time.perf_counter()
+    plans = tempfile.mkdtemp(prefix="chip-smoke-plans-")
+    os.environ["KDTREE_TPU_TORCH_PLAN_CACHE"] = plans
+    try:
+        return _run(argv, here, t_run)
+    finally:
+        shutil.rmtree(plans, ignore_errors=True)
+
+
+def _run(argv, here, t_run) -> int:
+    import torch
+
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1790,9 +2135,11 @@ def main(argv=None) -> int:
     for line in serve_profile(engine, served):
         say("main", line)
 
-    # 5. the kernels at the main path's shapes
+    # 5. the kernels at the main path's shapes. The forced engine bypasses
+    # the plan store, so the shape is the density heuristic's whatever the
+    # phases before recorded (phase 4's overflow retry records a larger cmax)
     plan = tqm.plan_tiled(TILED_QUERIES, DIM, tree.n_real, tree.num_buckets,
-                          tree.bucket_size, K, device=dev)
+                          tree.bucket_size, K, use_kernel=True, device=dev)
     sq, _ = tqm._sort_queries(tq_all, plan.bits, (-TILED_QUERIES) % plan.qbatch)
     recs = phase_shapes(tree, sq, plan)
     say("main", f"one tiled batch (plan tile={plan.tile} cmax={plan.cmax} "
@@ -1813,6 +2160,17 @@ def main(argv=None) -> int:
     # 8. snapshots, the blue/green follower and the query verbs
     for line in phase_snapshot(dev, points, tree, here, smi, build_s):
         say("snapshot", line)
+
+    # 9. distances above 32 axes, the recall dial, the ladder and tune
+    t0 = time.perf_counter()
+    phase_recall(dev, points, tree, smi)
+    del points, tree, engine
+    torch.cuda.empty_cache()
+    wide_err = phase_wide(dev, smi)
+    assert wide_err == 0.0, f"D > 32: kernel or tiled run differs by {wide_err}"
+    max_err = max(max_err, wide_err)
+    say("recall", f"phase 9 in {time.perf_counter() - t0:.1f} s; the whole run "
+                  f"{time.perf_counter() - t_run:.1f} s [{smi}]")
 
     record = {"kernels": [{
         "name": "scan_knn",

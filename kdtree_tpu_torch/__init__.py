@@ -3,8 +3,10 @@
 The exact k-NN main path over a Morton bucket tree: seeded generation,
 the one-sort bucket-tree build, the per-query best-first DFS, the
 Hilbert-tiled query engine with its hand-written CUDA scan kernel, the
-query verbs (radius, range, count), the serving engine facade and HTTP
-front, npz checkpoints, serving snapshots, and the CLI
+query verbs (radius, range, count), the recall dial (bounded-visit
+approximate k-NN, the recall harness, the degradation ladder), the plan
+store with its feedback and ``tune`` sweep, the serving engine facade and
+HTTP front, npz checkpoints, serving snapshots, and the CLI
 (``python -m kdtree_tpu_torch``). The JAX
 package ``kdtree_tpu`` stays beside this one as the reference it is held
 against; this package imports neither jax nor ``kdtree_tpu``.
@@ -41,10 +43,19 @@ _LAZY = {
     "load_snapshot": "kdtree_tpu_torch.snapshot.store",
     "radius_search": "kdtree_tpu_torch.verbs.device",
     "range_search": "kdtree_tpu_torch.verbs.device",
-    "bruteforce": None,
+    "morton_knn_approx": "kdtree_tpu_torch.approx.search",
+    "resolve_visit_cap": "kdtree_tpu_torch.approx.search",
+    "sweep_recall": "kdtree_tpu_torch.approx.recall",
+    "DegradationLadder": "kdtree_tpu_torch.approx.ladder",
+}
+# modules exposed as attributes, imported on first use too
+_SUBMODULES = {
+    "bruteforce": "kdtree_tpu_torch.ops.bruteforce",
+    "approx": "kdtree_tpu_torch.approx",
+    "tuning": "kdtree_tpu_torch.tuning",
 }
 
-__all__ = ["resolve_device", *_LAZY]
+__all__ = ["resolve_device", *_LAZY, *_SUBMODULES]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -63,8 +74,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 def __getattr__(name: str):
+    if name in _SUBMODULES:
+        return importlib.import_module(_SUBMODULES[name])
     if name not in _LAZY:
         raise AttributeError(f"module 'kdtree_tpu_torch' has no attribute {name!r}")
-    if _LAZY[name] is None:
-        return importlib.import_module(f"kdtree_tpu_torch.ops.{name}")
     return getattr(importlib.import_module(_LAZY[name]), name)

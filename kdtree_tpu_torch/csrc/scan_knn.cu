@@ -15,7 +15,9 @@
 // Arithmetic and ties. d2 is accumulated axis by axis, d = 0..D-1, as
 // acc = fma(diff, diff, acc) with diff = q_d - p_d (__fsub_rn / __fmaf_rn):
 // the contraction XLA:CPU applies to the JAX scan, which the plain version
-// reproduces exactly. A candidate enters only if d2 < k-th (strict) and is
+// reproduces exactly. Above 32 axes XLA:CPU rounds each square and sums the
+// row in windows of 32 instead (window_sum below; the plain version's
+// _arith.sq_sum_windows), and so does this kernel, box bounds included. A candidate enters only if d2 < k-th (strict) and is
 // placed after held entries of equal distance, so a buffer is the top k by
 // (d2, position in the walk), wherever the walk stopped.
 //
@@ -48,8 +50,8 @@
 //    insert path runs only when some point of the group beats it, and then
 //    in position order, so the tie rule holds.
 // 4. Per-warp bucket skip. Before a bucket, each query bounds its squared
-//    distance to the bucket's box with the same fsub/fma chain (gap 0
-//    inside); the warp skips the bucket when no lane's bound beats its
+//    distance to the bucket's box with the same arithmetic as a point's
+//    (gap 0 inside); the warp skips the bucket when no lane's bound beats its
 //    k-th. Rounding is monotone, so the bound is <= every point's d2, and
 //    under the strict insert no point of a skipped bucket could enter. The
 //    same test, kStages - 1 stages ahead and OR-ed over the warps, decides
@@ -133,8 +135,48 @@ __device__ __forceinline__ void insert_mem(float* od, int* oi, float& kth, int k
   kth = od[k - 1];
 }
 
-// Squared distance from the query to the box [lo, hi]: per axis the gap
-// fsub(lo - q) or fsub(q - hi), 0 inside, folded with the scan's FMA chain.
+// Above 32 axes: the rounded squares of term(0..D-1), summed as XLA:CPU sums
+// them (kdtree_tpu_torch/ops/_arith.py::sq_sum_windows). The row is padded
+// with f1 zeros in front to w1 windows of 32, each window is added in order,
+// and the window sums are reduced the same way: in order when w1 <= 32,
+// else padded with f2 zeros to w2 windows of their own (D <= 32,768). A
+// padding zero never changes a sum, so only the window boundaries matter,
+// and every level is summed while the axes stream past.
+template <typename Term>
+__device__ __forceinline__ float window_sum(int D, Term term) {
+  const int w1 = (D + 31) >> 5;
+  const int f1 = (32 * w1 - D) >> 1;
+  const int w2 = (w1 + 31) >> 5;
+  const int f2 = (32 * w2 - w1) >> 1;
+  float s1 = 0.f, s2 = 0.f, s3 = 0.f;
+  for (int d = 0; d < D; ++d) {
+    const float x = term(d);
+    s1 = __fadd_rn(s1, __fmul_rn(x, x));
+    const int p1 = d + f1;
+    const bool last = d == D - 1;
+    if ((p1 & 31) == 31 || last) {
+      s2 = __fadd_rn(s2, s1);
+      s1 = 0.f;
+      if (w1 > 32 && ((((p1 >> 5) + f2) & 31) == 31 || last)) {
+        s3 = __fadd_rn(s3, s2);
+        s2 = 0.f;
+      }
+    }
+  }
+  return w1 > 32 ? s3 : s2;
+}
+
+// The gap from q to [lo, hi] on one axis: fsub(lo - q) or fsub(q - hi), 0
+// inside.
+__device__ __forceinline__ float box_gap(float q, float lo, float hi) {
+  if (q < lo) return __fsub_rn(lo, q);
+  if (q > hi) return __fsub_rn(q, hi);
+  return 0.f;
+}
+
+// Squared distance from the query to the box [lo, hi]: the per-axis gaps
+// folded as point_d2 folds its differences (the FMA chain, or window_sum
+// above 32 axes), so the bound is never above a point inside the box.
 template <int DC>
 __device__ __forceinline__ float box_bound(const float* lo, const float* hi,
                                            const float* qv, const float* qrow, int D) {
@@ -142,24 +184,14 @@ __device__ __forceinline__ float box_bound(const float* lo, const float* hi,
   if (DC > 0) {
 #pragma unroll
     for (int d = 0; d < DC; ++d) {
-      const float q = qv[d];
-      float g = 0.f;
-      if (q < lo[d]) {
-        g = __fsub_rn(lo[d], q);
-      } else if (q > hi[d]) {
-        g = __fsub_rn(q, hi[d]);
-      }
+      const float g = box_gap(qv[d], lo[d], hi[d]);
       acc = __fmaf_rn(g, g, acc);
     }
+  } else if (D > 32) {
+    acc = window_sum(D, [&](int d) { return box_gap(qrow[d], lo[d], hi[d]); });
   } else {
     for (int d = 0; d < D; ++d) {
-      const float q = qrow[d];
-      float g = 0.f;
-      if (q < lo[d]) {
-        g = __fsub_rn(lo[d], q);
-      } else if (q > hi[d]) {
-        g = __fsub_rn(q, hi[d]);
-      }
+      const float g = box_gap(qrow[d], lo[d], hi[d]);
       acc = __fmaf_rn(g, g, acc);
     }
   }
@@ -176,6 +208,8 @@ __device__ __forceinline__ float point_d2(const float* p, const float* qv, const
       const float diff = __fsub_rn(qv[d], p[d]);
       acc = __fmaf_rn(diff, diff, acc);
     }
+  } else if (D > 32) {
+    acc = window_sum(D, [&](int d) { return __fsub_rn(qrow[d], p[d]); });
   } else {
     for (int d = 0; d < D; ++d) {
       const float diff = __fsub_rn(qrow[d], p[d]);

@@ -289,6 +289,10 @@ class MutableEngine:
                                   min_cap=self._min_cap)
         # epoch of the latest knn_batch answer
         self.last_answer_epoch = self._epoch0
+        # gear facts of the latest answer (the ServeEngine surface): the
+        # visit cap (None = exact) and its recall estimate
+        self.last_visit_cap: Optional[int] = None
+        self.last_recall_estimate: float = 1.0
         self._rebuilding = False
         # (dead_sorted identity, host coords) — see _dead_points
         self._dead_pts_cache: Optional[tuple] = None
@@ -359,13 +363,20 @@ class MutableEngine:
 
     def knn_batch(
         self, queries: np.ndarray,
+        recall_target: Optional[float] = None,
     ) -> Tuple[np.ndarray, np.ndarray, str]:
-        """Exact k-NN for one padded micro-batch: the main-tree dispatch,
-        overlaid with the delta buffer and tombstone masks. With an empty
-        overlay this is a pure passthrough — byte for byte the immutable
-        serving path."""
+        """k-NN for one padded micro-batch: the main-tree dispatch (exact,
+        or bounded-visit under a ``recall_target``, forwarded to the inner
+        engine's dial), overlaid with the delta buffer and tombstone
+        masks. The overlay is always exact, so an approximate answer's
+        recall comes only from the main tree's bounded visit. With an
+        empty overlay and no target this is a pure passthrough — byte for
+        byte the immutable serving path."""
         snap = self._snapshot()
-        d2, ids, source = snap.inner.knn_batch(queries)
+        d2, ids, source = snap.inner.knn_batch(queries, recall_target)
+        # gear facts mirror the ANSWERING inner engine's (the snapshot's)
+        self.last_visit_cap = snap.inner.last_visit_cap
+        self.last_recall_estimate = snap.inner.last_recall_estimate
         # which epoch ANSWERED this call — the snapshot's, not whatever
         # self.epoch reads after a concurrent swap (the batch worker is
         # the only steady-state caller)
@@ -408,6 +419,8 @@ class MutableEngine:
         snap = self._snapshot()
         res = snap.inner.radius_batch(queries, r, recall_target,
                                       with_ids=with_ids)
+        self.last_visit_cap = snap.inner.last_visit_cap
+        self.last_recall_estimate = snap.inner.last_recall_estimate
         self.last_answer_epoch = snap.epoch
         if snap.empty:
             return res
@@ -423,6 +436,8 @@ class MutableEngine:
         snap = self._snapshot()
         res = snap.inner.range_batch(box_lo, box_hi, recall_target,
                                      with_ids=with_ids)
+        self.last_visit_cap = snap.inner.last_visit_cap
+        self.last_recall_estimate = snap.inner.last_recall_estimate
         self.last_answer_epoch = snap.epoch
         if snap.empty:
             return res

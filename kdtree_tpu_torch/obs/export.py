@@ -76,8 +76,38 @@ METRIC_HELP = {
     "kdtree_snapshot_plan_seeded_total":
         "plan profiles seeded into the local store from a snapshot "
         "manifest's pre-shipped plan_profiles payload",
+    "kdtree_plan_cache_hits_total": "tiled-plan store lookups that hit",
+    "kdtree_plan_cache_misses_total":
+        "tiled-plan store lookups that missed",
     "kdtree_plan_cache_writes_total":
         "tiled-plan profiles written to the store",
+    # the recall dial + degradation ladder
+    "kdtree_approx_queries_total":
+        "query rows answered by the bounded-visit approximate engine",
+    "kdtree_approx_visit_cap":
+        "visit cap (candidate buckets per tile) of the last "
+        "approximate dispatch",
+    "kdtree_recall_gear":
+        "engaged degradation-ladder gear: 0 exact, 1 approx(0.99), "
+        "2 approx(0.9), 3 brute-force-deadline",
+    "kdtree_recall_estimate":
+        "recall estimate of the engaged gear (measured calibration "
+        "value when one exists; 1.0 exact) — the served-recall SLO's "
+        "gauge",
+    "kdtree_recall_requests_total":
+        "requests answered, by gear class (exact / approx / "
+        "brute-deadline)",
+    "kdtree_recall_ladder_transitions_total":
+        "degradation-ladder gear shifts, by destination gear",
+    "kdtree_recall_sweeps_total":
+        "recall-harness sweeps run (kdtree-tpu recall)",
+    "kdtree_recall_sampled":
+        "online-sampled MEASURED served recall (EWMA over shadow "
+        "re-answered approx batches; serve --recall-sample) — the "
+        "sampled-recall SLO's gauge",
+    "kdtree_recall_samples_total":
+        "approx batches shadow-answered exactly by the online recall "
+        "sampler",
     # mutable index (docs/SERVING.md "Mutable index")
     "kdtree_epoch":
         "index epoch generation; increments on each delta compaction "

@@ -10,11 +10,22 @@ in float64: the square of a float32 is exact there, TwoSum gives the sum's
 exact error, and rounding the float64 sum to odd before the one cast to
 float32 makes that cast round exactly once (53 >= 2 * 24 + 2 bits). The
 result is bit for bit the fused form on any device.
+
+Above :data:`FMA_DIM_MAX` axes XLA:CPU compiles the same ``jnp.sum(x * x,
+-1)`` differently: the multiply is a fusion of its own, so each square is
+rounded, and the sum becomes a ``reduce-window`` of 32 over the row padded
+with zeros to a multiple of 32 (half the padding in front, rounded down),
+whose window sums are then reduced by the same rule.
+:func:`sq_sum_windows` is that sum; the JAX package's eager oracle rounds
+its squares at every D and sums them the same way.
 """
 
 from __future__ import annotations
 
 import torch
+
+FMA_DIM_MAX = 32  # above this, jitted sums of squares round each square
+_WINDOW = 32
 
 
 def sq_add(acc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -44,10 +55,35 @@ def sq_sum_unrolled(xs: list[torch.Tensor]) -> torch.Tensor:
     return acc
 
 
+def sq_sum_windows(sq: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's float32 sum of ``sq`` over its last axis, for rounded
+    squares: up to 32 terms are added in order from the first; a longer row
+    is padded with ``p // 2`` zeros in front and ``p - p // 2`` behind (p =
+    32 * ceil(D / 32) - D), each window of 32 is added in order, and the
+    window sums are reduced by the same rule (a second level past 1,024
+    axes)."""
+    D = sq.shape[-1]
+    if D > _WINDOW:
+        w = -(-D // _WINDOW)
+        p = w * _WINDOW - D
+        sq = torch.nn.functional.pad(sq, (p // 2, p - p // 2))
+        sq = sq_sum_windows(sq.reshape(*sq.shape[:-1], w, _WINDOW))
+        return sq_sum_windows(sq)
+    acc = sq[..., 0]
+    for d in range(1, D):
+        acc = acc + sq[..., d]
+    return acc
+
+
 def sq_dist(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """Squared distances over the last axis of broadcastable ``q`` and
-    ``p``, accumulated d = 0..D-1 with :func:`sq_add`."""
+    ``p``: accumulated d = 0..D-1 with :func:`sq_add` up to
+    :data:`FMA_DIM_MAX` axes, rounded squares summed by
+    :func:`sq_sum_windows` above."""
     D = q.shape[-1]
+    if D > FMA_DIM_MAX:
+        diff = q - p
+        return sq_sum_windows(diff * diff)
     acc = None
     for d in range(D):
         diff = q[..., d] - p[..., d]
@@ -59,9 +95,14 @@ def sq_dist_to_box(q: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch
     """Squared distances from ``q`` to the boxes ``[lo, hi]`` over the last
     axis (broadcastable), with the scan kernel's per-warp skip arithmetic:
     per axis the gap ``lo - q`` or ``q - hi``, 0 inside, accumulated
-    d = 0..D-1 with :func:`sq_add`. Rounding is monotone, so the result is
+    d = 0..D-1 with :func:`sq_add`, or above :data:`FMA_DIM_MAX` axes
+    summed as :func:`sq_dist` sums. Rounding is monotone, so the result is
     never above :func:`sq_dist` to a point inside the box. An empty box
     (lo = +inf, hi = -inf) is at +inf."""
+    if q.shape[-1] > FMA_DIM_MAX:
+        gap = torch.where(q < lo, lo - q, torch.where(q > hi, q - hi,
+                                                      torch.zeros_like(q)))
+        return sq_sum_windows(gap * gap)
     acc = None
     for d in range(q.shape[-1]):
         qd, lo_d, hi_d = q[..., d], lo[..., d], hi[..., d]

@@ -27,7 +27,7 @@ from typing import Tuple
 
 import torch
 
-from kdtree_tpu_torch.ops._arith import sq_dist
+from kdtree_tpu_torch.ops._arith import sq_dist, sq_sum_windows
 
 EXACT_DIM_MAX = 32
 REFINE_SLACK = 8
@@ -102,7 +102,9 @@ def knn(points: torch.Tensor, queries: torch.Tensor, k: int = 1,
             sel = (coarse & 0xFFFFFFFF)
             d2 = sq_dist(queries[:, None, :], points[sel])
             cand = _keys(d2, sel)
-        best = cand if best is None else _smallest(torch.cat([best, cand], 1), k)
+        # the matmul form's cand holds k + REFINE_SLACK rescored keys, out
+        # of order: one tile's answer is selected too
+        best = _smallest(cand if best is None else torch.cat([best, cand], 1), k)
     return _unkey(best)
 
 
@@ -111,14 +113,14 @@ def knn_exact_d2(points: torch.Tensor, queries: torch.Tensor, k: int = 1
     """Non-tiled direct-subtraction oracle (test-sized problems).
 
     Like the JAX oracle, which runs op by op outside ``jit``, each square
-    is rounded before it is added (no fused multiply-add), so its distances
-    can differ from :func:`knn`'s in the last bit."""
+    is rounded before it is added (no fused multiply-add) and the squares
+    are summed as XLA:CPU's reduction sums them
+    (:func:`~kdtree_tpu_torch.ops._arith.sq_sum_windows`: in order up to
+    32 axes), so its distances can differ from :func:`knn`'s in the last
+    bit."""
     n = points.shape[0]
     k = min(k, n)
     diff = queries[:, None, :] - points[None, :, :]
-    sq = diff * diff
-    d2 = sq[..., 0]
-    for d in range(1, sq.shape[-1]):
-        d2 = d2 + sq[..., d]
+    d2 = sq_sum_windows(diff * diff)
     idx = torch.arange(n, dtype=torch.int64, device=points.device)
     return _unkey(_smallest(_keys(d2, idx[None, :].expand_as(d2)), k))

@@ -18,7 +18,9 @@ and read in its compiled code: both the box bound (``jnp.sum(gap * gap)``)
 and the leaf scan (``jnp.sum(dv * dv, -1)``) compile to a reduction loop
 from 0 whose ``acc + x*x`` steps are each one fused multiply-add, so
 both are ``_arith.sq_add`` chains from 0 over d = 0..D-1 (the
-``_arith.sq_dist`` form, not the straight-line ``sq_sum_unrolled``).
+``_arith.sq_dist`` form, not the straight-line ``sq_sum_unrolled``), and
+above 32 axes both round each square and sum them in windows of 32
+(``_arith.sq_sum_windows``), as ``_arith.sq_dist`` does.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from typing import Tuple
 import torch
 
 from kdtree_tpu_torch import resolve_device
-from kdtree_tpu_torch.ops._arith import sq_add
+from kdtree_tpu_torch.ops._arith import FMA_DIM_MAX, sq_add, sq_sum_windows
 from kdtree_tpu_torch.ops.topk import scan_bucket_block, sort_pairs
 from kdtree_tpu_torch.utils.guards import check_rows_fit_i32
 
@@ -249,6 +251,8 @@ def _bbox_d2(q, lo, hi):
     """Exact lower bound on |q - p|^2 over any p inside [lo, hi] (last
     axis), accumulated like the jitted reference's reduction."""
     gap = torch.clamp_min(torch.maximum(lo - q, q - hi), 0.0)
+    if gap.shape[-1] > FMA_DIM_MAX:
+        return sq_sum_windows(gap * gap)
     acc = torch.zeros_like(gap[..., 0])
     for d in range(gap.shape[-1]):
         acc = sq_add(acc, gap[..., d])

@@ -15,6 +15,13 @@ The port of ``kdtree_tpu/ops/tile_query.py``:
    per-query ascending k-buffers with an early exit once the next bucket's
    bound cannot beat the tile's worst k-th distance.
 
+Auto plans come from the plan store (:mod:`kdtree_tpu_torch.tuning`) when
+an earlier run settled the shape (``"warm"``), from the density model
+otherwise, and every auto run records its settled cap back. A
+``visit_cap`` (the approximate mode, :mod:`kdtree_tpu_torch.approx`) cuts
+the collect pass's lb-ascending list to its first ``visit_cap`` buckets
+before the scan.
+
 Step 4 is the hand-written CUDA kernel on a CUDA device
 (:mod:`kdtree_tpu_torch.kernels.scan_knn`); :func:`_scan_tiles` here is its
 plain PyTorch version, the port of the JAX XLA scan. Results are exact:
@@ -33,7 +40,7 @@ from typing import Callable, NamedTuple, Sequence, Tuple
 
 import torch
 
-from kdtree_tpu_torch import resolve_device
+from kdtree_tpu_torch import obs, resolve_device
 from kdtree_tpu_torch.ops._arith import sq_dist, sq_sum_unrolled
 from kdtree_tpu_torch.ops.hilbert import hilbert_codes
 from kdtree_tpu_torch.ops.morton import MortonTree, default_bits
@@ -220,9 +227,16 @@ def _sort_queries(queries, bits: int, qpad: int):
 
 
 def _tiled_batch_core(tree, sq, k: int, tile: int, cmax: int, seeds: int,
-                      v: int, tb: int, use_kernel: bool = False):
+                      v: int, tb: int, use_kernel: bool = False,
+                      visit_cap: int | None = None):
     """Seed + collect + scan for ONE batch of sorted queries. Returns
-    (d2 f32[q, k], ids i32[q, k], overflow bool scalar tensor)."""
+    (d2 f32[q, k], ids i32[q, k], overflow bool scalar tensor).
+
+    ``visit_cap`` keeps only the first ``visit_cap`` buckets of each
+    tile's lb-ascending collect list (the seed pass and the overflow flag
+    are unchanged). Truncations of one ranking are nested, so recall is
+    monotone in the cap, and a cap at least as wide as the list changes
+    nothing: the run is the exact one."""
     tq = sq.reshape(-1, tile, sq.shape[1])
     box_lo = tq.amin(dim=1)
     box_hi = tq.amax(dim=1)
@@ -241,6 +255,11 @@ def _tiled_batch_core(tree, sq, k: int, tile: int, cmax: int, seeds: int,
     sd, _ = scan(seed_cand, seed_lb)
     tile_bound = sd[..., k - 1].amax(dim=1)
     cand, cand_lb, overflow = _frontier(tree, box_lo, box_hi, tile_bound, cmax)
+    if visit_cap is not None and visit_cap < cand.shape[1]:
+        # a column slice is not contiguous, and the kernel takes only
+        # contiguous lists
+        cand = cand[:, :visit_cap].contiguous()
+        cand_lb = cand_lb[:, :visit_cap].contiguous()
     fd, fi = scan(cand, cand_lb)
     q = T * tile
     return fd.reshape(q, k), fi.reshape(q, k), overflow.any()
@@ -294,9 +313,11 @@ def dense_lowd(q: int, n: int, dim: int) -> bool:
 
 class TiledPlan(NamedTuple):
     """Static launch configuration of a tiled run. ``source`` is
-    ``"heuristic"`` (the density model) or ``"explicit"`` (caller-forced
-    knobs); :func:`plan_tiled` does not read the plan store yet, so no
-    plan is ``"warm"``."""
+    ``"warm"`` (a plan-store hit: ``drive_batches`` skips the first batch's
+    cap-settling probe), ``"heuristic"`` (the density model) or
+    ``"explicit"`` (caller-forced knobs; never recorded). ``sig`` is the
+    plan-store signature an auto plan was looked up under, so feedback
+    records under exactly that key (None for explicit plans)."""
 
     tile: int
     cmax: int
@@ -307,6 +328,15 @@ class TiledPlan(NamedTuple):
     qbatch: int
     use_kernel: bool
     source: str = "heuristic"
+    sig: object = None
+
+
+def _opt_knob(x) -> int | None:
+    """A block-shape knob read from a plan profile: anything but a
+    positive int reads as 'not recorded' (profiles are advisory)."""
+    if isinstance(x, int) and not isinstance(x, bool) and x >= 1:
+        return x
+    return None
 
 
 def plan_tiled(
@@ -317,20 +347,46 @@ def plan_tiled(
 ) -> TiledPlan:
     """Resolve the static knobs of a tiled run from the problem shape.
 
+    A fully automatic plan (no knob forced, ``use_kernel=None``) comes
+    from the plan store (:mod:`kdtree_tpu_torch.tuning`) when an earlier
+    run settled this problem signature — its tile, cmax and seeds, and
+    ``v``/``tb`` when a sweep recorded them — and from the density
+    heuristic on a miss. A forced knob or engine is a one-off override:
+    the store is neither read nor written for it.
+
     ``use_kernel=None`` takes the CUDA scan kernel on a CUDA ``device``
-    (``None`` means CUDA) and the plain scan on the CPU. ``scan_v`` /
+    (``None`` means CUDA) and the plain scan on the CPU; a profile
+    recorded for the other engine reads as a miss. ``scan_v`` /
     ``scan_tb`` force the plain scan's block shape; exactness never
-    depends on either. The plan store (:mod:`kdtree_tpu_torch.tuning.store`)
-    is not consulted yet (ROADMAP queue 1 item 13): every auto plan comes
-    from the density heuristic."""
+    depends on either."""
+    forced_engine = use_kernel is not None
     if use_kernel is None:
-        use_kernel = resolve_device(device).type == "cuda"
+        backend = resolve_device(device).type
+        use_kernel = backend == "cuda"
     auto = (tile is None and cmax == DEFAULT_CMAX and seeds == DEFAULT_SEEDS
-            and scan_v is None and scan_tb is None)
-    source = "heuristic" if auto else "explicit"
+            and not forced_engine and scan_v is None and scan_tb is None)
+    source = "explicit"
+    sig = None
     v, tb = scan_v, scan_tb
-    if tile is None:
+    if auto:
+        from kdtree_tpu_torch import tuning
+
+        sig = tuning.make_signature(Q, D, n_real, k, B, nbp, backend=backend)
+        prof = tuning.lookup(sig, use_kernel=use_kernel)
+        if prof is not None:
+            tile, cmax = int(prof["tile"]), int(prof["cmax"])
+            seeds = int(prof.get("seeds", seeds))
+            v = _opt_knob(prof.get("v"))
+            tb = _opt_knob(prof.get("tb"))
+            source = "warm"
+        else:
+            tile, cmax = _auto_tile(Q, n_real, k, D, nbp, B, cmax, use_kernel)
+            source = "heuristic"
+    elif tile is None:
         tile, cmax = _auto_tile(Q, n_real, k, D, nbp, B, cmax, use_kernel)
+    if min(tile, max(Q, 1)) != tile and source == "warm":
+        # block knobs swept at one tile width do not carry to another
+        v, tb = scan_v, scan_tb
     tile = min(tile, max(Q, 1))
     seeds = min(seeds, nbp)
     if k > (seeds * B) // 2:
@@ -357,7 +413,7 @@ def plan_tiled(
             tb = max(1, _SCAN_ROWS // tile)
     tb = max(1, min(int(tb), -(-qbatch // tile)))
     return TiledPlan(tile, cmax, seeds, v, tb, bits, qbatch, use_kernel,
-                     source)
+                     source, sig)
 
 
 def drive_batches(
@@ -368,6 +424,7 @@ def drive_batches(
     settle_first: bool = True,
     lookahead: int = DEFAULT_LOOKAHEAD,
     stats: TileStats | None = None,
+    feedback=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pipelined batch dispatch with overflow retry.
 
@@ -378,7 +435,10 @@ def drive_batches(
     the rest run. An overflowing batch retries alone at the grown cap. The
     tail window drains with one stacked flag fetch plus doubling rounds. A
     batch whose last dispatch already ran at ``nbp`` is final
-    (``caps[i] >= nbp``): nothing can overflow there.
+    (``caps[i] >= nbp``): nothing can overflow there. A warm plan passes
+    ``settle_first=False``: its cap settled in an earlier run. With a
+    ``feedback`` handle (:mod:`kdtree_tpu_torch.tuning.feedback`), the
+    settled cap and the retry count are recorded once every flag is clean.
     """
     nretries = 0
     bcmax = cmax
@@ -430,6 +490,8 @@ def drive_batches(
     if stats is not None:
         stats.batches += n
         stats.retries += nretries
+    if feedback is not None:
+        feedback.settled(cmax=bcmax, retries=nretries)
     d2 = torch.cat([b[0] for b in batches]) if n > 1 else batches[0][0]
     gi = torch.cat([b[1] for b in batches]) if n > 1 else batches[0][1]
     return d2, gi
@@ -447,16 +509,25 @@ def morton_knn_tiled(
     scan_v: int | None = None,
     scan_tb: int | None = None,
     stats: TileStats | None = None,
+    visit_cap: int | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact batched k-NN via Hilbert-sorted query tiles and dense scans,
     on the tree's device.
 
     Returns (d2 f32[Q, k], ids i32[Q, k]) ascending — the same answer as
     ``kdtree_tpu.ops.tile_query.morton_knn_tiled`` on the same tree.
-    ``queries`` is a tensor or array [Q, D]. ``tile=None`` plans from the
-    query/point density; ``cmax`` doubles on overflow up to the bucket
-    count. A resolved ``plan`` overrides the knob arguments. ``stats``, if
-    given, accumulates the batch and retry counts."""
+    ``queries`` is a tensor or array [Q, D]. ``tile=None`` plans
+    automatically (the plan store, then the query/point density) and
+    records the settled plan back; ``cmax`` doubles on overflow up to the
+    bucket count. A resolved ``plan`` overrides the knob arguments.
+    ``stats``, if given, accumulates the batch and retry counts.
+
+    ``visit_cap`` bounds the dense scan to the ``visit_cap`` nearest
+    candidate buckets per tile (by box lower bound): the approximate mode
+    that :mod:`kdtree_tpu_torch.approx` resolves from a recall target. Its
+    answers are exact over the visited points; a cap at least as wide as
+    the collected list is the exact run, byte for byte. A capped run
+    records nothing in the plan store."""
     queries = torch.as_tensor(queries, dtype=torch.float32, device=tree.device)
     Q, D = queries.shape
     k = min(k, tree.n_real)
@@ -467,14 +538,24 @@ def morton_knn_tiled(
         plan = plan_tiled(Q, D, tree.n_real, tree.num_buckets,
                           tree.bucket_size, k, tile, cmax, seeds, use_kernel,
                           device=tree.device, scan_v=scan_v, scan_tb=scan_tb)
+    from kdtree_tpu_torch import tuning
+
+    # a truncated run's settled cap describes a deliberately cut scan, and
+    # recording it would warm-start the exact path from approximate evidence
+    feedback = None if visit_cap is not None else tuning.feedback_for(plan)
+    if visit_cap is not None:
+        visit_cap = max(int(visit_cap), 1)
+        obs.get_registry().counter("kdtree_approx_queries_total").inc(Q)
     qpad = (-Q) % plan.qbatch
     sq, order = _sort_queries(queries, plan.bits, qpad)
 
     def run_batch(b0: int, cap: int):
         return _tiled_batch_core(tree, sq[b0:b0 + plan.qbatch], k, plan.tile,
                                  cap, plan.seeds, plan.v, plan.tb,
-                                 plan.use_kernel)
+                                 plan.use_kernel, visit_cap)
 
     d2, gi = drive_batches(run_batch, list(range(0, sq.shape[0], plan.qbatch)),
-                           plan.cmax, tree.num_buckets, stats=stats)
+                           plan.cmax, tree.num_buckets,
+                           settle_first=plan.source != "warm", stats=stats,
+                           feedback=feedback)
     return _unsort(order, d2, gi, Q)

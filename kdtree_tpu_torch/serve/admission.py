@@ -60,7 +60,7 @@ class PendingRequest:
     __slots__ = (
         "queries", "k", "deadline", "enqueued_at", "dispatched_at",
         "event", "d2", "ids", "degraded", "error", "trace_id", "verb",
-        "radius", "box_hi", "counts", "truncated",
+        "radius", "box_hi", "counts", "truncated", "recall_target", "gear",
     )
 
     def __init__(
@@ -70,9 +70,14 @@ class PendingRequest:
         verb: str = "knn",
         radius: Optional[np.ndarray] = None,
         box_hi: Optional[np.ndarray] = None,
+        recall_target: Optional[float] = None,
     ) -> None:
         self.queries = queries  # f32[q, D], validated by the handler
         self.k = k
+        # None = exact; a target in (0, 1) asks the recall dial for a
+        # bounded-visit answer. Batches coalesce only requests sharing
+        # (verb, recall_target): one batch is one gear
+        self.recall_target = recall_target
         # the query verb: "knn" (the default, result in d2/ids at k
         # columns), "radius" / "range" / "count_radius" / "count_box".
         # Per-query parameters ride WITH the request — radius f32[q] for
@@ -96,7 +101,12 @@ class PendingRequest:
         self.event = threading.Event()
         self.d2: Optional[np.ndarray] = None
         self.ids: Optional[np.ndarray] = None
-        self.degraded: Optional[str] = None  # None | "deadline" | "oversized"
+        # None | "deadline" | "oversized" | "brute-deadline", or the
+        # "approx:<t>" gear token of a ladder-forced batch
+        self.degraded: Optional[str] = None
+        # the gear that ANSWERED (approx.gear_token's format), echoed in
+        # the response; None = exact
+        self.gear: Optional[str] = None
         self.error: Optional[str] = None
 
     @property
@@ -110,10 +120,12 @@ class PendingRequest:
     def fulfill(
         self, d2: Optional[np.ndarray], ids: Optional[np.ndarray],
         degraded: Optional[str] = None,
+        gear: Optional[str] = None,
         counts: Optional[np.ndarray] = None,
         truncated: bool = False,
     ) -> None:
         self.d2, self.ids, self.degraded = d2, ids, degraded
+        self.gear = gear
         self.counts = counts
         self.truncated = truncated
         self.event.set()

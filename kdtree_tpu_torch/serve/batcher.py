@@ -1,14 +1,15 @@
 """Micro-batching: coalesce concurrent requests into pow2-bucket batches.
 
-The port of ``kdtree_tpu/serve/batcher.py`` on the exact paths: k-NN and
-the query verbs. The tiled engine's unit of efficiency is the batch, so
-the worker here does two things at once:
+The port of ``kdtree_tpu/serve/batcher.py``: k-NN and the query verbs,
+with the recall dial. The tiled engine's unit of efficiency is the batch,
+so the worker here does two things at once:
 
 1. **Coalesce**: pop the oldest admitted request, then keep absorbing
-   arrivals of the same verb until ``max_batch`` rows or ``max_wait_ms``
-   elapse — concurrency is converted into batch width instead of queue
-   depth. One batch is one verb: a mixed batch has no single engine call
-   (the per-query radii and boxes ride in each request).
+   arrivals of the same verb and recall target until ``max_batch`` rows
+   or ``max_wait_ms`` elapse — concurrency is converted into batch width
+   instead of queue depth. One batch is one verb and one gear: a mixed
+   batch has no single engine call (the per-query radii and boxes ride in
+   each request).
 2. **Quantize**: pad the coalesced rows up to the next power of two
    (floor ``MIN_BUCKET``), so the steady state cycles through the handful
    of shapes the warmup ladder already ran.
@@ -17,9 +18,15 @@ Requests whose deadline expired while queued are split off and answered
 through the engine's brute-force degradation path (exact, flagged
 ``degraded``), so one slow burst degrades its stragglers instead of
 erroring them. Each k-NN request gets its own k columns of the batch's
-answer, each verb request its rows of counts (and hits). The recall dial,
-ladder and online recall sampler (ROADMAP queue 1 item 12) are not
-ported yet.
+answer, each verb request its rows of counts (and hits).
+
+The recall dial: a batch runs at the MINIMUM of the degradation ladder's
+gear target and its requests' ``recall_target`` (:mod:`kdtree_tpu_torch.
+approx`). A ladder-forced approximation is flagged ``degraded``; a
+client-requested one is a kept contract, echoed as its ``gear`` only. At
+the ladder's floor gear every request goes through the brute-force path.
+The online recall sampler re-answers every Nth approximate batch exactly
+and publishes the measured recall as ``kdtree_recall_sampled``.
 """
 
 from __future__ import annotations
@@ -62,14 +69,19 @@ class MicroBatcher:
         queue: AdmissionQueue,
         max_batch: int = DEFAULT_MAX_BATCH,
         max_wait_ms: float = DEFAULT_MAX_WAIT_MS,
+        ladder=None,
         faults=None,
+        recall_sample: float = 0.0,
     ) -> None:
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         self.engine = engine
         self.queue = queue
-        # the server's fault set: the "batch" site injects dispatch
-        # latency/errors
+        # the degradation ladder whose gear caps every batch, and the
+        # server's fault set (the "batch" site injects dispatch
+        # latency/errors: the deterministic overload the ladder steps
+        # down under)
+        self.ladder = ladder
         self.faults = faults
         # pow2: batch_bucket can never exceed it for an admitted row count
         self.max_batch = _pow2_ceil(max_batch)
@@ -100,7 +112,16 @@ class MicroBatcher:
             reason: reg.counter(
                 "kdtree_serve_degraded_total", labels={"reason": reason}
             )
-            for reason in ("deadline", "oversized")
+            for reason in ("deadline", "oversized", "ladder",
+                           "brute-deadline")
+        }
+        # requests by answering gear class, a bounded label set: the
+        # precise target rides in the response's gear token
+        self._by_gear = {
+            gear: reg.counter(
+                "kdtree_recall_requests_total", labels={"gear": gear}
+            )
+            for gear in ("exact", "approx", "brute-deadline")
         }
         self._errors = reg.counter("kdtree_serve_batch_errors_total")
         # the query verbs: request and batch-row accounting per verb
@@ -124,6 +145,17 @@ class MicroBatcher:
         }
         self._verb_retries = reg.counter(
             "kdtree_verb_overflow_retries_total")
+        # the online recall sampler: every Nth APPROXIMATE k-NN batch is
+        # re-answered exactly and its measured recall@k published.
+        # Deterministic every-Nth, so a seeded drill samples the same
+        # batches; 0 disables (the default for in-process embedders; the
+        # serve CLI arms it)
+        self.recall_sample = max(float(recall_sample), 0.0)
+        self._sample_every = (int(round(1.0 / self.recall_sample))
+                              if self.recall_sample > 0 else 0)
+        self._sample_tick = 0
+        self._sampled_ewma: Optional[float] = None
+        self._samples = reg.counter("kdtree_recall_samples_total")
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -160,7 +192,8 @@ class MicroBatcher:
     def _collect(self, first: PendingRequest) -> List[PendingRequest]:
         """Absorb arrivals behind ``first`` until the batch is full or
         ``max_wait`` has elapsed since coalescing began. Only requests
-        sharing ``first``'s verb join: one batch = one dispatch kind."""
+        sharing ``first``'s (verb, recall target) join: one batch = one
+        dispatch kind and one gear."""
         batch = [first]
         rows = first.rows
         t_end = time.monotonic() + self.max_wait
@@ -171,7 +204,9 @@ class MicroBatcher:
             nxt = self.queue.pop_wait(remaining)
             if nxt is None:
                 break
-            if rows + nxt.rows > self.max_batch or nxt.verb != first.verb:
+            if rows + nxt.rows > self.max_batch or \
+                    nxt.recall_target != first.recall_target or \
+                    nxt.verb != first.verb:
                 self.queue.push_front(nxt)  # keeps FIFO; next batch leads with it
                 break
             batch.append(nxt)
@@ -195,15 +230,53 @@ class MicroBatcher:
         live = [r for r in batch if not r.expired(now)]
         late = [r for r in batch if r.expired(now)]
         if live:
-            if live[0].verb != "knn":
-                self._run_verb_batch(live)
+            spec = self.ladder.spec() if self.ladder is not None else None
+            if spec is not None and spec.brute:
+                # the ladder's floor gear: every request through the exact
+                # brute-force path
+                for req in live:
+                    self._run_fallback(req, reason="brute-deadline")
+            elif live[0].verb != "knn":
+                self._run_verb_batch(live, spec)
             else:
-                self._run_batch(live)
+                self._run_batch(live, spec)
         for req in late:
             self._deadline.inc()
             self._run_fallback(req, reason="deadline")
 
-    def _run_batch(self, live: List[PendingRequest]) -> None:
+    def _account_gear(self, live, effective, ladder_t):
+        """Count a batch that ran at ``effective`` by the gear that actually
+        ANSWERED (a target can resolve to the exact run when its cap covers
+        every bucket) and return (gear token, degraded flag, visit cap). A
+        batch the LADDER pushed below what its requests asked is degraded;
+        a client-requested target is a kept contract."""
+        visit_cap = getattr(self.engine, "last_visit_cap", None)
+        gear = forced = None
+        req_t = live[0].recall_target
+        if effective is not None and visit_cap is not None:
+            gear = f"approx:{effective:g}"
+            if ladder_t is not None and (req_t is None or ladder_t < req_t):
+                forced = gear
+                self._degraded["ladder"].inc(len(live))
+        self._by_gear["approx" if gear else "exact"].inc(len(live))
+        if self.ladder is not None and forced is not None:
+            # the ladder gear's promise refined by the measured
+            # calibration — for ladder-forced batches only: a client's
+            # low target must not move the served-recall SLO's gauge
+            self.ladder.engaged(getattr(self.engine, "last_recall_estimate",
+                                        1.0))
+        return gear, forced, visit_cap
+
+    @staticmethod
+    def _effective(live, spec):
+        """(effective target, ladder target): the minimum of what the
+        ladder caps and what the gear-homogeneous batch asked; None is
+        exact."""
+        ladder_t = spec.recall_target if spec is not None else None
+        asked = [t for t in (ladder_t, live[0].recall_target) if t is not None]
+        return (min(asked) if asked else None), ladder_t
+
+    def _run_batch(self, live: List[PendingRequest], spec=None) -> None:
         rows = sum(r.rows for r in live)
         bucket = batch_bucket(rows, self.max_batch)
         q = np.concatenate([r.queries for r in live], axis=0)
@@ -212,8 +285,13 @@ class MicroBatcher:
             # sliced away — same trick as the tiled engine's own qpad
             pad = np.broadcast_to(q[-1], (bucket - rows, q.shape[1]))
             q = np.concatenate([q, pad], axis=0)
+        effective, ladder_t = self._effective(live, spec)
         try:
-            d2, ids, source = self.engine.knn_batch(q)
+            if effective is None:
+                d2, ids, source = self.engine.knn_batch(q)
+            else:
+                d2, ids, source = self.engine.knn_batch(
+                    q, recall_target=effective)
         except Exception as e:
             self._errors.inc()
             flight.record("serve.batch_error", rows=rows,
@@ -224,12 +302,13 @@ class MicroBatcher:
                 r.fail(f"batch dispatch failed: {e!r}")
             return
         done = time.monotonic()
+        gear, forced, visit_cap = self._account_gear(live, effective, ladder_t)
         self._batches["warm" if source == "warm" else "cold"].inc()
         self._batch_rows.observe(rows)
         self._batch_reqs.observe(len(live))
         flight.record(
             "serve.batch", rows=rows, bucket=bucket, requests=len(live),
-            plan=source, gear="exact",
+            plan=source, gear=gear or "exact", visit_cap=visit_cap,
             dispatch_ms=round((done - live[0].dispatched_at) * 1e3, 3),
             # which index generation ANSWERED this batch: an epoch swap
             # between two batches shows in the ring as this number stepping
@@ -252,8 +331,46 @@ class MicroBatcher:
             # fulfill LAST: it wakes the waiting handler thread, and a
             # client that reads its answer and immediately snapshots the
             # ring must find this request's decomposition already there
-            r.fulfill(d2[off:off + r.rows, :r.k], ids[off:off + r.rows, :r.k])
+            r.fulfill(d2[off:off + r.rows, :r.k],
+                      ids[off:off + r.rows, :r.k],
+                      degraded=forced, gear=gear)
             off += r.rows
+        if visit_cap is not None and self._sample_every:
+            # shadow-sample AFTER the answers left: the exact re-answer
+            # delays the next batch by one dispatch, never the requests
+            # it measures
+            self._sample_tick += 1
+            if self._sample_tick >= self._sample_every:
+                self._sample_tick = 0
+                self._shadow_sample(
+                    q, rows, ids,
+                    getattr(self.engine, "last_recall_estimate", 1.0))
+
+    def _shadow_sample(self, q: np.ndarray, rows: int,
+                       approx_ids: np.ndarray, estimate: float) -> None:
+        """One online recall sample: re-answer the (padded) batch exactly
+        and publish the measured recall@k of the approximate answer that
+        served, as an EWMA (alpha 0.3), so one small batch's quantized
+        recall does not whipsaw the SLO. The gauge is registered lazily:
+        absent, not 0, until something was measured. Never raises."""
+        try:
+            from kdtree_tpu_torch.approx.recall import recall_at_k
+
+            _, exact_ids, _ = self.engine.knn_batch(q)
+            measured = recall_at_k(approx_ids[:rows], exact_ids[:rows])
+        except Exception as e:
+            flight.record("recall.sample_error", error=repr(e)[:200])
+            return
+        prev = self._sampled_ewma
+        self._sampled_ewma = (measured if prev is None
+                              else 0.7 * prev + 0.3 * measured)
+        obs.get_registry().gauge("kdtree_recall_sampled").set(
+            round(self._sampled_ewma, 6))
+        self._samples.inc()
+        flight.record("recall.sample", rows=rows,
+                      measured=round(measured, 6),
+                      estimate=round(float(estimate), 6),
+                      ewma=round(self._sampled_ewma, 6))
 
     @staticmethod
     def _verb_family(verb: str) -> str:
@@ -261,11 +378,14 @@ class MicroBatcher:
         bounded "count" label."""
         return "count" if verb.startswith("count") else verb
 
-    def _run_verb_batch(self, live: List[PendingRequest]) -> None:
+    def _run_verb_batch(self, live: List[PendingRequest], spec=None) -> None:
         """Dispatch one verb-homogeneous batch (radius / range / either
         count form) through the engine's verb methods: the k-NN path's
-        pow2 row quantization, the result back per request as (counts,
-        ids, distances) row slices."""
+        pow2 row quantization and gear resolution, the result back per
+        request as (counts, ids, distances) row slices. ``truncated`` is
+        a batch-level flag: every request of a cut batch is flagged
+        (calling an exact row a lower bound is sound, the reverse is
+        not)."""
         verb = live[0].verb
         fam = self._verb_family(verb)
         rows = sum(r.rows for r in live)
@@ -280,12 +400,15 @@ class MicroBatcher:
             q = np.concatenate([q, pad], axis=0)
             ap = np.broadcast_to(aux[-1], (bucket - rows,) + aux.shape[1:])
             aux = np.concatenate([aux, ap], axis=0)
+        effective, ladder_t = self._effective(live, spec)
         with_ids = not verb.startswith("count")
         try:
             if verb in ("radius", "count_radius"):
-                res = self.engine.radius_batch(q, aux, with_ids=with_ids)
+                res = self.engine.radius_batch(
+                    q, aux, recall_target=effective, with_ids=with_ids)
             else:
-                res = self.engine.range_batch(q, aux, with_ids=with_ids)
+                res = self.engine.range_batch(
+                    q, aux, recall_target=effective, with_ids=with_ids)
         except Exception as e:
             self._errors.inc()
             flight.record("serve.batch_error", rows=rows,
@@ -297,6 +420,7 @@ class MicroBatcher:
                 r.fail(f"batch dispatch failed: {e!r}")
             return
         done = time.monotonic()
+        gear, forced, visit_cap = self._account_gear(live, effective, ladder_t)
         self._verb_requests[fam].inc(len(live))
         self._verb_rows[fam].observe(rows)
         if res.truncated:
@@ -307,7 +431,8 @@ class MicroBatcher:
         self._batch_reqs.observe(len(live))
         flight.record(
             "serve.batch", rows=rows, bucket=bucket, requests=len(live),
-            verb=verb, gear="exact", truncated=bool(res.truncated),
+            verb=verb, gear=gear or "exact", visit_cap=visit_cap,
+            truncated=bool(res.truncated),
             retries=int(res.retries),
             dispatch_ms=round((done - live[0].dispatched_at) * 1e3, 3),
             epoch=getattr(self.engine, "last_answer_epoch", 0),
@@ -327,15 +452,22 @@ class MicroBatcher:
             r.fulfill(
                 None if res.d2 is None else res.d2[off:off + r.rows],
                 None if res.ids is None else res.ids[off:off + r.rows],
+                degraded=forced, gear=gear,
                 counts=res.counts[off:off + r.rows],
                 truncated=bool(res.truncated),
             )
             off += r.rows
 
     def _run_fallback(self, req: PendingRequest, reason: str) -> None:
-        """Answer one straggler through the exact brute-force path (the
-        k-NN one, or the verb's)."""
+        """Answer one straggler (or, at the ladder's floor gear, every
+        request) through the exact brute-force path (the k-NN one, or the
+        verb's)."""
         self._degraded[reason].inc()
+        # every answered request lands in one gear class: a deadline
+        # straggler's brute-force answer is exact; only the ladder's floor
+        # gear is the brute-deadline class
+        self._by_gear["brute-deadline" if reason == "brute-deadline"
+                      else "exact"].inc()
         counts = None
         try:
             if req.verb == "knn":
@@ -371,4 +503,7 @@ class MicroBatcher:
         )
         # fulfill last, same response-implies-ring-event ordering as the
         # batch path above
-        req.fulfill(d2, ids, degraded=reason, counts=counts)
+        req.fulfill(d2, ids, degraded=reason,
+                    gear="brute-deadline" if reason == "brute-deadline"
+                    else None,
+                    counts=counts)

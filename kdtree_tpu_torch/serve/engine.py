@@ -1,7 +1,8 @@
 """Serving lifecycle: the engine facade, the serving state, startup.
 
-The port of ``kdtree_tpu/serve/lifecycle.py``: ``ServeEngine`` (exact
-``knn_batch``, the verbs' ``radius_batch``/``range_batch``, the
+The port of ``kdtree_tpu/serve/lifecycle.py``: ``ServeEngine``
+(``knn_batch`` — exact, or bounded-visit under a ``recall_target`` — the
+verbs' ``radius_batch``/``range_batch``, the
 brute-force ``fallback_knn``/``fallback_radius``/``fallback_range``, the
 root-box ``bounds``, the warmup ladder), ``ServeState`` (what the HTTP
 layer reads: engine, knobs, readiness, the read-only flag),
@@ -92,52 +93,100 @@ class ServeEngine:
         self.box_lo = tree.node_lo[0].cpu().numpy().astype(np.float32)
         self.box_hi = tree.node_hi[0].cpu().numpy().astype(np.float32)
         self.stats = TileStats()
+        # facts about the LAST dispatch (the batch worker is the only
+        # steady-state caller): the visit cap that answered (None = exact)
+        # and the recall estimate it carries (the measured calibration
+        # when one exists, the requested target otherwise, 1.0 exact)
+        self.last_visit_cap: Optional[int] = None
+        self.last_recall_estimate: float = 1.0
 
     def bounds(self) -> Tuple[np.ndarray, np.ndarray]:
         """The index's AABB (the root box) as host f32[D] arrays."""
         return self.box_lo, self.box_hi
 
-    def knn_batch(self, queries: np.ndarray) -> Tuple[np.ndarray, np.ndarray, str]:
-        """Exact k-NN for one padded micro-batch via the tiled engine.
-        Returns host (d2 f32[Q, k], ids i32[Q, k]) and the plan source."""
+    def _resolve(self, plan, recall_target: Optional[float]):
+        """(visit cap, recall estimate) for ``recall_target`` at ``plan``'s
+        signature: the plan store's calibration (its measured recall is
+        the estimate), or the heuristic with the target as the estimate;
+        (None, 1.0) when the answer is exact."""
+        if recall_target is None:
+            return None, 1.0
+        from kdtree_tpu_torch import approx, tuning
+
         t = self.tree
-        Q, D = queries.shape
-        plan = plan_tiled(Q, D, t.n_real, t.num_buckets, t.bucket_size,
+        prof = tuning.profile_for(plan.sig) if plan.sig is not None else None
+        visit_cap = approx.resolve_visit_cap(
+            recall_target, t.num_buckets, self.k, t.bucket_size, profile=prof)
+        if visit_cap is None:
+            return None, 1.0
+        measured = (prof or {}).get("recall_measured") or {}
+        try:
+            estimate = float(measured.get(f"{float(recall_target):g}",
+                                          recall_target))
+        except (TypeError, ValueError):
+            estimate = float(recall_target)
+        return visit_cap, estimate
+
+    def _plan(self, Q: int):
+        t = self.tree
+        return plan_tiled(Q, t.dim, t.n_real, t.num_buckets, t.bucket_size,
                           self.k, device=t.device)
-        with obs.span("serve.batch", sync=False, q=Q, plan=plan.source,
-                      v=plan.v, tb=plan.tb):
+
+    def knn_batch(self, queries: np.ndarray,
+                  recall_target: Optional[float] = None,
+                  ) -> Tuple[np.ndarray, np.ndarray, str]:
+        """k-NN for one padded micro-batch via the tiled engine: exact by
+        default, bounded-visit under a ``recall_target`` (resolved to a
+        visit cap through the plan store's calibration, or the
+        heuristic). Returns host (d2 f32[Q, k], ids i32[Q, k]) and the plan
+        source, resolved here once, so the batcher labels its warm/cold
+        metric from the lookup the dispatch used."""
+        t = self.tree
+        plan = self._plan(queries.shape[0])
+        visit_cap, estimate = self._resolve(plan, recall_target)
+        with obs.span("serve.batch", sync=False, q=queries.shape[0],
+                      plan=plan.source, v=plan.v, tb=plan.tb,
+                      visit_cap=visit_cap):
             d2, gid = morton_knn_tiled(t, queries, k=self.k, plan=plan,
-                                       stats=self.stats)
+                                       stats=self.stats, visit_cap=visit_cap)
             # response materialization boundary: the batch is complete
             # and per-request slices leave as JSON from here
             out = d2.cpu().numpy(), gid.cpu().numpy()
+        self.last_visit_cap = visit_cap
+        self.last_recall_estimate = estimate
         return out[0], out[1], plan.source
 
-    def _verb_visit_cap(self, recall_target: Optional[float]) -> None:
-        """The bounded-visit cap a verb batch runs at: None (exact)
-        without a ``recall_target``. The recall dial comes with ROADMAP
-        queue 1 item 12."""
+    def _verb_visit_cap(self, Q: int, recall_target: Optional[float]):
+        """(visit cap, recall estimate) of a verb batch, resolved through
+        the same calibration as the k-NN path (the pow2 row bucket's
+        signature): a verb's truncated answer rides the same gear and
+        recall contract."""
         if recall_target is None:
-            return None
-        raise NotImplementedError(
-            "recall_target on the verbs is not ported to kdtree_tpu_torch "
-            "yet (ROADMAP queue 1 item 12)")
+            return None, 1.0
+        return self._resolve(self._plan(Q), recall_target)
 
     def radius_batch(self, queries: np.ndarray, r: np.ndarray,
                      recall_target: Optional[float] = None,
                      with_ids: bool = True):
         """Radius (or radius-count, ``with_ids=False``) for one
-        micro-batch via the tree-pruned verb search, exact. Returns a host
+        micro-batch via the tree-pruned verb search. Exact by default;
+        under a ``recall_target`` the resolved visit cap truncates the
+        lb-ascending candidate list and the answer is a flagged sound
+        lower bound (``truncated``). Returns a host
         :class:`~kdtree_tpu_torch.verbs.device.VerbResult`."""
         from kdtree_tpu_torch.verbs import device as verb_device
 
-        visit_cap = self._verb_visit_cap(recall_target)
+        visit_cap, estimate = self._verb_visit_cap(queries.shape[0],
+                                                   recall_target)
         with obs.span("serve.verb", sync=False, verb="radius",
                       q=int(queries.shape[0]), visit_cap=visit_cap,
                       ids=with_ids):
-            return verb_device.radius_search(self.tree, queries, r,
-                                             visit_cap=visit_cap,
-                                             with_ids=with_ids)
+            res = verb_device.radius_search(self.tree, queries, r,
+                                            visit_cap=visit_cap,
+                                            with_ids=with_ids)
+        self.last_visit_cap = visit_cap
+        self.last_recall_estimate = estimate
+        return res
 
     def range_batch(self, box_lo: np.ndarray, box_hi: np.ndarray,
                     recall_target: Optional[float] = None,
@@ -146,13 +195,17 @@ class ServeEngine:
         as :meth:`radius_batch`."""
         from kdtree_tpu_torch.verbs import device as verb_device
 
-        visit_cap = self._verb_visit_cap(recall_target)
+        visit_cap, estimate = self._verb_visit_cap(box_lo.shape[0],
+                                                   recall_target)
         with obs.span("serve.verb", sync=False, verb="range",
                       q=int(box_lo.shape[0]), visit_cap=visit_cap,
                       ids=with_ids):
-            return verb_device.range_search(self.tree, box_lo, box_hi,
-                                            visit_cap=visit_cap,
-                                            with_ids=with_ids)
+            res = verb_device.range_search(self.tree, box_lo, box_hi,
+                                           visit_cap=visit_cap,
+                                           with_ids=with_ids)
+        self.last_visit_cap = visit_cap
+        self.last_recall_estimate = estimate
+        return res
 
     def fallback_radius(self, queries: np.ndarray, r: np.ndarray,
                         with_ids: bool = True):
@@ -204,7 +257,8 @@ class ServeState:
     """Everything the HTTP layer needs: the engine, the knobs, readiness."""
 
     def __init__(self, engine, max_batch: int, meta: Optional[dict] = None,
-                 id_offset: int = 0, read_only: bool = False) -> None:
+                 id_offset: int = 0, read_only: bool = False,
+                 ladder_enabled: bool = False) -> None:
         self.engine = engine
         self.max_batch = max_batch
         self.meta = dict(meta or {})
@@ -226,6 +280,10 @@ class ServeState:
                    + obs_slo.recall_specs()),
             history=obs_history.get_history(),
         )
+        # the degradation ladder's master switch: the serve CLI arms it
+        # (its warmup runs before traffic); in-process embedders opt in,
+        # because a cold engine's first dispatches read as a burn
+        self.ladder_enabled = bool(ladder_enabled)
         self._ready = threading.Event()
         self._ready_gauge = obs.get_registry().gauge("kdtree_serve_ready")
         self._ready_gauge.set(0)
@@ -280,6 +338,7 @@ def build_state(
     read_only: bool = False,
     epoch0: int = 0,
     snapshot_sink=None,
+    ladder_enabled: bool = False,
 ) -> ServeState:
     """Assemble a ready-to-warmup :class:`ServeState` from exactly one
     index source: a loaded ``tree`` (served on its own device — a
@@ -296,7 +355,8 @@ def build_state(
     ``epoch0`` (the loaded snapshot's), a primary's compactor emits each
     new epoch through ``snapshot_sink(tree, epoch)``, and a
     ``read_only`` follower answers writes 403. ``meta`` rides to
-    ``/healthz`` (its ``"snapshot"`` block, when the CLI sets one)."""
+    ``/healthz`` (its ``"snapshot"`` block, when the CLI sets one).
+    ``ladder_enabled`` arms the degradation ladder."""
     from kdtree_tpu_torch.mutable.engine import (
         DEFAULT_MAX_DELTA_FRAC,
         DEFAULT_MAX_DELTA_ROWS,
@@ -329,4 +389,5 @@ def build_state(
         snapshot_sink=snapshot_sink,
     )
     return ServeState(engine, max_batch=_pow2_ceil(max_batch), meta=meta,
-                      id_offset=id_offset, read_only=read_only)
+                      id_offset=id_offset, read_only=read_only,
+                      ladder_enabled=ladder_enabled)

@@ -29,8 +29,8 @@ server's on the same points and requests (``tests/test_torch_server.py``,
   (with ``Retry-After``) while warming. The body carries the mutable
   block (epoch, delta rows, tombstones), the box, ``id_offset``,
   ``read_only`` and the ``snapshot`` block (role, dir, live version) when
-  they apply, and the SLO verdicts — every key of the reference's but
-  ``headroom`` and ``ladder``.
+  they apply, the SLO verdicts and the degradation ladder's gear (when
+  the ladder is armed) — every key of the reference's but ``headroom``.
 - ``GET /metrics`` — the Prometheus text exposition of the registry
   (``?openmetrics=1`` for the exemplar flavour).
 - ``GET /debug/flight`` — the flight recorder's ring as JSON
@@ -40,10 +40,15 @@ server's on the same points and requests (``tests/test_torch_server.py``,
   layer (``serve/faults.py``), opt-in (``--debug-faults`` or
   ``KDTREE_TPU_FAULTS``), 403 otherwise.
 
+The recall dial: a ``/v1/knn`` or verb body may carry ``recall_target``
+in (0, 1] (absent or 1.0 is exact; anything else is a 400 with the
+reference's text). An approximate answer echoes its ``gear``
+(``approx:<t>``); one the degradation ladder forced is also flagged
+``degraded``; a verb answer cut by the visit cap says ``truncated``.
+
 What the reference serves beyond this answers 501 naming its ROADMAP
 item, after reading the request body (an unread body would desync a
-keep-alive connection): a ``/v1/knn`` or verb body with a
-``recall_target`` (item 12), and ``/debug/profile``, ``/debug/trace`` and
+keep-alive connection): ``/debug/profile``, ``/debug/trace`` and
 ``/debug/costs`` (item 15).
 
 429 shed responses carry a ``Retry-After`` header derived from the
@@ -369,6 +374,16 @@ class KnnRequestHandler(JsonRequestHandler):
             body["snapshot"] = state.meta["snapshot"]
         # SLO verdict rides along without gating readiness
         body["slo"] = state.slo_engine.health_block()
+        ladder = getattr(self.server, "ladder", None)
+        if ladder is not None and ladder.enabled:
+            spec = ladder.spec()
+            # the engaged degradation gear: a fleet's gear distribution
+            # is one /healthz sweep
+            body["ladder"] = {
+                "gear": ladder.gear(),
+                "name": spec.name,
+                "recall_target": spec.recall_target,
+            }
         return body
 
     # -- POST ---------------------------------------------------------------
@@ -397,7 +412,7 @@ class KnnRequestHandler(JsonRequestHandler):
         parsed = self._parse_knn_body()
         if parsed is None:
             return  # error response already sent
-        queries, k, deadline_s = parsed
+        queries, k, deadline_s, recall_target = parsed
         state: ServeState = self.server.state
         if not state.ready:
             _count_request("unready")
@@ -412,10 +427,12 @@ class KnnRequestHandler(JsonRequestHandler):
                     out[0], out[1], k, degraded="oversized", trace_id=trace))
             return
         deadline = (time.monotonic() + deadline_s) if deadline_s else None
-        req = PendingRequest(queries, k, deadline, trace_id=trace)
+        req = PendingRequest(queries, k, deadline, trace_id=trace,
+                             recall_target=recall_target)
         if self._submit_and_wait(req, trace):
             self._send_json(200, self._result_json(
-                req.d2, req.ids, k, degraded=req.degraded, trace_id=trace))
+                req.d2, req.ids, k, degraded=req.degraded, trace_id=trace,
+                gear=req.gear))
 
     def _submit_and_wait(self, req: PendingRequest, trace: str) -> bool:
         """Admit ``req`` to the batcher and wait for its answer. False
@@ -490,10 +507,10 @@ class KnnRequestHandler(JsonRequestHandler):
 
     def _parse_knn_body(
         self,
-    ) -> Optional[Tuple[np.ndarray, int, Optional[float]]]:
-        """Validated (queries f32[q, D], k, deadline seconds | None), or
-        None with the 4xx/501 already written. Every rejection names what
-        was wrong."""
+    ) -> Optional[Tuple[np.ndarray, int, Optional[float], Optional[float]]]:
+        """Validated (queries f32[q, D], k, deadline seconds | None,
+        recall_target | None), or None with the 4xx already written.
+        Every rejection names what was wrong."""
         state: ServeState = self.server.state
         payload = self._read_json_object()
         if payload is None:
@@ -540,12 +557,25 @@ class KnnRequestHandler(JsonRequestHandler):
                                                "positive number"})
                 return None
             deadline_s = float(deadline_ms) / 1e3
-        if payload.get("recall_target") is not None:
-            # absent (or null) is the exact path; the recall dial itself
-            # is not here yet
-            self._send_json(501, _not_ported("recall_target on /v1/knn", 12))
+        recall_target = self._parse_recall_target(payload)
+        if recall_target is False:
             return None
-        return queries, k, deadline_s
+        return queries, k, deadline_s, recall_target
+
+    def _parse_recall_target(self, payload: dict):
+        """The request's recall target: None (absent, null or 1.0 — the
+        exact path), a float in (0, 1), or False with the 400 already
+        written. One validator with the reference's text."""
+        from kdtree_tpu_torch.approx.search import (
+            RECALL_TARGET_ERROR,
+            parse_recall_target,
+        )
+
+        ok, recall_target = parse_recall_target(payload.get("recall_target"))
+        if not ok:
+            self._send_json(400, {"error": RECALL_TARGET_ERROR})
+            return False
+        return recall_target
 
     def _do_verb(self, endpoint: str) -> None:
         """``POST /v1/radius`` / ``/v1/range`` / ``/v1/count``: the k-NN
@@ -560,7 +590,7 @@ class KnnRequestHandler(JsonRequestHandler):
         parsed = self._parse_verb_body(endpoint)
         if parsed is None:
             return  # error response already sent
-        verb, queries, radius, box_hi, deadline_s = parsed
+        verb, queries, radius, box_hi, deadline_s, recall_target = parsed
         state: ServeState = self.server.state
         if not state.ready:
             _count_request("unready")
@@ -586,16 +616,16 @@ class KnnRequestHandler(JsonRequestHandler):
         deadline = (time.monotonic() + deadline_s) if deadline_s else None
         req = PendingRequest(queries, state.engine.k, deadline,
                              trace_id=trace, verb=verb, radius=radius,
-                             box_hi=box_hi)
+                             box_hi=box_hi, recall_target=recall_target)
         if self._submit_and_wait(req, trace):
             self._send_json(200, self._verb_result_json(
                 verb, req.counts, req.d2, req.ids, req.truncated,
-                degraded=req.degraded, trace_id=trace))
+                degraded=req.degraded, trace_id=trace, gear=req.gear))
 
     def _parse_verb_body(self, endpoint: str):
         """Validated (verb, queries|lo, r|None, hi|None, deadline seconds
-        | None) for a verb endpoint, or None with the 4xx/501 already
-        written. Geometry validation lives in
+        | None, recall_target | None) for a verb endpoint, or None with
+        the 4xx already written. Geometry validation lives in
         :mod:`kdtree_tpu_torch.verbs.wire`; the deadline check is the
         k-NN one."""
         state: ServeState = self.server.state
@@ -631,18 +661,16 @@ class KnnRequestHandler(JsonRequestHandler):
                                                "positive number"})
                 return None
             deadline_s = float(deadline_ms) / 1e3
-        if payload.get("recall_target") is not None:
-            # absent (or null) is the exact path; the recall dial itself
-            # is not here yet
-            self._send_json(501, _not_ported(
-                f"recall_target on /v1/{endpoint}", 12))
+        recall_target = self._parse_recall_target(payload)
+        if recall_target is False:
             return None
-        return verb, queries, radius, box_hi, deadline_s
+        return verb, queries, radius, box_hi, deadline_s, recall_target
 
     def _verb_result_json(
         self, verb: str, counts: np.ndarray,
         d2: Optional[np.ndarray], ids: Optional[np.ndarray],
         truncated: bool, degraded: Optional[str], trace_id: str = "",
+        gear: Optional[str] = None,
     ) -> dict:
         offset = self.server.state.id_offset
         out = {
@@ -658,6 +686,8 @@ class KnnRequestHandler(JsonRequestHandler):
                 d2, ids, counts, offset)
         elif verb == "range" and ids is not None:
             out["ids"] = verb_wire.range_rows_json(ids, counts, offset)
+        if gear is not None:
+            out["gear"] = gear
         return out
 
     def _do_write(self, op: str) -> None:
@@ -797,6 +827,7 @@ class KnnRequestHandler(JsonRequestHandler):
     def _result_json(
         self, d2: np.ndarray, ids: np.ndarray, k: int,
         degraded: Optional[str], trace_id: str = "",
+        gear: Optional[str] = None,
     ) -> dict:
         dist = np.sqrt(d2[:, :k].astype(np.float64))
         ids = ids[:, :k]
@@ -806,13 +837,19 @@ class KnnRequestHandler(JsonRequestHandler):
             # by the shard's offset, padding ids stay -1; int64 so a deep
             # shard cannot wrap the i32 gid table
             ids = np.where(ids >= 0, ids.astype(np.int64) + offset, -1)
-        return {
+        out = {
             "k": k,
             "ids": ids.tolist(),
             "distances": dist.tolist(),
             "degraded": degraded,
             "trace_id": trace_id,
         }
+        if gear is not None:
+            # the answering gear, on every non-plain-exact answer — a
+            # client-requested approximation carries it without degraded;
+            # absent on exact answers, so their bytes are unchanged
+            out["gear"] = gear
+        return out
 
 
 class KnnServer(GracefulHTTPServer):
@@ -827,6 +864,7 @@ class KnnServer(GracefulHTTPServer):
         queue_rows: Optional[int] = None,
         faults=None,
         debug_faults: Optional[bool] = None,
+        recall_sample: float = 0.0,
     ) -> None:
         super().__init__(address, KnnRequestHandler)
         self.state = state
@@ -845,11 +883,21 @@ class KnnServer(GracefulHTTPServer):
         self.queue = AdmissionQueue(
             queue_rows if queue_rows is not None else 4 * state.max_batch
         )
+        # the degradation ladder: exact -> approx(0.99) -> approx(0.9) ->
+        # brute-force-deadline under sustained burn, ticked on the history
+        # sampler's tick after the SLO engine. Disabled, it never leaves
+        # gear 0 and serving is exactly the exact path
+        from kdtree_tpu_torch.approx.ladder import DegradationLadder
+
+        self.ladder = DegradationLadder(state.slo_engine,
+                                        enabled=state.ladder_enabled)
         self.batcher = MicroBatcher(
             state.engine, self.queue,
             max_batch=state.max_batch,
             max_wait_ms=max_wait_ms,
+            ladder=self.ladder,
             faults=self.faults,
+            recall_sample=recall_sample,
         )
         # the history ring /debug/history serves and the sampler feeds
         self.history = state.slo_engine.history
@@ -864,6 +912,9 @@ class KnnServer(GracefulHTTPServer):
         }
     def _slo_tick(self) -> None:
         self.state.slo_engine.evaluate()  # never raises (sampler-thread contract)
+        # the ladder's controller runs on the same tick, after the SLO
+        # verdicts it reads
+        self.ladder.tick()
 
     def start(self, warmup: bool = True, warmup_buckets=None) -> None:
         """Start the batch worker, the history sampler (+ SLO evaluation
@@ -913,9 +964,12 @@ def make_server(
     queue_rows: Optional[int] = None,
     faults=None,
     debug_faults: Optional[bool] = None,
+    recall_sample: float = 0.0,
 ) -> KnnServer:
     """Bind (port 0 = ephemeral; read ``server_address[1]``) but do not
-    start — callers decide when the accept loop and warmup run."""
+    start — callers decide when the accept loop and warmup run.
+    ``recall_sample`` arms the online recall sampler (the fraction of
+    approximate batches re-answered exactly; 0 is off)."""
     return KnnServer((host, port), state, max_wait_ms=max_wait_ms,
                      queue_rows=queue_rows, faults=faults,
-                     debug_faults=debug_faults)
+                     debug_faults=debug_faults, recall_sample=recall_sample)

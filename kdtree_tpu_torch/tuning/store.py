@@ -18,10 +18,13 @@ overflow retry guards every batch. Corrupt files, unknown versions and
 out-of-range values read as a miss. Writes are atomic (tmp +
 ``os.replace``) and never raise into the run they observe.
 
-What reads the store today: the snapshot manifest's ``plan_profiles``
-payload (:mod:`kdtree_tpu_torch.snapshot.store`). ``plan_tiled`` does not
-consult it yet, nor does any run write settled plans back (ROADMAP queue 1
-item 13).
+What reads the store: ``plan_tiled`` (through
+:func:`kdtree_tpu_torch.tuning.lookup`), the recall dial's calibration
+(:func:`kdtree_tpu_torch.tuning.profile_for`) and the snapshot manifest's
+``plan_profiles`` payload (:mod:`kdtree_tpu_torch.snapshot.store`). What
+writes it: the per-run feedback (:mod:`~kdtree_tpu_torch.tuning.feedback`),
+the ``tune`` sweep and the recall harness, all through
+:meth:`PlanStore.record`.
 """
 
 from __future__ import annotations
@@ -128,9 +131,10 @@ class PlanStore:
 
     def get_raw(self, sig: PlanSignature) -> Optional[dict]:
         """The version-checked profile for ``sig`` WITHOUT the
-        launch-knob requirement — what the snapshot seeding checks for a
-        key the local store already holds. LAUNCHING from a profile goes
-        through :meth:`get`."""
+        launch-knob requirement — for advisory payload (the recall
+        calibration) in a profile no tuner has settled launch knobs into,
+        and what the snapshot seeding checks for a key the local store
+        already holds. LAUNCHING from a profile goes through :meth:`get`."""
         if not self.enabled:
             return None
         path = self.path_for(sig)
@@ -224,6 +228,53 @@ class PlanStore:
             return False
         obs.get_registry().counter("kdtree_plan_cache_writes_total").inc()
         return True
+
+    def scan(self):
+        """Yield ``(signature dict, raw profile dict)`` for every readable
+        profile in the store — the cross-signature view for consumers that
+        match on parts of a signature. Unreadable files and profiles
+        without a signature are skipped, never raised."""
+        if not self.enabled:
+            return
+        try:
+            names = sorted(os.listdir(self.cache_dir))
+        except OSError:
+            return
+        for fname in names:
+            if not (fname.startswith("plan-") and fname.endswith(".json")):
+                continue
+            try:
+                with open(os.path.join(self.cache_dir, fname)) as f:
+                    prof = json.load(f)
+            except (OSError, ValueError):
+                continue
+            if not isinstance(prof, dict) or \
+                    prof.get("version") != PROFILE_VERSION:
+                continue
+            sig = prof.get("signature")
+            if not isinstance(sig, dict):
+                continue
+            yield sig, prof
+
+    def record(self, sig: PlanSignature, **fields) -> bool:
+        """Merge ``fields`` into the profile for ``sig``, writing only when
+        something other than the timestamp changed — a serving loop that
+        re-observes the same settled plan on every call must not rewrite
+        the file each time. The merge is over the RAW profile, so an
+        advisory-only profile (a recall calibration written before any
+        tuner settled launch knobs) is never erased by later feedback."""
+        if not self.enabled:
+            return False
+        existing = self.get_raw(sig) or {}
+        base = {
+            k: v for k, v in existing.items()
+            if k not in ("version", "signature", "updated_unix")
+        }
+        merged = dict(base)
+        merged.update(fields)
+        if merged == base:
+            return False
+        return self.put(sig, merged)
 
 
 def default_store() -> PlanStore:

@@ -18,7 +18,14 @@ Output bytes and exit codes are the reference's:
   serving snapshot, a Morton checkpoint, a points file or the seeded
   threefry problem, until SIGTERM/SIGINT drains it; a primary emits
   snapshots on every epoch swap (``--snapshot-save``), a read-only
-  secondary follows them (``--snapshot-follow``).
+  secondary follows them (``--snapshot-follow``); the degradation ladder
+  is armed (``--no-ladder`` disarms it) and the online recall sampler
+  re-answers ``--recall-sample`` of the approximate batches exactly;
+- ``recall``: the recall harness — sweep visit caps against the exact
+  engine, print the recall@k-vs-speedup curve and persist the
+  recall_target -> visit_cap calibration into the plan store;
+- ``tune``: sweep (tile, cmax) and then (v, tb) candidates of the tiled
+  engine and persist the winner into the plan store.
 
 Everything runs on the CUDA device unless ``--device cpu`` asks for the
 CPU. ``auto`` picks an engine by the reference's crossovers
@@ -396,8 +403,8 @@ def cmd_serve(args) -> None:
     """Long-lived online serving: micro-batched ``POST /v1/knn`` and the
     verbs, the write path, ``GET /healthz`` readiness and the Prometheus
     ``GET /metrics``, over a snapshot, a checkpoint, a points file or the
-    seeded problem. ``--recall-sample`` and ``--no-ladder`` of the
-    reference are not here yet (ROADMAP item 12)."""
+    seeded problem, with the degradation ladder (``--no-ladder`` off) and
+    the online recall sampler (``--recall-sample``)."""
     import signal
     import threading
     import zipfile
@@ -552,6 +559,7 @@ def cmd_serve(args) -> None:
             read_only=follow_s is not None,
             epoch0=epoch0,
             snapshot_sink=snapshot_sink,
+            ladder_enabled=not args.no_ladder,
         )
     except TypeError as e:
         # un-servable checkpoint kind — crisp stderr + exit code
@@ -577,6 +585,7 @@ def cmd_serve(args) -> None:
             state, host=args.host, port=args.port,
             max_wait_ms=args.max_wait_ms, queue_rows=args.queue_depth,
             debug_faults=args.debug_faults,
+            recall_sample=max(args.recall_sample or 0.0, 0.0),
         )
     except srv.FaultSpecError as e:
         # a typo'd KDTREE_TPU_FAULTS must fail the drill at startup
@@ -603,6 +612,11 @@ def cmd_serve(args) -> None:
     print("mutable index armed: POST /v1/upsert + /v1/delete, epoch "
           "rebuild at backlog >= "
           f"{'disabled' if thr is None else thr} rows", file=sys.stderr)
+    if state.ladder_enabled:
+        print("degradation ladder armed: exact -> approx(0.99) -> "
+              "approx(0.9) -> brute-force-deadline under sustained "
+              "burn; per-request recall_target on /v1/knn and the verbs",
+              file=sys.stderr)
     print(f"kdtree-tpu-torch serve: binding http://{host}:{port} "
           f"(n={state.engine.tree.n_real}, dim={state.engine.tree.dim}, "
           f"k<={state.engine.k}, device {state.engine.tree.device}); "
@@ -645,6 +659,142 @@ def cmd_serve(args) -> None:
         follower.stop()
     httpd.stop()
     print("drained; bye", file=sys.stderr, flush=True)
+
+
+def _parse_int_list(raw: str | None, what: str):
+    """Comma-separated positive ints for the sweep grids."""
+    if raw is None:
+        return None
+    try:
+        vals = [int(x) for x in raw.split(",") if x.strip()]
+    except ValueError:
+        print(f"--{what} must be a comma-separated int list, got {raw!r}",
+              file=sys.stderr)
+        sys.exit(1)
+    if not vals or any(v < 1 for v in vals):
+        print(f"--{what} values must be positive, got {raw!r}",
+              file=sys.stderr)
+        sys.exit(1)
+    return vals
+
+
+def _sweep_problem(args, what: str):
+    """The seeded threefry tree and a query sample of another seed
+    (measuring on query == point geometry would flatter every plan),
+    on the run's device."""
+    from kdtree_tpu_torch.ops.generate import (generate_points_rowwise,
+                                               generate_queries)
+    from kdtree_tpu_torch.ops.morton import build_morton
+
+    if args.generator != "threefry":
+        print(f"note: {what} defines its points by the threefry row "
+              f"stream; --generator {args.generator} does not apply",
+              file=sys.stderr)
+    pts = generate_points_rowwise(args.seed, args.dim, args.n, device=args.dev)
+    queries = generate_queries(args.seed + 1, args.dim, args.q, device=args.dev)
+    return build_morton(pts, device=args.dev), queries
+
+
+def cmd_tune(args) -> None:
+    """Sweep (tile, cmax) candidates of the tiled engine on a query sample
+    and persist the winner into the plan store, so every later automatic
+    run of the same problem signature starts there (``"warm"``)."""
+    from kdtree_tpu_torch import tuning
+    from kdtree_tpu_torch.tuning import tuner
+
+    store = tuning.default_store()
+    if not store.enabled:
+        print("plan store is disabled (KDTREE_TPU_TORCH_PLAN_CACHE is set "
+              "to none/off); nothing to persist a winner into",
+              file=sys.stderr)
+        sys.exit(1)
+    tiles = _parse_int_list(args.tiles, "tiles")
+    cmaxs = _parse_int_list(args.cmax, "cmax")
+    vs = _parse_int_list(args.scan_v, "scan-v")
+    tbs = _parse_int_list(args.scan_tb, "scan-tb")
+    tree, queries = _sweep_problem(args, "tune")
+
+    def log(row):
+        block = ""
+        if row.get("v") is not None:
+            block = f" v={row['v']:<3d} tb={row['tb']:<5d}"
+        print(f"  tile={row['tile']:<5d} cmax={row['cmax']:<5d}{block} "
+              f"{row['seconds']*1e3:9.1f} ms  "
+              f"{row['qps']:>10.0f} q/s  retries={row['overflow_retries']}",
+              file=sys.stderr)
+
+    print(f"sweeping tiled plans: n={args.n} dim={args.dim} q={args.q} "
+          f"k={args.k}", file=sys.stderr)
+    out = tuner.sweep(tree, queries, k=args.k, tiles=tiles, cmaxs=cmaxs,
+                      vs=vs, tbs=tbs, sweep_blocks=not args.no_block_sweep,
+                      store=store, log=log)
+    if out["persisted"]:
+        print(f"persisted winner to {out['path']}", file=sys.stderr)
+    elif "reason" in out:
+        print(f"warning: nothing persisted — {out['reason']}",
+              file=sys.stderr)
+    else:
+        print("warning: winner could not be persisted (cache dir not "
+              "writable?)", file=sys.stderr)
+    print(json.dumps({
+        "winner": out["winner"],
+        "persisted": out["persisted"],
+        "path": out["path"],
+        "candidates": len(out["results"]) + len(out["block_results"]),
+        "block_candidates": len(out["block_results"]),
+    }))
+
+
+def cmd_recall(args) -> None:
+    """The recall harness: sweep bounded-visit caps over a seeded problem
+    against the exact engine, print the recall@k-vs-speedup curve, and
+    persist the measured recall_target -> visit_cap calibration into the
+    plan store (unless ``--no-calibrate``)."""
+    import os
+
+    from kdtree_tpu_torch import approx, tuning
+    from kdtree_tpu_torch.approx.recall import persist_calibration
+
+    caps = _parse_int_list(args.caps, "caps")
+    tree, queries = _sweep_problem(args, "recall")
+    print(f"recall sweep: n={args.n} dim={args.dim} q={args.q} "
+          f"k={args.k} buckets={tree.num_buckets}", file=sys.stderr)
+
+    def log(row):
+        print(f"  cap={row['visit_cap']:<6d} recall={row['recall']:.4f} "
+              f"{row['qps']:>10.0f} q/s  {row['speedup']:>6.2f}x",
+              file=sys.stderr)
+
+    block = approx.sweep_recall(tree, queries, k=args.k, caps=caps, log=log)
+    cal = {"recall_caps": {}, "persisted": False, "path": None}
+    if not args.no_calibrate:
+        cal = persist_calibration(tree, args.q, args.dim, args.k, block,
+                                  store=tuning.default_store())
+        if cal["persisted"]:
+            print(f"calibration persisted to {cal['path']}: "
+                  f"{cal['recall_caps']}", file=sys.stderr)
+        elif cal["path"] is None:
+            print("plan store disabled (KDTREE_TPU_TORCH_PLAN_CACHE=none); "
+                  "calibration not persisted", file=sys.stderr)
+    if args.out:
+        report = {
+            "recall_report_version": 1,
+            "recall": block,
+            "calibration": cal["recall_caps"],
+        }
+        tmp = f"{args.out}.tmp-{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(report, f, indent=2, sort_keys=True)
+            f.write("\n")
+        os.replace(tmp, args.out)
+        print(f"recall report written to {args.out}", file=sys.stderr)
+    print(json.dumps({
+        "exact_qps": block["exact_qps"],
+        "caps": len(block["curve"]),
+        "calibration": cal["recall_caps"],
+        "persisted": cal["persisted"],
+        "out": args.out,
+    }))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -790,11 +940,76 @@ def build_parser() -> argparse.ArgumentParser:
                     help="with --snapshot: load a RETAINED generation V "
                          "instead of the live manifest — the rollback "
                          "button --snapshot-keep enables")
+    sv.add_argument("--recall-sample", type=float, default=0.02,
+                    metavar="FRAC",
+                    help="online recall sampler: re-answer this fraction "
+                         "of approximate batches exactly and publish the "
+                         "MEASURED served recall (kdtree_recall_sampled, "
+                         "which the sampled-recall SLO watches); 0 "
+                         "disables (default 0.02)")
+    sv.add_argument("--no-ladder", action="store_true",
+                    help="disable the degradation ladder (exact -> "
+                         "approx(0.99) -> approx(0.9) -> brute-force-"
+                         "deadline under sustained SLO burn)")
     sv.add_argument("--debug-faults", action="store_true",
                     help="arm POST /debug/faults (live fault injection) — "
                          "a remote wedge-this-process button, so it is "
                          "opt-in; setting KDTREE_TPU_FAULTS also arms it")
     sv.set_defaults(fn=cmd_serve)
+
+    tu = sub.add_parser(
+        "tune",
+        help="sweep (tile, cmax) candidates for the tiled engine and "
+             "persist the winner to the plan store",
+    )
+    tu.add_argument("--seed", type=int, default=42)
+    tu.add_argument("--dim", type=int, default=3)
+    tu.add_argument("--n", type=int, default=1 << 20,
+                    help="point count of the seeded problem to tune on")
+    tu.add_argument("--q", type=int, default=16384,
+                    help="query-sample size — plans are keyed by the "
+                         "quantized Q bucket, so tune at the Q you serve")
+    tu.add_argument("--k", type=int, default=16)
+    tu.add_argument("--tiles", default=None, metavar="T1,T2,...",
+                    help="candidate tile sizes (default 64..1024 pow2)")
+    tu.add_argument("--cmax", default=None, metavar="C1,C2,...",
+                    help="candidate candidate-bucket caps (default "
+                         "32..256 pow2)")
+    tu.add_argument("--scan-v", default=None, metavar="V1,V2,...",
+                    help="candidate fold-chunk widths (buckets per scan "
+                         "chunk) for the block-shape phase (default 1,8)")
+    tu.add_argument("--scan-tb", default=None, metavar="T1,T2,...",
+                    help="candidate tiles-per-scan-block for the "
+                         "block-shape phase (default 1,4,32)")
+    tu.add_argument("--no-block-sweep", action="store_true",
+                    help="skip the block-shape phase (sweep only the "
+                         "(tile, cmax) launch grid)")
+    tu.set_defaults(fn=cmd_tune)
+
+    rc = sub.add_parser(
+        "recall",
+        help="recall harness: sweep bounded-visit caps against the exact "
+             "engine, print the recall@k-vs-speedup curve, and persist "
+             "the recall_target -> visit_cap calibration to the plan store",
+    )
+    rc.add_argument("--seed", type=int, default=42)
+    rc.add_argument("--dim", type=int, default=3)
+    rc.add_argument("--n", type=int, default=1 << 20,
+                    help="point count of the seeded problem to measure")
+    rc.add_argument("--q", type=int, default=16384,
+                    help="query-sample size; the calibration persists "
+                         "for every serve batch bucket up to this Q")
+    rc.add_argument("--k", type=int, default=16)
+    rc.add_argument("--caps", default=None, metavar="C1,C2,...",
+                    help="visit caps to sweep (default: powers of two "
+                         "up to the bucket count; the full-cap point "
+                         "pins recall 1.0)")
+    rc.add_argument("--no-calibrate", action="store_true",
+                    help="measure only; do not persist the "
+                         "recall_target -> visit_cap table")
+    rc.add_argument("--out", default="recall_report.json", metavar="FILE",
+                    help="standalone recall report artifact; '' disables")
+    rc.set_defaults(fn=cmd_recall)
     return p
 
 

@@ -21,9 +21,10 @@ Each pass runs its frontier inside the profiler range ``verbs.frontier``
 and its fold inside ``verbs.fold``, so a trace splits a batch's device
 time between the two.
 Membership is decided by ``d2 <= r^2``, so d2 is computed in the
-reference's arithmetic (:func:`~kdtree_tpu_torch.ops._arith.sq_dist`, the
-FMA chain XLA:CPU compiles ``jnp.sum(diff * diff, -1)`` to): a one-ulp
-difference would change the hit set, not only a distance.
+reference's arithmetic (:func:`~kdtree_tpu_torch.ops._arith.sq_dist`: the
+FMA chain XLA:CPU compiles ``jnp.sum(diff * diff, -1)`` to, or its window
+sum of rounded squares above 32 axes): a one-ulp difference would change
+the hit set, not only a distance.
 
 Exactness contract: identical to k-NN. Candidate overflow (more buckets
 pass the bound than the frontier cap holds) and hit overflow (more hits
@@ -32,8 +33,13 @@ host driver with doubled capacity — overflow is the only sign of an
 incomplete answer, never silent truncation. An overflowing frontier
 skips its fold, since the retry replaces it.
 
-Bounded-visit truncation (``visit_cap``) comes with the approximate
-search, ROADMAP queue 1 item 12; passing one raises.
+Bounded-visit truncation (``visit_cap``): the lb-ascending candidate list
+of each tile is cut to its first ``visit_cap`` buckets right after the
+frontier, as the approximate k-NN cuts it (:mod:`kdtree_tpu_torch.approx`),
+and the answer is a flagged sound lower bound (``truncated``: some tile
+had more finite candidates than the cap). Frontier overflow is not
+retried under a cap: the beam the frontier kept is what the cap truncates,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -164,22 +170,27 @@ def _host_rows(x) -> np.ndarray:
     return np.array(x, dtype=np.float32)
 
 
-def _check_visit_cap(visit_cap) -> None:
-    if visit_cap is not None:
-        raise NotImplementedError(
-            "visit_cap (bounded-visit verbs) is not ported to "
-            "kdtree_tpu_torch yet (ROADMAP queue 1 item 12)")
+def _truncate(cand, cand_lb, visit_cap):
+    """Slice the lb-ascending candidate list to ``visit_cap`` (the verbs'
+    analog of the k-NN bounded-visit slice) and report, per tile, whether
+    anything finite was cut."""
+    if visit_cap is None or visit_cap >= cand.shape[1]:
+        return cand, torch.zeros(cand.shape[0], dtype=torch.bool,
+                                 device=cand.device)
+    cut = torch.isfinite(cand_lb).sum(dim=1) > visit_cap
+    return cand[:, :visit_cap], cut
 
 
-def _live_candidates(cand, overflow):
-    """(any tile overflowed, candidate columns any tile uses): one host
-    fetch. The frontier's candidates are an lb-ascending prefix with -1
-    padding after it, so the columns past the longest prefix hold only
-    padding, and folding them changes nothing."""
+def _live_candidates(cand, overflow, cut):
+    """(any tile overflowed, candidate columns any tile uses, any tile
+    truncated): one host fetch. The frontier's candidates are an
+    lb-ascending prefix with -1 padding after it, so the columns past the
+    longest prefix hold only padding, and folding them changes nothing."""
     flags = torch.stack([overflow.any().to(torch.int64),
-                         (cand >= 0).sum(dim=1).max().to(torch.int64)])
-    ovf, ncand = flags.cpu().tolist()
-    return bool(ovf), int(ncand)
+                         (cand >= 0).sum(dim=1).max().to(torch.int64),
+                         cut.any().to(torch.int64)])
+    ovf, ncand, trunc = flags.cpu().tolist()
+    return bool(ovf), int(ncand), bool(trunc)
 
 
 def _chunk_width(tree: MortonTree, T: int, TQ: int, ncand: int) -> int:
@@ -189,21 +200,23 @@ def _chunk_width(tree: MortonTree, T: int, TQ: int, ncand: int) -> int:
 
 
 def _radius_tiles(tree: MortonTree, tq, r2, cap: int, m: int,
-                  count_only: bool, skip_fold_on_overflow: bool):
+                  visit_cap: Optional[int], count_only: bool,
+                  skip_fold_on_overflow: bool):
     """Radius over tiles: tq f32[T, TQ, D], r2 f32[T, TQ] (negative =
     padding row, never hits). Returns (counts i32[T, TQ], best_d
-    f32[T, TQ, m], best_i i32[T, TQ, m], frontier overflow); the fold is
-    skipped (counts None) when the frontier overflowed and the caller
-    will retry."""
+    f32[T, TQ, m], best_i i32[T, TQ, m], frontier overflow, truncated);
+    the fold is skipped (counts None) when the frontier overflowed and
+    the caller will retry."""
     T, TQ, D = tq.shape
     box_lo = tq.amin(dim=1)
     box_hi = tq.amax(dim=1)
     bound = r2.amax(dim=1)  # covers every query the tile holds
     with record_function("verbs.frontier"):
-        cand, _, overflow = _frontier(tree, box_lo, box_hi, bound, cap)
-        ovf, ncand = _live_candidates(cand, overflow)
+        cand, cand_lb, overflow = _frontier(tree, box_lo, box_hi, bound, cap)
+        cand, cut = _truncate(cand, cand_lb, visit_cap)
+        ovf, ncand, trunc = _live_candidates(cand, overflow, cut)
     if ovf and skip_fold_on_overflow:
-        return None, None, None, True
+        return None, None, None, True, trunc
     dev = tq.device
     counts = torch.zeros((T, TQ), dtype=torch.int32, device=dev)
     width = 0 if count_only else m
@@ -229,25 +242,27 @@ def _radius_tiles(tree: MortonTree, tq, r2, cap: int, m: int,
                     best_d = srt[..., :m]
                     best_i = torch.gather(all_i, -1, order[..., :m])
         best_i = torch.where(torch.isfinite(best_d), best_i, -1)
-    return counts, best_d, best_i, ovf
+    return counts, best_d, best_i, ovf, trunc
 
 
 def _range_tiles(tree: MortonTree, qlo, qhi, cap: int, m: int,
-                 count_only: bool, skip_fold_on_overflow: bool):
+                 visit_cap: Optional[int], count_only: bool,
+                 skip_fold_on_overflow: bool):
     """Box containment over tiles: qlo/qhi f32[T, TQ, D] per-query boxes
     (padding rows carry the empty box lo=+inf/hi=-inf). The tile box is
     the UNION of its query boxes; bound 0 keeps exactly the nodes not
     disjoint from it. Returns (counts, best_i i32[T, TQ, m] ascending,
-    frontier overflow)."""
+    frontier overflow, truncated)."""
     T, TQ, D = qlo.shape
     box_lo = qlo.amin(dim=1)
     box_hi = qhi.amax(dim=1)
     bound = torch.zeros(T, dtype=torch.float32, device=qlo.device)
     with record_function("verbs.frontier"):
-        cand, _, overflow = _frontier(tree, box_lo, box_hi, bound, cap)
-        ovf, ncand = _live_candidates(cand, overflow)
+        cand, cand_lb, overflow = _frontier(tree, box_lo, box_hi, bound, cap)
+        cand, cut = _truncate(cand, cand_lb, visit_cap)
+        ovf, ncand, trunc = _live_candidates(cand, overflow, cut)
     if ovf and skip_fold_on_overflow:
-        return None, None, True
+        return None, None, True, trunc
     dev = qlo.device
     counts = torch.zeros((T, TQ), dtype=torch.int32, device=dev)
     width = 0 if count_only else m
@@ -274,7 +289,7 @@ def _range_tiles(tree: MortonTree, qlo, qhi, cap: int, m: int,
                     all_i = torch.cat([best_i, key], dim=-1)
                     best_i = torch.sort(all_i, dim=-1).values[..., :m]
         best_i = torch.where(best_i == int(_ID_INF), -1, best_i)
-    return counts, best_i, ovf
+    return counts, best_i, ovf, trunc
 
 
 def _tile_for(q: int) -> int:
@@ -316,9 +331,10 @@ def radius_search(
     or per-query [Q] array. ``with_ids=False`` is the count verb:
     per-query cardinalities only, no id buffers anywhere. ``cap`` and
     ``max_hits`` set the starting capacities (both double on overflow).
-    Zero queries answer the oracle's empty result.
+    ``visit_cap`` truncates each tile's lb-ascending candidate list; the
+    answer is then a flagged lower bound (``truncated``). Zero queries
+    answer the oracle's empty result.
     """
-    _check_visit_cap(visit_cap)
     queries = _host_rows(queries)
     Q, D = queries.shape
     if Q == 0:
@@ -326,7 +342,7 @@ def radius_search(
     r = np.broadcast_to(np.asarray(r, dtype=np.float32), (Q,))
     r2 = (r * r).astype(np.float32)
     parts = [
-        _radius_slice(tree, queries[s:e], r2[s:e], with_ids, cap,
+        _radius_slice(tree, queries[s:e], r2[s:e], visit_cap, with_ids, cap,
                       max_hits)
         for s, e in _slices(Q)
     ]
@@ -340,7 +356,7 @@ def _start_caps(tree, cap, max_hits):
     return c, m
 
 
-def _radius_slice(tree, queries, r2, with_ids, cap,
+def _radius_slice(tree, queries, r2, visit_cap, with_ids, cap,
                   max_hits) -> VerbResult:
     Q, D = queries.shape
     dev = tree.device
@@ -358,9 +374,12 @@ def _radius_slice(tree, queries, r2, with_ids, cap,
     c, m = _start_caps(tree, cap, max_hits)
     retries = 0
     while True:
-        can_grow = c < _cap_ceiling(tree)
-        counts, bd, bi, ovf = _radius_tiles(
-            tree, tq, r2s, c, m if with_ids else 0, not with_ids, can_grow)
+        # under a visit cap the frontier's beam is what gets truncated:
+        # no overflow retry (the reference's rule)
+        can_grow = visit_cap is None and c < _cap_ceiling(tree)
+        counts, bd, bi, ovf, truncated = _radius_tiles(
+            tree, tq, r2s, c, m if with_ids else 0, visit_cap, not with_ids,
+            can_grow)
         if ovf and can_grow:
             c = min(c * 2, _cap_ceiling(tree))
             retries += 1
@@ -376,7 +395,7 @@ def _radius_slice(tree, queries, r2, with_ids, cap,
     counts_out = np.zeros(Q + qpad, np.int64)
     counts_out[order_h] = counts_h
     if not with_ids:
-        return VerbResult(counts_out[:Q], None, None, False, retries)
+        return VerbResult(counts_out[:Q], None, None, truncated, retries)
     d2s = bd.cpu().numpy().reshape(len(order_h), -1)
     idss = bi.cpu().numpy().reshape(len(order_h), -1)
     d2_out = np.empty_like(d2s)
@@ -384,7 +403,7 @@ def _radius_slice(tree, queries, r2, with_ids, cap,
     d2_out[order_h] = d2s
     ids_out[order_h] = idss
     d2c, idc = canonical_radius_rows(d2_out[:Q], ids_out[:Q])
-    return VerbResult(counts_out[:Q], d2c, idc, False, retries)
+    return VerbResult(counts_out[:Q], d2c, idc, truncated, retries)
 
 
 def range_search(
@@ -401,22 +420,21 @@ def range_search(
     (inclusive on both faces), on the tree's device. Boxes where lo > hi
     on any axis are legitimately empty. Returns ids ascending per query
     (containment has no distances); ``with_ids=False`` is the count
-    form."""
-    _check_visit_cap(visit_cap)
+    form. ``visit_cap`` as in :func:`radius_search`."""
     box_lo = _host_rows(box_lo)
     box_hi = _host_rows(box_hi)
     Q, D = box_lo.shape
     if Q == 0:
         return _empty(with_ids, False)
     parts = [
-        _range_slice(tree, box_lo[s:e], box_hi[s:e], with_ids, cap,
-                     max_hits)
+        _range_slice(tree, box_lo[s:e], box_hi[s:e], visit_cap, with_ids,
+                     cap, max_hits)
         for s, e in _slices(Q)
     ]
     return _concat_results(parts, with_dists=False)
 
 
-def _range_slice(tree, box_lo, box_hi, with_ids, cap,
+def _range_slice(tree, box_lo, box_hi, visit_cap, with_ids, cap,
                  max_hits) -> VerbResult:
     Q, D = box_lo.shape
     dev = tree.device
@@ -435,10 +453,10 @@ def _range_slice(tree, box_lo, box_hi, with_ids, cap,
     c, m = _start_caps(tree, cap, max_hits)
     retries = 0
     while True:
-        can_grow = c < _cap_ceiling(tree)
-        counts, bi, ovf = _range_tiles(tree, qlo, qhi, c,
-                                       m if with_ids else 0, not with_ids,
-                                       can_grow)
+        can_grow = visit_cap is None and c < _cap_ceiling(tree)
+        counts, bi, ovf, truncated = _range_tiles(
+            tree, qlo, qhi, c, m if with_ids else 0, visit_cap, not with_ids,
+            can_grow)
         if ovf and can_grow:
             c = min(c * 2, _cap_ceiling(tree))
             retries += 1
@@ -451,9 +469,9 @@ def _range_slice(tree, box_lo, box_hi, with_ids, cap,
         break
     counts_out = counts_h[:Q].astype(np.int64)
     if not with_ids:
-        return VerbResult(counts_out, None, None, False, retries)
+        return VerbResult(counts_out, None, None, truncated, retries)
     ids = bi.cpu().numpy().reshape(len(counts_h), -1)[:Q]
-    return VerbResult(counts_out, None, canonical_range_rows(ids), False,
+    return VerbResult(counts_out, None, canonical_range_rows(ids), truncated,
                       retries)
 
 

@@ -21,6 +21,7 @@ from kdtree_tpu.utils import cli as jcli
 from kdtree_tpu_torch import native
 from kdtree_tpu_torch.utils import checkpoint as tckpt
 from kdtree_tpu_torch.utils import cli as tcli
+from torch_plan_store import isolated_torch_plan_store  # noqa: F401
 
 # small tensors: one intra-op thread leaves the cores to the other test
 # workers running beside this file
@@ -287,10 +288,85 @@ def test_serve_subprocess_answers_like_the_reference_and_drains():
 
 
 @pytest.mark.parametrize("flags, code", [
-    (["--snapshot", "snapdir"], 1), (["--recall-sample", "0.1"], 2), (["--no-ladder"], 2),
+    (["--snapshot", "snapdir"], 1),
+    (["--recall-sample", "0.1", "--index", "a.npz", "--points", "b.npy"], 1),
+    (["--no-ladder", "--index", "missing.npz"], 1),
     (["--index", "a.npz", "--points", "b.npy"], 1), (["--index", "missing.npz"], 1),
 ])
 def test_serve_flags_not_ported_or_conflicting(flags, code):
     c, out, err = _port(["serve", "--port", "0", *flags])
     assert c == code and out == ""
     assert ("unrecognized arguments" in err) == (code == 2)
+
+
+def _json_line(out):
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def test_recall_cli_matches_reference(tmp_path, monkeypatch):
+    """The recall harness: the same curve (caps and recall; the timings
+    are the machine's), the same calibration persisted, the same stdout
+    keys."""
+    monkeypatch.setenv("KDTREE_TPU_PLAN_CACHE", str(tmp_path / "ref-plans"))
+    monkeypatch.setenv("KDTREE_TPU_TORCH_PLAN_CACHE", str(tmp_path / "port-plans"))
+    argv = ["--generator", "threefry", "recall", "--seed", "5", "--n", "8000",
+            "--q", "512", "--k", "4", "--caps", "2,8,16,32"]
+    rc, rout, rerr = _ref(argv + ["--out", str(tmp_path / "ref.json")])
+    tc, tout, terr = _port(argv + ["--out", str(tmp_path / "port.json")])
+    assert rc == tc == 0, (rerr[-800:], terr[-800:])
+    rj, tj = _json_line(rout), _json_line(tout)
+    assert set(rj) == set(tj) and tj["persisted"] and rj["persisted"]
+    for key in ("caps", "calibration", "persisted"):
+        assert tj[key] == rj[key], key
+    rrep = json.loads((tmp_path / "ref.json").read_text())
+    trep = json.loads((tmp_path / "port.json").read_text())
+    assert trep["calibration"] == rrep["calibration"]
+    cols = ("visit_cap", "recall")
+    assert [[r[c] for c in cols] for r in trep["recall"]["curve"]] == \
+        [[r[c] for c in cols] for r in rrep["recall"]["curve"]]
+    head = [ln for ln in terr.splitlines() if ln.startswith("recall sweep:")]
+    assert head and head == [ln for ln in rerr.splitlines() if ln.startswith("recall sweep:")]
+
+    def caps_and_recall(err):
+        return [ln.split()[:2] for ln in err.splitlines() if ln.startswith("  cap=")]
+
+    assert caps_and_recall(terr) == caps_and_recall(rerr) and len(caps_and_recall(terr)) == 4
+    # the calibration resolves at a serving bucket of the port's store
+    from kdtree_tpu_torch import tuning
+    from kdtree_tpu_torch.ops.morton import DEFAULT_BUCKET
+
+    sig = tuning.make_signature(8, 3, 8000, 4, DEFAULT_BUCKET, 32, backend="cpu")
+    assert tuning.profile_for(sig)["recall_caps"] == tj["calibration"]
+
+
+def test_tune_cli_matches_reference(tmp_path, monkeypatch):
+    """``tune``: the same sweep shape and the same persisted profile name;
+    which candidate wins is a timing, the machine's."""
+    monkeypatch.setenv("KDTREE_TPU_PLAN_CACHE", str(tmp_path / "ref-plans"))
+    monkeypatch.setenv("KDTREE_TPU_TORCH_PLAN_CACHE", str(tmp_path / "port-plans"))
+    argv = ["--generator", "threefry", "tune", "--seed", "5", "--n", "8000",
+            "--q", "1024", "--k", "4", "--tiles", "64,128", "--cmax", "32",
+            "--scan-v", "1", "--scan-tb", "2"]
+    rc, rout, rerr = _ref(argv)
+    tc, tout, terr = _port(argv)
+    assert rc == tc == 0, (rerr[-800:], terr[-800:])
+    rj, tj = _json_line(rout), _json_line(tout)
+    assert set(rj) == set(tj) and set(rj["winner"]) == set(tj["winner"])
+    for key in ("persisted", "candidates", "block_candidates"):
+        assert tj[key] == rj[key], key
+    assert tj["persisted"] and tj["candidates"] == 3
+    assert Path(tj["path"]).name == Path(rj["path"]).name
+    assert Path(tj["path"]).parent == tmp_path / "port-plans"
+    head = [ln for ln in terr.splitlines() if ln.startswith("sweeping tiled plans:")]
+    assert head and head == [ln for ln in rerr.splitlines()
+                             if ln.startswith("sweeping tiled plans:")]
+    # the next automatic plan of the tuned shape is warm
+    from kdtree_tpu_torch.ops import tile_query as tq
+    from kdtree_tpu_torch.ops.morton import DEFAULT_BUCKET
+
+    plan = tq.plan_tiled(1024, 3, 8000, 32, DEFAULT_BUCKET, 4, device="cpu")
+    assert plan.source == "warm" and plan.tile == tj["winner"]["tile"]
+    # a disabled store has nowhere to put a winner
+    monkeypatch.setenv("KDTREE_TPU_TORCH_PLAN_CACHE", "off")
+    code, out, err = _port(argv)
+    assert code == 1 and out == "" and "plan store is disabled" in err

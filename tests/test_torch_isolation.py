@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import kdtree_tpu_torch
+from torch_plan_store import isolated_torch_plan_store  # noqa: F401
 
 # small tensors: one intra-op thread leaves the cores to the other test
 # workers running beside this file
@@ -55,7 +56,8 @@ def test_every_module_imports_without_jax_or_the_reference():
     mods = _modules()
     assert "kdtree_tpu_torch.kernels.scan_knn" in mods and len(mods) >= 12
     for sub in ("snapshot.store", "snapshot.follower", "verbs.device", "verbs.oracle",
-                "verbs.wire", "tuning.store"):
+                "verbs.wire", "tuning.store", "tuning.feedback", "tuning.tuner",
+                "approx.search", "approx.recall", "approx.ladder"):
         assert f"kdtree_tpu_torch.{sub}" in mods, sub
     code = (
         "import importlib, sys\n"
@@ -76,6 +78,10 @@ def test_public_surface_resolves_lazily():
                "assert callable(k.morton_knn_tiled) and callable(k.build_morton)\n"
                "assert callable(k.morton_knn) and callable(k.save_tree)\n"
                "assert 'kdtree_tpu_torch.utils.cli' not in sys.modules\n"
+               "assert 'kdtree_tpu_torch.approx' not in sys.modules\n"
+               "assert callable(k.morton_knn_approx) and callable(k.sweep_recall)\n"
+               "assert k.approx.DegradationLadder is k.DegradationLadder\n"
+               "assert callable(k.tuning.lookup) and callable(k.resolve_visit_cap)\n"
                "assert k.bruteforce.knn\n")
     assert out.returncode == 0, out.stderr
 

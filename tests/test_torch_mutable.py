@@ -28,6 +28,7 @@ from kdtree_tpu_torch.obs import flight as tflight
 from kdtree_tpu_torch.obs.registry import get_registry
 from kdtree_tpu_torch.ops.morton import build_morton, morton_view
 from kdtree_tpu_torch.serve.engine import ServeEngine
+from torch_plan_store import isolated_torch_plan_store  # noqa: F401
 
 # small tensors: one intra-op thread leaves the cores to the other test
 # workers running beside this file

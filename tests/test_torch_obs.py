@@ -25,6 +25,7 @@ from kdtree_tpu_torch.obs import flight as tflight
 from kdtree_tpu_torch.obs import history as thist
 from kdtree_tpu_torch.obs import registry as treg
 from kdtree_tpu_torch.obs import slo as tslo
+from torch_plan_store import isolated_torch_plan_store  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -2,9 +2,10 @@
 the same seeded points: the same requests get byte-identical k / ids /
 distances / degraded answers (concurrent clients, per-request k,
 oversized, an expired deadline, id_offset, writes over HTTP), the same
-4xx / 429 / 403 answers, the same /healthz keys, a drained shutdown, and
-501s for what the port does not serve yet (recall_target on k-NN and the
-verbs, the profiling endpoints)."""
+4xx / 429 / 403 answers, the same /healthz keys, a drained shutdown, the
+same approximate answers under a recall_target on k-NN and the verbs,
+and 501s for what the port does not serve yet (the profiling
+endpoints)."""
 
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from kdtree_tpu_torch.obs import flight as tflight
 from kdtree_tpu_torch.serve import engine as tlife
 from kdtree_tpu_torch.serve import faults as tfaults
 from kdtree_tpu_torch.serve import server as tsrv
+from torch_plan_store import isolated_torch_plan_store  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -219,10 +221,26 @@ def test_fault_drill_matches():
 
 
 @pytest.mark.parametrize("path,body", [
-    ("/v1/radius", {"queries": [[0.0, 0.0, 0.0]], "r": 1.0, "recall_target": 0.9}),
-    ("/v1/range", {"lo": [[0.0, 0.0, 0.0]], "hi": [[1.0, 1.0, 1.0]], "recall_target": 0.9}),
-    ("/v1/count", {"queries": [[0.0, 0.0, 0.0]], "r": 1.0, "recall_target": 0.9}),
-    ("/v1/knn", {"queries": [[0.0, 0.0, 0.0]], "recall_target": 0.9}),
+    ("/v1/radius", {"queries": queries(5, 71).tolist(), "r": 30.0, "recall_target": 0.9}),
+    ("/v1/range", {"lo": (queries(5, 72) - 20).tolist(),
+                   "hi": (queries(5, 72) + 20).tolist(), "recall_target": 0.5}),
+    ("/v1/count", {"queries": queries(5, 73).tolist(), "r": 40.0, "recall_target": 0.9}),
+    ("/v1/knn", {"queries": queries(7, 74).tolist(), "recall_target": 0.5}),
+])
+def test_recall_target_answers_byte_identical(servers, path, body):
+    """The recall dial over HTTP, uncalibrated on both sides (the
+    heuristic caps): the same answer bytes, the same gear echo, and
+    degraded stays null — a client-requested approximation is a kept
+    contract."""
+    (sj, _, rj), (st, _, rt) = both(servers, "POST", path, body)
+    assert sj == st == 200, (rj, rt)
+    for r in (rj, rt):
+        r.pop("trace_id", None)
+    assert rt == rj
+    assert rt["gear"] == f"approx:{body['recall_target']:g}" and rt["degraded"] is None
+
+
+@pytest.mark.parametrize("path,body", [
     ("/debug/profile", {}),
 ])
 def test_unported_endpoints_answer_501_and_keep_the_connection(servers, path, body):

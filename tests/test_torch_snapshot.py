@@ -43,6 +43,7 @@ from kdtree_tpu_torch.serve import engine as tlife
 from kdtree_tpu_torch.serve import server as tsrv
 from kdtree_tpu_torch.snapshot import SnapshotFollower
 from kdtree_tpu_torch.tuning.store import PlanSignature, default_store, make_signature
+from torch_plan_store import isolated_torch_plan_store  # noqa: F401
 
 torch.set_num_threads(1)
 

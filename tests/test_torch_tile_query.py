@@ -18,6 +18,7 @@ from kdtree_tpu_torch.interop import tree_from_arrays
 from kdtree_tpu_torch.kernels import scan_knn as tkernel
 from kdtree_tpu_torch.ops import bruteforce as tbf
 from kdtree_tpu_torch.ops import tile_query as ttq
+from torch_plan_store import isolated_torch_plan_store  # noqa: F401
 
 # small tensors: one intra-op thread leaves the cores to the other test
 # workers running beside this file

@@ -36,6 +36,7 @@ from kdtree_tpu_torch.serve import engine as tlife
 from kdtree_tpu_torch.serve import server as tsrv
 from kdtree_tpu_torch.verbs import device as tv
 from kdtree_tpu_torch.verbs import oracle as tvo
+from torch_plan_store import isolated_torch_plan_store  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -200,14 +201,6 @@ def test_points_exactly_at_radius():
     assert not {n0, n0 + 1, n0 + 4} & hits[2]  # one ulp inside r = 5
     for j, e in enumerate(exact):
         assert n0 + len(shell) + j in hits[3 + j]
-
-
-def test_visit_cap_raises_naming_item_12():
-    _, tt, pts = _trees(SEED, DIM, 256)
-    for call in (lambda: tv.radius_search(tt, pts[:2], 1.0, visit_cap=1),
-                 lambda: tv.range_search(tt, pts[:2], pts[:2], visit_cap=1)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            call()
 
 
 def test_mutable_interleavings_vs_rebuild_oracle():
@@ -377,15 +370,6 @@ def test_oversized_verb_request_goes_to_the_oracle_alike(servers, cloud):
 def test_verb_rejections_byte_identical(servers, path, payload):
     st, body = _both(servers, path, payload, raw="not json" if payload is None else None)
     assert st == 400 and body["error"]
-
-
-def test_verb_recall_target_answers_501_naming_item_12(servers):
-    for path, payload in (("/v1/radius", {"queries": [[0.0] * 3], "r": 1.0}),
-                          ("/v1/count", {"lo": [[0.0] * 3], "hi": [[1.0] * 3]})):
-        st, body = _post(servers[1], path, dict(payload, recall_target=0.5))
-        assert st == 501 and "item 12" in body["error"]
-        # absent or null is the exact path
-        _both(servers, path, dict(payload, recall_target=None))
 
 
 def test_server_verbs_with_mutation_interleaved(cloud):
