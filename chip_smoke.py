@@ -124,6 +124,29 @@ Phases, one line each (any failure raises and exits non-zero):
              and the scan-kernel launches over the approximate requests
              (> 0); (d) ``tune`` on a 2^16-query sample with small grids,
              its winner, and the next plan_tiled "warm" with exact answers.
+10. classic — the classic median-split trees on phase 4's points:
+             build_jit and build_bucket (B=128, sort) at 2^24 x 3-D, timed
+             (first call with the host TreeSpec, then warm), and
+             validate_invariants; at 2^20 (cut so the CPU builds stay
+             short) build_presort and the bucket presort bit-identical to
+             their sort builds and the card's builds bit-identical to the
+             CPU's; nearest_neighbor on the headline's 10 queries, knn
+             k=16 on 4,096 of the sparse lane's queries and bucket_knn
+             k=16 on all 65,536, each with its wall s, DFS steps and
+             device launches per step, and a sample exact against the
+             brute-force oracle in the engine's arithmetic (a tree node's
+             squares rounded in XLA:CPU's vector lanes); then, with both
+             kernels' launch counts zeroed just before and read just
+             after, ``build --engine tree|bucket --out`` at 2^20 and
+             ``query --queries`` with 2^16 dense rows through the tree's
+             Morton view (scan kernel launches > 0; afterwards the kernel
+             against the plain scan at each run's final collect dispatch,
+             timed beside its bound), ``serve --index`` on the classic
+             checkpoint answering /v1/knn at 1 and 64 rows against the
+             oracle, ``harness --engine bucket`` on both golden
+             configurations (stdout byte-equal to tests/golden/), and
+             ``harness --engine tree`` at 2^20 x 3-D byte-equal to the
+             bruteforce engine's stdout.
 
 Every phase runs on a plan store of this run's own (a temporary
 directory). The last lines are the kernels' JSON record, the nvidia-smi line, and
@@ -177,6 +200,11 @@ WIDE_SAMPLE = 256
 RECALL_Q = 1 << 16  # phase 9b's sweep sample
 RECALL_ROWS = (1, 64, 1000)
 TUNE_Q = 1 << 16
+CLASSIC_CUT_N = 1 << 20  # phase 10's equality builds (sort vs presort, card vs CPU)
+CLASSIC_BUCKET = 128  # the bucketed tree's default cap
+CLASSIC_KNN_Q = 4096  # phase 10's classic knn lane: the first of the sparse lane's queries
+CLASSIC_SAMPLE = 256  # rows of each phase 10 lane held against the brute-force oracle
+CLASSIC_HARNESS_N = 1 << 20  # phase 10's 3-D `harness --engine tree` configuration
 
 
 def say(phase: str, msg: str) -> None:
@@ -205,19 +233,57 @@ def _sync(dev) -> None:
         torch.cuda.synchronize()
 
 
-def check_answer(points, queries, d2, ids, k, what, want=None):
+def form_d2(q, pts, rounded):
+    """Squared distances from rows ``q`` [Q, D] to ``pts`` [Q, M, D] as the
+    classic and bucketed DFS compute them in XLA:CPU's vector lanes
+    (``_arith.sq_dist_rows``): each square rounded and added in order for
+    the points where ``rounded`` [Q, M] holds, the FMA chain elsewhere."""
+    import torch
+
+    from kdtree_tpu_torch.ops._arith import sq_dist, sq_sum_windows
+
+    diff = q[:, None, :] - pts
+    return torch.where(rounded, sq_sum_windows(diff * diff), sq_dist(q[:, None, :], pts))
+
+
+def form_oracle(points, queries, k, rounded):
+    """Brute-force k-NN with each point's distance in :func:`form_d2`'s
+    form (``rounded`` bool[N] per point), ties to the lower id."""
+    import torch
+
+    from kdtree_tpu_torch.ops import bruteforce as bf
+
+    n, d = points.shape
+    Q = queries.shape[0]
+    tile = max(bf._TILE_ELEMS // (Q * d), k)
+    best = None
+    for base in range(0, n, tile):
+        pt = points[base: base + tile]
+        t = pt.shape[0]
+        d2 = form_d2(queries, pt[None].expand(Q, t, d),
+                     rounded[base: base + tile][None].expand(Q, t))
+        idx = torch.arange(base, base + t, dtype=torch.int64, device=points.device)
+        cand = bf._smallest(bf._keys(d2, idx[None, :].expand(Q, t)), min(k, t))
+        best = cand if best is None else bf._smallest(torch.cat([best, cand], 1), k)
+    return bf._unkey(best)
+
+
+def check_answer(points, queries, d2, ids, k, what, want=None, rounded=None):
     """d2 must equal the brute-force oracle's bit for bit; ids must equal
     its ids wherever the distance is not tied with a neighbouring rank,
     and every returned id must reproduce its distance (so ties may pick
     either of the equal points, never a wrong one). ``want`` = (d2, ids)
-    of another exact engine takes the oracle's place."""
+    of another exact engine takes the oracle's place; ``rounded`` (bool
+    per point) makes the oracle and the check :func:`form_oracle`'s."""
     import torch
 
     from kdtree_tpu_torch.ops import bruteforce
     from kdtree_tpu_torch.ops._arith import sq_dist
 
     q = torch.as_tensor(queries, device=points.device)
-    if want is None:
+    if want is None and rounded is not None:
+        od, oi = form_oracle(points, q, k, rounded)
+    elif want is None:
         od, oi = bruteforce.knn(points, q, k=k)
     else:
         od, oi = (torch.as_tensor(w, device=points.device) for w in want)
@@ -230,7 +296,10 @@ def check_answer(points, queries, d2, ids, k, what, want=None):
     tied[:, 1:] |= od[:, 1:] == od[:, :-1]
     tied[:, :-1] |= od[:, :-1] == od[:, 1:]
     assert torch.equal(ids[~tied], oi[~tied]), f"{what}: ids differ"
-    again = sq_dist(q[:, None, :], points[ids.long()])
+    if rounded is None:
+        again = sq_dist(q[:, None, :], points[ids.long()])
+    else:
+        again = form_d2(q, points[ids.long()], rounded[ids.long()])
     assert torch.equal(again, d2), f"{what}: ids do not reproduce d2"
     assert (ids.sort(dim=1).values.diff(dim=1) != 0).all(), f"{what}: dup ids"
     return int(tied.sum())
@@ -591,7 +660,7 @@ def serve_profile(engine, served):
     return lines
 
 
-def tiled_dispatch(name, tree, queries, plain_v):
+def tiled_dispatch(name, tree, queries, plain_v, plain_reps=0):
     """The kernels at the final collect dispatch that ``morton_knn_tiled``
     plans for ``queries`` on ``tree`` (one batch; the cap grown until the
     frontier holds, as its overflow retries do), through ``time_shape``."""
@@ -605,21 +674,23 @@ def tiled_dispatch(name, tree, queries, plain_v):
     s, _ = tqm._sort_queries(queries, p.bits, (-Q) % p.qbatch)
     stq = s.reshape(-1, p.tile, DIM).contiguous()
     c, l = collect_inputs(tree, stq, kk, p.seeds, p.cmax, grow=True)
-    return time_shape(name, tree, stq, c, l, kk, plain_v, 20)
+    return time_shape(name, tree, stq, c, l, kk, plain_v, 20, plain_reps)
 
 
-def dfs_launches_per_step(tree, queries, want):
+def dfs_launches_per_step(run, mod, want):
     """Device launches (kernels, copies, fills) of one DFS step on the
     card: torch.profiler over one extra eager round of the engine's steps,
     run just before the engine captures its round as a CUDA graph, divided
-    by the steps of a round. An extra round is a valid schedule (each lane
-    goes on with its own pops), so the answer must still equal ``want``.
-    Returns (launches per step or None, note)."""
+    by the steps of a round. ``run()`` answers the query through a DFS
+    engine whose module ``mod`` calls ``_round_runner`` (the Morton, the
+    classic or the bucketed DFS). An extra round is a valid schedule (each
+    lane goes on with its own pops), so the answer must still equal
+    ``want``. Returns (launches per step or None, note)."""
     import torch
 
     import kdtree_tpu_torch.ops.morton as morton_mod
 
-    original = morton_mod._round_runner
+    original = mod._round_runner
     seen = []
 
     def counted(steps, dev, st):
@@ -638,11 +709,11 @@ def dfs_launches_per_step(tree, queries, want):
             seen.append((n, why))
         return original(steps, dev, st)
 
-    morton_mod._round_runner = counted
+    mod._round_runner = counted
     try:
-        d, i = morton_mod.morton_knn(tree, queries, k=K)
+        d, i = run()
     finally:
-        morton_mod._round_runner = original
+        mod._round_runner = original
     assert torch.equal(d, want[0]) and torch.equal(i, want[1]), \
         "an extra DFS round changed the answer"
     n, why = seen[0]
@@ -707,6 +778,7 @@ def phase_cli(dev, points, tree, here, round_sweep=False):
     import torch
 
     import kdtree_tpu_torch.kernels.scan_knn as scan_mod
+    import kdtree_tpu_torch.ops.morton as morton_mod
     from kdtree_tpu_torch import native
     from kdtree_tpu_torch.ops import bruteforce
     from kdtree_tpu_torch.ops import tile_query as tqm
@@ -849,7 +921,8 @@ def phase_cli(dev, points, tree, here, round_sweep=False):
     # two tiled dispatches phase 6 ran, and the launches of one DFS step
     tiled_dispatch(f"sparse lane tiled ({SPARSE_Q} queries, {N_POINTS} points)", tree, qs, 8)
     tiled_dispatch(f"query --queries ({CLI_DENSE_Q} rows, {CLI_BUILD_N} points)", ctree, dq, 1)
-    per_step, note = dfs_launches_per_step(tree, qs[:4096], (sd[:4096], si[:4096]))
+    per_step, note = dfs_launches_per_step(lambda: morton_knn(tree, qs[:4096], k=K),
+                                           morton_mod, (sd[:4096], si[:4096]))
     lines.append("DFS device launches per step: "
                  + (f"{per_step:.2f} ({note}; torch.profiler)" if per_step is not None
                     else f"not measured (profiler: {note})"))
@@ -2002,6 +2075,250 @@ def phase_recall(dev, points, tree, smi):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _timed(dev, fn):
+    """(result, wall s) of ``fn()`` with the card synchronized around it."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def _dfs_lane(dev, name, run, mod, points, queries, k, rounded, profile_rows=None):
+    """One DFS query lane of phase 10: ``run(stats)`` timed (wall s) with
+    its steps and host syncs, its first CLASSIC_SAMPLE rows held against
+    the oracle in the engine's arithmetic, and the device launches of one
+    step (``run(None)`` answers the first ``profile_rows`` rows)."""
+    from kdtree_tpu_torch.ops.morton import DfsStats
+
+    st = DfsStats()
+    (d2, ids), wall = _timed(dev, lambda: run(st))
+    n = min(CLASSIC_SAMPLE, queries.shape[0])
+    ties = check_answer(points, queries[:n], d2[:n].reshape(n, -1), ids[:n].reshape(n, -1), k,
+                        name, rounded=rounded)
+    line = (f"{name}: {wall:.4f} s ({queries.shape[0] / wall:.0f} q/s), {n}-row sample exact vs "
+            f"oracle ({ties} tied slots); {st.chunks} chunk(s), {st.steps} steps, "
+            f"{st.scans} scan rounds, {st.syncs} host syncs, {st.graphs} graph(s)")
+    if dev.type == "cuda":
+        r = profile_rows or queries.shape[0]
+        per_step, note = dfs_launches_per_step(lambda: run(None), mod, (d2[:r], ids[:r]))
+        line += ("; device launches per step: "
+                 + (f"{per_step:.2f} ({note}; torch.profiler)" if per_step is not None
+                    else f"not measured (profiler: {note})"))
+    return line
+
+
+def phase_classic(dev, points, here, smi):
+    """Phase 10: the classic median-split trees (see the module
+    docstring). Returns the lines to print and the scan and merge kernels'
+    launches over the CLI runs."""
+    import shutil
+    import signal
+
+    import torch
+
+    import kdtree_tpu_torch.kernels.scan_knn as scan_mod
+    import kdtree_tpu_torch.ops.bucket as bucket_mod
+    import kdtree_tpu_torch.ops.query as query_mod
+    from kdtree_tpu_torch import native
+    from kdtree_tpu_torch.ops import bruteforce
+    from kdtree_tpu_torch.ops.build import build_jit, validate_invariants
+    from kdtree_tpu_torch.ops.build_presort import build_presort
+    from kdtree_tpu_torch.ops.generate import generate_queries
+    from kdtree_tpu_torch.ops.morton import morton_view
+    from kdtree_tpu_torch.utils import cli
+    from kdtree_tpu_torch.utils.checkpoint import load_tree
+
+    on_card = dev.type == "cuda"
+    dev_args = [] if on_card else ["--device", str(dev)]
+    n = points.shape[0]
+    lines = []
+
+    # (a) the builds at full width on phase 4's points; the first classic
+    # build also computes the host-side TreeSpec (cached per N after)
+    ctree, c_first = _timed(dev, lambda: build_jit(points))
+    ctree, c_s = _timed(dev, lambda: build_jit(points))
+    btree, b_first = _timed(dev, lambda: bucket_mod.build_bucket(
+        points, bucket_cap=CLASSIC_BUCKET, strategy="sort"))
+    btree, b_s = _timed(dev, lambda: bucket_mod.build_bucket(
+        points, bucket_cap=CLASSIC_BUCKET, strategy="sort"))
+    _, val_s = _timed(dev, lambda: validate_invariants(ctree))
+    lines.append(f"build_jit at {n} x {DIM}: {c_s:.4f} s ({n / c_s:.0f} pts/s; first call "
+                 f"{c_first:.4f} s with the host TreeSpec), {ctree}; build_bucket B="
+                 f"{CLASSIC_BUCKET} sort: {b_s:.4f} s ({n / b_s:.0f} pts/s; first {b_first:.4f} s), "
+                 f"{btree}; validate_invariants (host numpy) {val_s:.2f} s: held")
+
+    # (b) at 2^20: presort == sort, and the card's builds == the CPU's
+    cut = points[:CLASSIC_CUT_N].contiguous()
+    cpu = cut.cpu()
+
+    def same(a, b, names, what):
+        for name in names:
+            x, y = getattr(a, name).cpu(), getattr(b, name).cpu()
+            assert torch.equal(x.view(torch.int32) if x.is_floating_point() else x,
+                               y.view(torch.int32) if y.is_floating_point() else y), \
+                f"{what}: {name} differs"
+
+    classic_names = ("node_point", "split_val")
+    bucket_names = ("node_coords", "node_gid", "node_bucket", "bucket_pts", "bucket_gid")
+    c20, c20_s = _timed(dev, lambda: build_jit(cut))
+    p20, p20_s = _timed(dev, lambda: build_presort(cut))
+    same(c20, p20, classic_names, "build_presort vs build_jit")
+    same(c20, build_jit(cpu, device="cpu"), classic_names, "build_jit card vs CPU")
+    b20, b20_s = _timed(dev, lambda: bucket_mod.build_bucket(cut, bucket_cap=CLASSIC_BUCKET))
+    bp20, bp20_s = _timed(dev, lambda: bucket_mod.build_bucket(
+        cut, bucket_cap=CLASSIC_BUCKET, strategy="presort"))
+    same(b20, bp20, bucket_names, "bucket presort vs sort")
+    same(b20, bucket_mod.build_bucket(cpu, bucket_cap=CLASSIC_BUCKET, device="cpu"),
+         bucket_names, "build_bucket card vs CPU")
+    validate_invariants(p20)
+    lines.append(f"at {CLASSIC_CUT_N} x {DIM}: build_jit {c20_s:.4f} s, build_presort "
+                 f"{p20_s:.4f} s (bit-identical), bucket sort {b20_s:.4f} s, presort "
+                 f"{bp20_s:.4f} s (bit-identical); both builds bit-identical to the same "
+                 "build on the CPU")
+    del c20, p20, b20, bp20, cpu
+
+    # (c) the query lanes, each exact against the oracle in its arithmetic:
+    # 10 lanes run as XLA:CPU's scalar tail (the FMA chain, bruteforce.knn's);
+    # 4,096 and the bucket's 16,384-lane chunks are vector lanes, where a
+    # tree node's point has its squares rounded
+    every = torch.ones(n, dtype=torch.bool, device=dev)
+    internal = torch.zeros(n, dtype=torch.bool, device=dev)
+    internal[btree.node_gid[btree.node_gid >= 0].long()] = True
+    hq = generate_queries(SEED, DIM, HEADLINE_QUERIES, device=dev)
+    sq = generate_queries(55, DIM, SPARSE_Q, device=dev)  # phase 6's sparse lane
+    kq = sq[:CLASSIC_KNN_Q].contiguous()
+    chunk = bucket_mod._CHUNK
+    query_mod.nearest_neighbor(ctree, generate_queries(999, DIM, HEADLINE_QUERIES, device=dev))
+    lines.append(_dfs_lane(
+        dev, f"nearest_neighbor, the headline's {HEADLINE_QUERIES} queries (seed {SEED})",
+        lambda st: query_mod.knn(ctree, hq, k=1, stats=st), query_mod, points, hq, 1, None))
+    lines.append(_dfs_lane(
+        dev, f"knn k={K}, {CLASSIC_KNN_Q} of the sparse lane's queries",
+        lambda st: query_mod.knn(ctree, kq, k=K, stats=st), query_mod, points, kq, K, every))
+    lines.append(_dfs_lane(
+        dev, f"bucket_knn k={K}, the sparse lane's {SPARSE_Q} queries",
+        lambda st: bucket_mod.bucket_knn(btree, sq if st is not None else sq[:chunk], k=K,
+                                         stats=st),
+        bucket_mod, points, sq, K, internal, profile_rows=chunk))
+    del ctree, btree, every, internal
+
+    # (d) the CLI, with both kernels' launch counts zeroed just before
+    work = here / "kdtree_tpu_torch" / "_build" / "chip_smoke_classic"  # git-ignored
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cpts, _ = native.generate_problem_mt19937(SEED, DIM, CLI_BUILD_N, HEADLINE_QUERIES)
+    cpts = torch.from_numpy(cpts).to(dev)
+    dq = generate_queries(77, DIM, CLI_DENSE_Q, device=dev)
+    qfile = work / "queries.npy"
+    np.save(qfile, dq.cpu().numpy())
+    scan_mod.scan_tiles.launches = 0
+    scan_mod.merge_partials.launches = 0
+    try:
+        for engine in ("tree", "bucket"):
+            ckpt = str(work / f"{engine}.npz")
+            _, build_s = _timed(dev, lambda: run_cli(
+                [*dev_args, "--engine", engine, "build", "--n", str(CLI_BUILD_N), "--out", ckpt]))
+            before = scan_mod.scan_tiles.launches
+            _, dense_s = _timed(dev, lambda: run_cli(
+                [*dev_args, "query", "--tree", ckpt, "--queries", str(qfile), "--k", str(K),
+                 "--out", str(work / "answer.npz")]))
+            raised = scan_mod.scan_tiles.launches - before
+            if on_card:
+                assert raised > 0, f"query --queries on a {engine} checkpoint did not launch " \
+                                   "the scan kernel"
+            with np.load(work / "answer.npz") as z:
+                ad, ai = z["d2"], z["ids"]
+            assert ad.shape == (CLI_DENSE_Q, K)
+            ties = check_answer(cpts, dq[:CLASSIC_SAMPLE], torch.from_numpy(ad[:CLASSIC_SAMPLE]),
+                                torch.from_numpy(ai[:CLASSIC_SAMPLE]), K,
+                                f"query --queries on {engine}")
+            lines.append(f"cli --engine {engine} build --out at {CLI_BUILD_N} x {DIM} "
+                         f"(mt19937) {build_s:.3f} s; query --queries {CLI_DENSE_Q} dense rows "
+                         f"k={K} {dense_s:.3f} s through the Morton view, {CLASSIC_SAMPLE}-row "
+                         f"sample exact vs oracle ({ties} tied slots), {raised} scan kernel "
+                         "launches")
+
+        # serve --index on the classic checkpoint, answering /v1/knn at 1 and 64 rows
+        cmd = [sys.executable, "-m", "kdtree_tpu_torch", *dev_args, "serve", "--index",
+               str(work / "tree.npz"), "--k", str(K), "--max-batch", "64", "--port", "0"]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=here, stderr=subprocess.PIPE,
+                                stdout=subprocess.DEVNULL, text=True)
+        try:
+            err, port = [], None
+            while port is None:
+                line = proc.stderr.readline()
+                if not line:
+                    raise AssertionError(f"serve exited {proc.wait()} before ready: "
+                                         f"{''.join(err)}")
+                err.append(line)
+                if line.startswith("ready:"):
+                    port = int(line.rsplit(" ", 1)[1])
+            ready_s = time.perf_counter() - t0
+            pool = generate_queries(SEED + 900, DIM, 65, device=dev).cpu().numpy()
+            ora = Oracle(cpts, pool)
+            ms = {}
+            for rows in (np.arange(1), np.arange(1, 65)):
+                t0 = time.perf_counter()
+                st, _, resp = _http(port, "POST", "/v1/knn",
+                                    {"queries": pool[rows].tolist(), "k": K})
+                ms[len(rows)] = (time.perf_counter() - t0) * 1e3
+                assert st == 200, (st, resp)
+                ora.check(rows, resp, K, f"serve --index classic, {len(rows)} rows")
+            proc.send_signal(signal.SIGTERM)
+            rest = proc.communicate(timeout=120)[1]
+            assert proc.returncode == 0 and "drained; bye" in rest, (proc.returncode, rest)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        lines.append(f"python -m kdtree_tpu_torch serve --index <classic npz>: ready in "
+                     f"{ready_s:.2f} s (the Morton view built at start), /v1/knn 1 row "
+                     f"{ms[1]:.2f} ms and 64 rows {ms[64]:.2f} ms, exact vs oracle; SIGTERM -> "
+                     "exit 0")
+
+        # the golden configurations with the bucketed tree, and a 3-D classic harness
+        for seed in GOLDEN_SEEDS:
+            want = (here / "tests" / "golden" / f"ref_seed{seed}_128d_500k.txt").read_text()
+            (out, _), wall = _timed(dev, lambda: run_cli(
+                [*dev_args, "--engine", "bucket", "harness", str(seed), str(cli.HARNESS_DIM),
+                 str(cli.HARNESS_NUM_POINTS)]))
+            assert out == want, f"bucket harness seed {seed}: stdout differs\n{out}"
+            lines.append(f"harness --engine bucket, golden seed {seed} ({cli.HARNESS_DIM}-D, "
+                         f"{cli.HARNESS_NUM_POINTS} points, mt19937): stdout byte-equal, "
+                         f"{wall:.2f} s")
+        spec = [str(SEED), str(DIM), str(CLASSIC_HARNESS_N)]
+        (tree_out, _), wall = _timed(dev, lambda: run_cli(
+            [*dev_args, "--engine", "tree", "harness", *spec]))
+        brute_out, _ = run_cli([*dev_args, "--engine", "bruteforce", "harness", *spec])
+        assert tree_out == brute_out and tree_out.count("DISTANCE") == HEADLINE_QUERIES, \
+            f"harness --engine tree differs from bruteforce\n{tree_out}\n{brute_out}"
+        lines.append(f"harness --engine tree {' '.join(spec)}: stdout byte-equal to "
+                     f"--engine bruteforce's, {wall:.2f} s")
+        launches = (scan_mod.scan_tiles.launches, scan_mod.merge_partials.launches)
+        lines.append(f"over phase 10's CLI runs scan_tiles.launches={launches[0]}, "
+                     f"merge_partials.launches={launches[1]}")
+
+        # outside the counted window: the kernels against the plain scan at
+        # the final collect dispatch of both query --queries runs
+        if on_card:
+            ct, _ = load_tree(str(work / "tree.npz"), device=dev)
+            bt, _ = load_tree(str(work / "bucket.npz"), device=dev)
+            for engine, view in (("tree", morton_view(points=ct.points)),
+                                 ("bucket", morton_view(**cli.bucket_view_inputs(bt)))):
+                rec = tiled_dispatch(f"query --queries on a {engine} checkpoint's Morton view "
+                                     f"({CLI_DENSE_Q} rows, {CLI_BUILD_N} points)", view, dq, 1,
+                                     plain_reps=1)
+                lines.append(f"scan kernel at that dispatch ({engine}): {rec['ms']:.4f} ms, "
+                             f"plain {rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.4f} ms "
+                             f"({rec['bound_by']}), bit-equal")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    lines = [f"{line} [{smi}]" if " s" in line or "ms" in line else line for line in lines]
+    return lines, launches
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     try:
@@ -2164,13 +2481,22 @@ def _run(argv, here, t_run) -> int:
     # 9. distances above 32 axes, the recall dial, the ladder and tune
     t0 = time.perf_counter()
     phase_recall(dev, points, tree, smi)
-    del points, tree, engine
+    del tree, engine  # phase 10 builds its trees on phase 4's points
     torch.cuda.empty_cache()
     wide_err = phase_wide(dev, smi)
     assert wide_err == 0.0, f"D > 32: kernel or tiled run differs by {wide_err}"
     max_err = max(max_err, wide_err)
     say("recall", f"phase 9 in {time.perf_counter() - t0:.1f} s; the whole run "
                   f"{time.perf_counter() - t_run:.1f} s [{smi}]")
+
+    # 10. the classic median-split trees
+    t0 = time.perf_counter()
+    classic_lines, _ = phase_classic(dev, points, here, smi)
+    for line in classic_lines:
+        say("classic", line)
+    del points
+    say("classic", f"phase 10 in {time.perf_counter() - t0:.1f} s; the whole run "
+                   f"{time.perf_counter() - t_run:.1f} s [{smi}]")
 
     record = {"kernels": [{
         "name": "scan_knn",

@@ -5,7 +5,9 @@ the one-sort bucket-tree build, the per-query best-first DFS, the
 Hilbert-tiled query engine with its hand-written CUDA scan kernel, the
 query verbs (radius, range, count), the recall dial (bounded-visit
 approximate k-NN, the recall harness, the degradation ladder), the plan
-store with its feedback and ``tune`` sweep, the serving engine facade and
+store with its feedback and ``tune`` sweep, the classic median-split
+trees (the level-synchronous build, its presort strategy, the bucketed
+tree, and their plane-bound DFS queries), the serving engine facade and
 HTTP front, npz checkpoints, serving snapshots, and the CLI
 (``python -m kdtree_tpu_torch``). The JAX
 package ``kdtree_tpu`` stays beside this one as the reference it is held
@@ -47,6 +49,17 @@ _LAZY = {
     "resolve_visit_cap": "kdtree_tpu_torch.approx.search",
     "sweep_recall": "kdtree_tpu_torch.approx.recall",
     "DegradationLadder": "kdtree_tpu_torch.approx.ladder",
+    "KDTree": "kdtree_tpu_torch.models.tree",
+    "TreeSpec": "kdtree_tpu_torch.models.tree",
+    "tree_spec": "kdtree_tpu_torch.models.tree",
+    "build": "kdtree_tpu_torch.ops.build",
+    "build_jit": "kdtree_tpu_torch.ops.build",
+    "validate_invariants": "kdtree_tpu_torch.ops.build",
+    "knn": "kdtree_tpu_torch.ops.query",
+    "nearest_neighbor": "kdtree_tpu_torch.ops.query",
+    "BucketKDTree": "kdtree_tpu_torch.ops.bucket",
+    "build_bucket": "kdtree_tpu_torch.ops.bucket",
+    "bucket_knn": "kdtree_tpu_torch.ops.bucket",
 }
 # modules exposed as attributes, imported on first use too
 _SUBMODULES = {

@@ -93,6 +93,21 @@ def flush() -> None:
     _run_deferred(drain)
 
 
+def count_build(engine: str, points: int) -> None:
+    """Record one index build of ``points`` rows by ``engine`` — the shared
+    domain-counter shape every build entry point uses."""
+    reg = get_registry()
+    reg.counter("kdtree_builds_total", labels={"engine": engine}).inc()
+    reg.counter("kdtree_build_points_total", labels={"engine": engine}).inc(points)
+
+
+def count_query(engine: str, rows: int) -> None:
+    """Record one query call of ``rows`` query rows by ``engine``."""
+    reg = get_registry()
+    reg.counter("kdtree_queries_total", labels={"engine": engine}).inc()
+    reg.counter("kdtree_query_rows_total", labels={"engine": engine}).inc(rows)
+
+
 def hard_sync(outputs) -> None:
     from kdtree_tpu_torch.obs.spans import hard_sync as _hs
 
@@ -113,6 +128,8 @@ __all__ = [
     "get_registry",
     "enabled",
     "set_enabled",
+    "count_build",
+    "count_query",
     "hard_sync",
     "span",
     "defer",

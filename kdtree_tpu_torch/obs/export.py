@@ -139,6 +139,11 @@ METRIC_HELP = {
     "kdtree_slo_transitions_total":
         "SLO state transitions, by SLO and destination state",
     "kdtree_history_samples_total": "metric-history ring samples taken",
+    # engines
+    "kdtree_builds_total": "index builds by engine",
+    "kdtree_build_points_total": "rows indexed by engine",
+    "kdtree_queries_total": "query calls by engine",
+    "kdtree_query_rows_total": "query rows by engine",
     # spans
     "kdtree_span_seconds": "duration distribution per host span path",
 }

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 FMA_DIM_MAX = 32  # above this, jitted sums of squares round each square
+ROW_ROUNDED_DIM_MAX = 8  # see sq_dist_rows
 _WINDOW = 32
 
 
@@ -110,3 +111,39 @@ def sq_dist_to_box(q: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch
                           torch.where(qd > hi_d, qd - hi_d, torch.zeros_like(qd)))
         acc = sq_add(torch.zeros_like(gap) if acc is None else acc, gap)
     return acc
+
+
+def xla_cpu_vector_rows(rows: int) -> int:
+    """How many leading lanes of a vmapped loop over ``rows`` lanes XLA:CPU
+    (LLVM's loop vectorizer, the trip count known) runs in vector code on
+    this x86 host; the rest run in the scalar tail. From 32 lanes on the
+    vector loop takes 8 at a time; from 16, 4 at a time; below 16 only
+    exactly 4 or 8 lanes are vectorized. Found by classifying every row of
+    the reference's classic and bucket DFS answers at 1-40, 47, 48 and
+    63-65 and 100 lanes (``tests/test_torch_classic.py``)."""
+    if rows >= 32:
+        return rows - rows % 8
+    if rows >= 16:
+        return rows - rows % 4
+    return rows if rows in (4, 8) else 0
+
+
+def sq_dist_rows(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Squared distances between the rows of ``q`` and ``p`` (f32[Q, D]),
+    as the jitted classic-tree DFS sums ``jnp.sum(diff * diff)`` of one
+    point per vmapped lane inside its ``while_loop``, with row i as lane
+    i of a program over Q lanes. Up to :data:`ROW_ROUNDED_DIM_MAX` axes
+    XLA:CPU unrolls the sum: in the vector code
+    (:func:`xla_cpu_vector_rows`) each square is rounded and they are
+    added in order, with no fused multiply-add; the scalar tail takes
+    :func:`sq_dist`'s FMA chain. Above 8 axes every lane takes
+    :func:`sq_dist`'s form."""
+    if q.shape[-1] > ROW_ROUNDED_DIM_MAX:
+        return sq_dist(q, p)
+    rows = q.shape[0]
+    body = xla_cpu_vector_rows(rows)
+    diff = q[:body] - p[:body]
+    rounded = sq_sum_windows(diff * diff)
+    if body == rows:
+        return rounded
+    return torch.cat([rounded, sq_dist(q[body:], p[body:])])

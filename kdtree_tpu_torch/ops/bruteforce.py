@@ -27,6 +27,7 @@ from typing import Tuple
 
 import torch
 
+from kdtree_tpu_torch import obs
 from kdtree_tpu_torch.ops._arith import sq_dist, sq_sum_windows
 
 EXACT_DIM_MAX = 32
@@ -84,6 +85,7 @@ def knn(points: torch.Tensor, queries: torch.Tensor, k: int = 1,
         raise ValueError(f"unknown method {method!r}")
     queries = torch.as_tensor(queries, dtype=torch.float32,
                               device=points.device)
+    obs.count_query("bruteforce", Q)
     if tile is None:
         tile = max(_TILE_ELEMS // max(Q * max(d, 1), 1), k + REFINE_SLACK, 1)
     best = None

@@ -31,7 +31,7 @@ from typing import Tuple
 
 import torch
 
-from kdtree_tpu_torch import resolve_device
+from kdtree_tpu_torch import obs, resolve_device
 from kdtree_tpu_torch.ops._arith import FMA_DIM_MAX, sq_add, sq_sum_windows
 from kdtree_tpu_torch.ops.topk import scan_bucket_block, sort_pairs
 from kdtree_tpu_torch.utils.guards import check_rows_fit_i32
@@ -198,8 +198,9 @@ def build_morton(points, bucket_cap: int = DEFAULT_BUCKET,
     n, d = points.shape
     check_build_capacity(n, d, dev)
     bits = default_bits(d) if bits is None else max(1, min(bits, default_bits(d)))
-    return build_morton_impl(points.contiguous(), bucket_cap=bucket_cap,
-                             bits=bits)
+    tree = build_morton_impl(points.contiguous(), bucket_cap=bucket_cap, bits=bits)
+    obs.count_build("morton", n)
+    return tree
 
 
 def morton_view(points, gid=None, n_real: int | None = None,
@@ -226,6 +227,37 @@ def morton_view(points, gid=None, n_real: int | None = None,
         return MortonTree(tree.node_lo, tree.node_hi, tree.bucket_pts,
                           tree.bucket_gid, n_real, tree.num_levels)
     return tree
+
+
+# cached on the owner after the first BuildCapacityError: an over-budget
+# index's failure is a property of its shape, so retrying it on every dense
+# batch would re-materialize make_inputs()' flattened copy just to raise
+# again. A sentinel distinct from None keeps "never tried" and "tried and
+# over budget" apart.
+_BUDGET_EXCEEDED = object()
+
+
+def serving_view(owner, make_inputs):
+    """Cache-or-build a dense-serving :func:`morton_view` on ``owner``.
+
+    Builds the view once from ``make_inputs() ->`` ``morton_view`` kwargs,
+    caches it on the object (``owner._morton_view``), and returns ``None``
+    when the view would not fit the device (``BuildCapacityError``), so
+    that the caller falls back to its memory-lean engine. The over-budget
+    outcome is cached too. The port of
+    ``kdtree_tpu/ops/morton.py::serving_view``."""
+    view = getattr(owner, "_morton_view", None)
+    if view is _BUDGET_EXCEEDED:
+        return None
+    if view is not None:
+        return view
+    try:
+        view = morton_view(**make_inputs())
+    except BuildCapacityError:
+        owner._morton_view = _BUDGET_EXCEEDED
+        return None
+    owner._morton_view = view
+    return view
 
 
 # ---------------------------------------------------------------------------
@@ -378,6 +410,7 @@ def morton_knn(tree: MortonTree, queries, k: int = 1, chunk: int = 4096,
     queries = torch.as_tensor(queries, dtype=torch.float32, device=tree.device)
     k = min(k, tree.n_real)
     q = queries.shape[0]
+    obs.count_query("morton", q)
     chunk = min(chunk, max(q, 1))
     if q <= chunk:
         return _morton_knn_batch(tree, queries, k, stats)

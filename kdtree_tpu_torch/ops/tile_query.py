@@ -534,6 +534,7 @@ def morton_knn_tiled(
     if Q == 0:
         return (torch.zeros((0, k), device=tree.device),
                 torch.zeros((0, k), dtype=torch.int32, device=tree.device))
+    obs.count_query("tiled", Q)
     if plan is None:
         plan = plan_tiled(Q, D, tree.n_real, tree.num_buckets,
                           tree.bucket_size, k, tile, cmax, seeds, use_kernel,

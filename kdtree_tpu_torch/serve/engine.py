@@ -32,8 +32,9 @@ from kdtree_tpu_torch import obs, resolve_device
 from kdtree_tpu_torch.obs import flight
 from kdtree_tpu_torch.obs import history as obs_history
 from kdtree_tpu_torch.obs import slo as obs_slo
+from kdtree_tpu_torch.models.tree import KDTree
 from kdtree_tpu_torch.ops import bruteforce
-from kdtree_tpu_torch.ops.morton import MortonTree
+from kdtree_tpu_torch.ops.morton import MortonTree, morton_view
 from kdtree_tpu_torch.ops.tile_query import (TileStats, morton_knn_tiled,
                                              plan_tiled)
 
@@ -312,15 +313,18 @@ class ServeState:
 
 
 def tree_for_serving(tree) -> MortonTree:
-    """The MortonTree the tiled serving path needs. Morton trees serve
-    as-is; the classic median-split trees come with ROADMAP item 16 (and
-    their Morton view with them), so any other kind fails crisply."""
+    """Adapt a checkpointed index to the MortonTree the tiled serving path
+    needs: Morton trees serve as-is; a classic KDTree serves through its
+    Morton view (the CLI's dense dispatch does the same). Other kinds fail
+    crisply — rebuild with ``--engine morton``."""
     if isinstance(tree, MortonTree):
         return tree
+    if isinstance(tree, KDTree):
+        return morton_view(points=tree.points)
     raise TypeError(
-        f"cannot serve a {type(tree).__name__} checkpoint: the port serves "
-        "Morton trees only (classic trees are ROADMAP queue 1 item 16) — "
-        "rebuild with `--engine morton build`"
+        f"cannot serve a {type(tree).__name__} checkpoint: the serving "
+        "path needs a Morton(-viewable) tree — rebuild with "
+        "`kdtree-tpu-torch --engine morton build`"
     )
 
 

@@ -2,8 +2,9 @@
 online server.
 
 The port of ``kdtree_tpu/utils/cli.py``'s ``harness``, ``bench``, ``build``,
-``query`` and ``serve``, for the ``auto``, ``morton``, ``tiled`` and
-``bruteforce`` engines and the ``threefry`` and ``mt19937`` generators.
+``query`` and ``serve``, for the ``auto``, ``morton``, ``tiled``, ``tree``
+(the classic median-split tree), ``bucket`` and ``bruteforce`` engines and
+the ``threefry`` and ``mt19937`` generators.
 Output bytes and exit codes are the reference's:
 
 - ``harness``: the course grading protocol — ``READY`` on stdout, seed
@@ -15,7 +16,8 @@ Output bytes and exit codes are the reference's:
   checkpoint, readable by both packages); ``build --save DIR`` also
   writes a serving snapshot (``snapshot/store.py``);
 - ``serve``: the long-lived HTTP server (``serve/server.py``) over a
-  serving snapshot, a Morton checkpoint, a points file or the seeded
+  serving snapshot, a Morton or classic checkpoint (a classic tree serves
+  through its Morton view), a points file or the seeded
   threefry problem, until SIGTERM/SIGINT drains it; a primary emits
   snapshots on every epoch swap (``--snapshot-save``), a read-only
   secondary follows them (``--snapshot-follow``); the degradation ladder
@@ -51,7 +53,7 @@ HARNESS_DIM = 128
 HARNESS_NUM_POINTS = 500000
 AUTO_TREE_DIM_MAX = 16
 
-ENGINES = ("auto", "morton", "tiled", "bruteforce")
+ENGINES = ("auto", "morton", "tiled", "tree", "bucket", "bruteforce")
 
 
 def _validate_input(seed: int, dim: int, num_points: int) -> None:
@@ -150,6 +152,14 @@ def _build_index(points, engine: str):
         from kdtree_tpu_torch.ops.morton import build_morton
 
         return build_morton(points)
+    if engine == "tree":
+        from kdtree_tpu_torch.ops.build import build_jit
+
+        return build_jit(points)
+    if engine == "bucket":
+        from kdtree_tpu_torch.ops.bucket import build_bucket
+
+        return build_bucket(points)
     if engine == "bruteforce":
         return points  # the index IS the point array
     raise SystemExit(f"engine {engine!r} has no split build phase")
@@ -165,6 +175,14 @@ def _query_index(index, queries, k: int, engine: str):
         from kdtree_tpu_torch.ops.tile_query import morton_knn_tiled
 
         return morton_knn_tiled(index, queries, k=k)
+    if engine == "tree":
+        from kdtree_tpu_torch.ops.query import knn
+
+        return knn(index, queries, k=k)
+    if engine == "bucket":
+        from kdtree_tpu_torch.ops.bucket import bucket_knn
+
+        return bucket_knn(index, queries, k=k)
     if engine == "bruteforce":
         from kdtree_tpu_torch.ops import bruteforce
 
@@ -251,26 +269,73 @@ def cmd_bench(args) -> None:
 def _build_tree_for_engine(points, engine: str):
     """The tree to checkpoint for an engine choice: ``auto``, ``morton``
     and ``tiled`` share the Morton tree (tiled is a query strategy, not an
-    index)."""
+    index); ``tree`` and ``bucket`` build their own."""
     if engine in ("auto", "morton", "tiled"):
         from kdtree_tpu_torch.ops.morton import build_morton
 
         return build_morton(points)
+    if engine in ("tree", "bucket"):
+        return _build_index(points, engine)
     raise SystemExit(f"engine {engine!r} does not produce a checkpointable tree")
 
 
 def _tree_knn(tree, queries, k: int):
-    """k-NN on a loaded Morton tree: dense low-D batches take the tiled
-    engine (the same crossover as :func:`_resolve_engine`), the rest the
-    per-query DFS."""
+    """k-NN on whichever tree a checkpoint held. Dense low-D batches take
+    the tiled engine (the same crossover as :func:`_resolve_engine`):
+    directly on a Morton tree, through a cached Morton view on a classic
+    or bucketed tree; the rest take the tree's own DFS."""
+    from kdtree_tpu_torch.models.tree import KDTree
+    from kdtree_tpu_torch.ops.bucket import BucketKDTree, bucket_knn
+    from kdtree_tpu_torch.ops.morton import MortonTree, morton_knn
+
     q, dim = queries.shape
-    if dense_lowd(q, tree.n_real, dim):
-        from kdtree_tpu_torch.ops.tile_query import morton_knn_tiled
+    if isinstance(tree, MortonTree):
+        if dense_lowd(q, tree.n_real, dim):
+            from kdtree_tpu_torch.ops.tile_query import morton_knn_tiled
 
-        return morton_knn_tiled(tree, queries, k=k)
-    from kdtree_tpu_torch.ops.morton import morton_knn
+            return morton_knn_tiled(tree, queries, k=k)
+        return morton_knn(tree, queries, k=k)
+    if isinstance(tree, BucketKDTree):
+        if dense_lowd(q, tree.n_real, dim):
+            out = _serve_dense_via_view(tree, queries, k,
+                                        lambda: bucket_view_inputs(tree))
+            if out is not None:
+                return out
+        return bucket_knn(tree, queries, k=k)
+    assert isinstance(tree, KDTree)
+    if dense_lowd(q, tree.n, dim):
+        # the classic tree keeps the original [N, D] array, so its view
+        # answers with ids that are already original rows
+        out = _serve_dense_via_view(tree, queries, k, lambda: dict(points=tree.points))
+        if out is not None:
+            return out
+    from kdtree_tpu_torch.ops.query import knn
 
-    return morton_knn(tree, queries, k=k)
+    return knn(tree, queries, k=k)
+
+
+def bucket_view_inputs(tree) -> dict:
+    """``morton_view``'s arguments for a bucketed tree: its split points
+    live in the internal nodes, not in any bucket, so the view holds both
+    (absent node slots as the inf / -1 padding), answering with the
+    tree's ids."""
+    node_pts = torch.where((tree.node_gid >= 0)[:, None], tree.node_coords, float("inf"))
+    flat = torch.cat([tree.bucket_pts.reshape(-1, tree.dim), node_pts])
+    gids = torch.cat([tree.bucket_gid.reshape(-1), tree.node_gid])
+    return dict(points=flat, gid=gids, n_real=tree.n_real)
+
+
+def _serve_dense_via_view(tree, queries, k: int, make_flat):
+    """A dense batch on a classic or bucketed tree, by the tiled engine
+    over the tree's cached Morton view; None (the caller falls back to its
+    own DFS) when the view does not fit the device."""
+    from kdtree_tpu_torch.ops.morton import serving_view
+    from kdtree_tpu_torch.ops.tile_query import morton_knn_tiled
+
+    view = serving_view(tree, make_flat)
+    if view is None:
+        return None
+    return morton_knn_tiled(view, queries, k=k)
 
 
 def _load_array(path: str, what: str) -> "np.ndarray":
@@ -329,10 +394,16 @@ def cmd_build(args) -> None:
         # .npy segments + a versioned manifest, so `serve --snapshot`
         # replicas start without re-running the build
         from kdtree_tpu_torch import snapshot as snap
+        from kdtree_tpu_torch.serve.engine import tree_for_serving
 
-        keys = snap.plan_keys_for(tree, k=16)
+        try:
+            serving = tree_for_serving(tree)
+        except TypeError as e:
+            print(f"cannot snapshot: {e}", file=sys.stderr)
+            sys.exit(1)
+        keys = snap.plan_keys_for(serving, k=16)
         man = snap.save_snapshot(
-            args.save, tree, epoch=0, plan_keys=keys,
+            args.save, serving, epoch=0, plan_keys=keys,
             plan_profiles=snap.collect_plan_profiles(keys),
             meta=dict(meta), keep=max(args.snapshot_keep or 1, 1),
         )
@@ -351,7 +422,7 @@ def cmd_query(args) -> None:
     except (OSError, ValueError, zipfile.BadZipFile) as e:
         print(f"cannot load tree {args.tree}: {e}", file=sys.stderr)
         sys.exit(1)
-    n = tree.n_real
+    n = tree.n if hasattr(tree, "n") else tree.n_real
     if args.queries:
         # user query set; results to --out (npz: d2, ids) or protocol lines
         qarr = _load_array(args.queries, "queries")
@@ -807,8 +878,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="problem generator (mt19937 = bit-exact reference replay)")
     p.add_argument("--engine", choices=[*ENGINES, *UNPORTED_ENGINES], default="auto",
                    help="tiled = Morton tree + Hilbert-tiled batched scan (large "
-                        "query counts); the engines not ported yet exit with the "
-                        "ROADMAP item that brings them")
+                        "query counts); tree = classic median-split tree; bucket = "
+                        "median-split tree with leaf buckets; the engines not "
+                        "ported yet exit with the ROADMAP item that brings them")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     h = sub.add_parser("harness", help="course grading protocol (READY/DONE)")
@@ -866,7 +938,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sv.add_argument("--index", default=None, metavar="FILE",
                     help="serve a checkpoint (a `build --out` npz of a "
-                         "Morton tree)")
+                         "Morton tree, or of a classic tree, served "
+                         "through its Morton view)")
     sv.add_argument("--points", default=None, metavar="FILE",
                     help="build a Morton index over user data ([N, D] "
                          ".npy/.npz) at startup and serve it")

@@ -11,7 +11,6 @@ import json
 import sys
 from pathlib import Path
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -64,7 +63,8 @@ def _both(argv, stdin=None):
     return r, t
 
 
-@pytest.mark.parametrize("engine", ["auto", "morton", "tiled", "bruteforce"])
+@pytest.mark.parametrize("engine", ["auto", "morton", "tiled", "tree", "bucket",
+                                    "bruteforce"])
 @pytest.mark.parametrize("generator", [
     "threefry", pytest.param("mt19937", marks=needs_native)])
 def test_harness_argv_mode(engine, generator):
@@ -117,6 +117,61 @@ def test_build_out_then_query(tmp_path):
     assert r[1] == t[1] and "using checkpoint seed 3" in t[2]
 
 
+@pytest.mark.parametrize("engine", ["tree", "bucket"])
+def test_classic_build_out_then_query(engine, tmp_path):
+    """``build --out`` with a classic or bucketed tree, then ``query``:
+    the protocol lines, a sparse ``--queries`` file (the tree's own DFS)
+    and a dense one (the tiled engine over the tree's Morton view), each
+    the reference's bytes, across the two packages' checkpoints."""
+    ref, port = str(tmp_path / "ref.npz"), str(tmp_path / "port.npz")
+    argv = ["--generator", "threefry", "--engine", engine, "build", "--seed", "6",
+            "--n", "20000"]
+    r, t = _ref([*argv, "--out", ref]), _port([*argv, "--out", port])
+    kind = "KDTree" if engine == "tree" else "BucketKDTree"
+    assert r[0] == t[0] == 0 and r[1].replace(ref, port) == t[1] and kind in t[1]
+    with np.load(ref) as a, np.load(port) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for key in a.files:
+            np.testing.assert_array_equal(a[key], b[key])
+    r, t = _ref(["query", "--tree", ref]), _port(["query", "--tree", port])
+    assert r[0] == t[0] == 0 and r[1] == t[1] and t[1].endswith("DONE\n")
+    qfile = tmp_path / "q.npy"
+    rng = np.random.default_rng(6)
+    for rows in (20, 600):  # sparse: the DFS; dense: the Morton view, tiled
+        np.save(qfile, rng.uniform(-100, 100, (rows, 3)).astype(np.float32))
+        outs = []
+        for run, tree, tag in ((_ref, ref, "r"), (_port, port, "t")):
+            out = str(tmp_path / f"{tag}{rows}.npz")
+            code, text, _ = run(["query", "--tree", tree, "--queries", str(qfile), "--k",
+                                 "8", "--out", out])
+            assert code == 0 and text.startswith(f"saved d2[{rows}, 8]")
+            outs.append(np.load(out))
+        for key in ("d2", "ids"):
+            assert outs[0][key].dtype == outs[1][key].dtype
+            np.testing.assert_array_equal(outs[0][key], outs[1][key])
+        r = _ref(["query", "--tree", ref, "--queries", str(qfile)])
+        t = _port(["query", "--tree", port, "--queries", str(qfile)])
+        assert r[0] == t[0] == 0 and r[1] == t[1]
+
+
+@pytest.mark.parametrize("engine", ["tree", "bucket"])
+def test_classic_build_save(engine, tmp_path):
+    """``build --save`` snapshots a classic tree through its Morton view,
+    segment for segment the reference's; a bucketed tree cannot be served,
+    so both packages refuse to snapshot it."""
+    argv = ["--generator", "threefry", "--engine", engine, "build", "--n", "20000"]
+    r = _ref([*argv, "--save", str(tmp_path / "ref")])
+    t = _port([*argv, "--save", str(tmp_path / "port")])
+    assert r[0] == t[0] == (0 if engine == "tree" else 1)
+    if engine == "bucket":
+        assert "cannot snapshot: cannot serve a BucketKDTree" in t[2]
+        return
+    mans = [json.loads((tmp_path / d / "MANIFEST.json").read_text()) for d in ("ref", "port")]
+    assert mans[0]["signature"] == mans[1]["signature"]
+    assert {k: v["sha256"] for k, v in mans[0]["segments"].items()} == \
+        {k: v["sha256"] for k, v in mans[1]["segments"].items()}
+
+
 def _same_tree(jt, tt):
     for name in ("node_lo", "node_hi", "bucket_pts", "bucket_gid"):
         a, b = np.asarray(getattr(jt, name)), getattr(tt, name).numpy()
@@ -156,12 +211,11 @@ def test_checkpoint_corrupt_or_unported_exits_crisply(tmp_path):
     np.savez(tmp_path / "nan.npz", **arrays)
     code, _, err = _port(["query", "--tree", str(tmp_path / "nan.npz")])
     assert code == 1 and "NaN" in err and "corrupt" in err
-    from kdtree_tpu.ops.bucket import build_bucket
-
-    pts = np.random.default_rng(0).uniform(-1, 1, (300, 3)).astype(np.float32)
-    jckpt.save_tree(str(tmp_path / "bucket.npz"), build_bucket(jnp.asarray(pts)))
-    code, _, err = _port(["query", "--tree", str(tmp_path / "bucket.npz")])
-    assert code == 1 and "'bucket'" in err and "item 16" in err
+    # a multi-device kind (the reference writes it only on a device mesh)
+    np.savez(tmp_path / "global.npz", child_0=np.zeros((4, 3), np.float32),
+             kind=np.asarray("global"))
+    code, _, err = _port(["query", "--tree", str(tmp_path / "global.npz")])
+    assert code == 1 and "'global'" in err and "item 17" in err
     code, _, err = _port(["query", "--tree", str(tmp_path / "missing.npz")])
     assert code == 1 and "cannot load tree" in err
 
@@ -197,9 +251,9 @@ def test_query_dense_file_goes_tiled(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--engine", "tree", "harness", "1", "3", "100"], "item 16"),
+    (["--engine", "global", "harness", "1", "3", "100"], "item 17"),
     (["--engine", "global-morton", "bench", "--n", "100"], "item 17"),
-    (["--engine", "bucket", "build", "--out", "x.npz"], "item 16"),
+    (["--engine", "global-exact", "build", "--out", "x.npz"], "item 17"),
     (["--engine", "ensemble", "harness", "1", "3", "100"], "item 17"),
 ])
 def test_unported_engine_exits_crisply(argv, item):

@@ -45,6 +45,15 @@ def _cli():
     return cli
 
 
+def _classic():
+    from kdtree_tpu_torch.ops import build_presort
+
+    return build_presort
+
+
+_Q = [[0.0, 0.0, 0.0]]
+
+
 def _run(code, env_extra=None):
     env = dict(os.environ, **(env_extra or {}))
     env["PYTHONPATH"] = str(REPO)
@@ -57,7 +66,8 @@ def test_every_module_imports_without_jax_or_the_reference():
     assert "kdtree_tpu_torch.kernels.scan_knn" in mods and len(mods) >= 12
     for sub in ("snapshot.store", "snapshot.follower", "verbs.device", "verbs.oracle",
                 "verbs.wire", "tuning.store", "tuning.feedback", "tuning.tuner",
-                "approx.search", "approx.recall", "approx.ladder"):
+                "approx.search", "approx.recall", "approx.ladder", "models.tree",
+                "ops.build", "ops.build_presort", "ops.query", "ops.bucket"):
         assert f"kdtree_tpu_torch.{sub}" in mods, sub
     code = (
         "import importlib, sys\n"
@@ -82,7 +92,13 @@ def test_public_surface_resolves_lazily():
                "assert callable(k.morton_knn_approx) and callable(k.sweep_recall)\n"
                "assert k.approx.DegradationLadder is k.DegradationLadder\n"
                "assert callable(k.tuning.lookup) and callable(k.resolve_visit_cap)\n"
-               "assert k.bruteforce.knn\n")
+               "assert k.bruteforce.knn\n"
+               "assert 'kdtree_tpu_torch.ops.query' not in sys.modules\n"
+               "assert callable(k.build_jit) and callable(k.knn) and callable(k.bucket_knn)\n"
+               "assert k.KDTree.__name__ == 'KDTree' and callable(k.tree_spec)\n"
+               "assert callable(k.build) and callable(k.validate_invariants)\n"
+               "assert callable(k.nearest_neighbor) and callable(k.build_bucket)\n"
+               "assert k.BucketKDTree.__name__ == 'BucketKDTree' and k.TreeSpec\n")
     assert out.returncode == 0, out.stderr
 
 
@@ -98,6 +114,16 @@ def test_public_surface_resolves_lazily():
     lambda: _serve_engine().build_state(points=torch.zeros(64, 3).numpy()),
     lambda: _server().make_server(_serve_engine().build_state(problem=(1, 3, 64))),
     lambda: _cli().cmd_serve(_cli().build_parser().parse_args(["serve", "--n", "64"])),
+    lambda: kdtree_tpu_torch.build_jit(torch.zeros(4, 3).numpy()),
+    lambda: kdtree_tpu_torch.build(torch.zeros(4, 3).numpy()),
+    lambda: _classic().build_presort(torch.zeros(4, 3).numpy()),
+    lambda: kdtree_tpu_torch.build_bucket(torch.zeros(4, 3).numpy()),
+    lambda: kdtree_tpu_torch.knn(kdtree_tpu_torch.build_jit(torch.zeros(4, 3).numpy()), _Q),
+    lambda: kdtree_tpu_torch.nearest_neighbor(
+        kdtree_tpu_torch.tree_from_arrays(torch.zeros(1, 3).numpy(), [0], [0.0],
+                                          kind="classic"), _Q),
+    lambda: kdtree_tpu_torch.bucket_knn(
+        kdtree_tpu_torch.build_bucket(torch.zeros(4, 3).numpy()), _Q),
 ])
 def test_default_device_without_cuda_raises(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -128,9 +154,6 @@ def _verbs():
     return device, oracle
 
 
-_Q = [[0.0, 0.0, 0.0]]
-
-
 @pytest.mark.parametrize("call", [
     lambda d: _load(d),
     lambda d: _verbs()[0].radius_search(_load(d), _Q, 1.0),
@@ -154,6 +177,10 @@ def test_explicit_cpu_runs(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     q = kdtree_tpu_torch.generate_queries(1, 3, 4, device="cpu")
     assert q.device.type == "cpu" and q.shape == (4, 3)
+    pts = torch.zeros(4, 3).numpy()
+    d2, _ = kdtree_tpu_torch.knn(kdtree_tpu_torch.build_jit(pts, device="cpu"), _Q)
+    bd2, _ = kdtree_tpu_torch.bucket_knn(kdtree_tpu_torch.build_bucket(pts, device="cpu"), _Q)
+    assert d2.device.type == bd2.device.type == "cpu" and float(d2[0, 0]) == 0.0
 
 
 def test_kernel_module_imports_without_nvcc(tmp_path):
