@@ -2,11 +2,20 @@
 """Drive the PyTorch/CUDA port's main path once on one CUDA card.
 
     python3 chip_smoke.py [--dfs-round-sweep]
+    python3 chip_smoke.py --profile-stress N
 
 ``--dfs-round-sweep`` adds to phase 6 the DFS timed at 4, 8, 16 and 32
 steps per host look on 16,384 of the sparse lane's queries: the run that
 chose ``_ROUND_STEPS`` in ``kdtree_tpu_torch/ops/morton.py``, for when the
 DFS changes.
+
+``--profile-stress N`` runs only this: a server on the 2^24 tree under 4
+clients at 1-1,000 rows, and N 2 s capture windows over it, in four
+processes one after another: windows opened by a thread of their own,
+then by the batch worker (``MicroBatcher.capture_for``, what ``POST
+/debug/profile`` does), twice each. A process that dies is counted, not fatal, where the windows were
+opened off the worker; the mode fails if a batch-worker window crashes.
+It is the run that chose to open server windows on the batch worker.
 
 Phases, one line each (any failure raises and exits non-zero):
 
@@ -27,7 +36,9 @@ Phases, one line each (any failure raises and exits non-zero):
              one morton_knn_tiled run of 2^20 queries, checked on a sample.
              Both kernels' launch counts are zeroed just before this phase
              and must be > 0 after it. Then the served 7-, 64- and 1000-row
-             requests once more under torch.profiler: device time by kernel;
+             requests once more, each in a capture window of the package's
+             profiler: device time by kernel and the card's idle share, from
+             kdtree_tpu_torch.obs.timeline (as every device-time sum below);
 5. shapes  — on the 2^24 tree, the kernels against the plain version and
              timed (CUDA events) at the tiled run's collect shape and at the
              final collect dispatch of the 8-, 64- and 1024-row serve
@@ -147,6 +158,26 @@ Phases, one line each (any failure raises and exits non-zero):
              configurations (stdout byte-equal to tests/golden/), and
              ``harness --engine tree`` at 2^20 x 3-D byte-equal to the
              bruteforce engine's stdout.
+11. obs     — device observability through the package's own telemetry:
+             ``python -m kdtree_tpu_torch profile`` at 2^24 x 3-D, 2^20
+             queries, k=16 (its answers under the window bit-equal to the
+             warm run's outside it; the timeline's busy µs within 0.1% of
+             this script's own union of the raw trace's kernel/memcpy/memset
+             slices; its kernel table naming scan_knn_kernel with the scan
+             launches of the captured run); the tiled run's wall time with
+             and without a window (plain, captured, captured, plain); a
+             server on phase 4's tree with 4 clients at 1-1,000 rows during
+             POST /debug/profile?seconds=2 (200 with the batch worker's
+             tile.dispatch ranges and busy_frac > 0; a concurrent POST 409;
+             kdtree_device_busy_frac on /metrics; /debug/costs requests =
+             the answered count; /healthz headroom with data; ``trace --id``
+             and ``costs`` against it; every answer against the oracle);
+             served latency (median, p99, max) under the same 4 clients
+             with the duty cycle off, on (KDTREE_TPU_PROFILE_DUTY=1 at
+             KDTREE_TPU_PROFILE_DUTY_PERIOD_S=5: at least one window, the
+             gauge set, each window's profiler start, stop and export
+             seconds) and off; ``--metrics-out`` on ``bench`` (one with
+             ``--trace``), then ``stats`` and ``stats --diff``.
 
 Every phase runs on a plan store of this run's own (a temporary
 directory). The last lines are the kernels' JSON record, the nvidia-smi line, and
@@ -205,6 +236,11 @@ CLASSIC_BUCKET = 128  # the bucketed tree's default cap
 CLASSIC_KNN_Q = 4096  # phase 10's classic knn lane: the first of the sparse lane's queries
 CLASSIC_SAMPLE = 256  # rows of each phase 10 lane held against the brute-force oracle
 CLASSIC_HARNESS_N = 1 << 20  # phase 10's 3-D `harness --engine tree` configuration
+OBS_CLIENTS = 4  # phase 11's concurrent HTTP clients
+OBS_ROWS = (1, 7, 64, 1000)
+OBS_PROFILE_S = 2.0  # the /debug/profile window under load
+OBS_DUTY_PERIOD_S = "5"  # KDTREE_TPU_PROFILE_DUTY_PERIOD_S of the duty-cycle run
+OBS_BLOCK_S = 10.0  # each block of phase 11's served-overhead measurement
 
 
 def say(phase: str, msg: str) -> None:
@@ -598,65 +634,85 @@ def phase_shapes(tree, sq, plan):
     return recs
 
 
-def _start_profiler():
-    """A started torch.profiler over CPU and CUDA, or (None, why not)."""
-    from torch.profiler import ProfilerActivity, profile
+def captured(fn, dev):
+    """``fn()`` inside a capture window of the package's profiler
+    (``kdtree_tpu_torch.obs.profile``, every thread and the card), the card
+    synchronized before the window closes; returns (its result, the
+    window's timeline report from ``kdtree_tpu_torch.obs.timeline``: each
+    kernel, copy and memset counted once, never a range's device-side
+    annotation; ``window_s`` added, the window's whole wall time). A
+    capture that fails raises."""
+    import shutil
+    import tempfile
 
+    from kdtree_tpu_torch.obs import profile, timeline
+
+    log_dir = tempfile.mkdtemp(prefix="chip-smoke-trace-")
     try:
-        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-        prof.start()
-    except Exception as e:  # CUPTI tracing may be unavailable; the request still runs
-        return None, f"{type(e).__name__}: {e}"
-    return prof, None
+        t0 = time.perf_counter()
+        with profile.capture(log_dir, dev) as cap:
+            out = fn()
+            _sync(dev)
+        window_s = time.perf_counter() - t0  # start, fn, stop and export
+        rep = timeline.parse_timeline(timeline.load_trace(cap.trace_file))
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    rep["window_s"] = window_s
+    return out, rep
 
 
-def serve_profile(engine, served):
-    """Serve the 7-, 64- and 1000-row requests once more, each under
-    torch.profiler, and split its device time by kernel family: the scan
-    kernels against the rest, which is the frontier's torch ops. Only the
-    profiler may fail quietly; a failed request raises, and each answer
-    must equal the one served before. Returns one line per request."""
-    import torch
+def kernel_us(rep, name):
+    """(device µs, launches) of the kernels whose name holds ``name`` in a
+    timeline report's per-kernel table."""
+    rows = [m for m in rep["device"]["modules"] if name in m["module"]]
+    return sum(m["busy_us"] for m in rows), sum(m["n_slices"] for m in rows)
+
+
+def serve_profile(engine, served, dev):
+    """Serve the 7-, 64- and 1000-row requests once more, each in a capture
+    window, and split its device time by kernel: the scan kernels against
+    the rest, which is the frontier's torch ops. Each answer must equal
+    the one served before, and the timeline must name each kernel with
+    the launches its wrapper counted in the window: the merge kernel too,
+    on the 7- and 64-row requests, whose tiles are split. Returns one line
+    per request."""
+    import kdtree_tpu_torch.kernels.scan_knn as scan_mod
 
     lines = []
     for q, d2, ids, rows, bucket, _, _ in served:
         if rows not in (7, 64, 1000):
             continue
         qp = np.concatenate([q, np.broadcast_to(q[-1], (bucket - rows, DIM))])
-        prof, why = _start_profiler()
-        t0 = time.perf_counter()
-        pd2, pids, _ = engine.knn_batch(qp)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+
+        def request():
+            t0 = time.perf_counter()
+            out = engine.knn_batch(qp)
+            _sync(dev)
+            return out, (time.perf_counter() - t0) * 1e3
+
+        s0, m0 = scan_mod.scan_tiles.launches, scan_mod.merge_partials.launches
+        ((pd2, pids, _), wall), rep = captured(request, dev)
+        counted = (scan_mod.scan_tiles.launches - s0, scan_mod.merge_partials.launches - m0)
         assert np.array_equal(np.asarray(pd2)[:rows], np.asarray(d2)) and \
             np.array_equal(np.asarray(pids)[:rows], np.asarray(ids)), \
             f"request of {rows} rows answered differently under the profiler"
-        events = []
-        if prof is not None:
-            try:
-                prof.stop()
-                events = _device_events(prof)
-            except Exception as e:  # the trace, not the request, failed
-                why = f"{type(e).__name__}: {e}"
-        if why is not None:
-            lines.append(f"request {rows} rows: {wall:.2f} ms; device time not measured "
-                         f"(profiler: {why})")
-            continue
-        scan = merge = other = 0.0
-        for e in events:
-            if "scan_knn_merge" in e.name:
-                merge += _event_us(e)
-            elif "scan_knn" in e.name:
-                scan += _event_us(e)
-            else:
-                other += _event_us(e)
-        if scan + merge + other == 0:
-            lines.append(f"request {rows} rows: {wall:.2f} ms under the profiler; device time "
-                         f"not measured (the trace holds no device events)")
-        else:
-            lines.append(f"request {rows} rows: {wall:.2f} ms under the profiler; device ms: "
-                         f"scan kernel {scan / 1e3:.3f}, merge kernel {merge / 1e3:.3f}, "
-                         f"other (frontier, sort, copies) {other / 1e3:.3f}")
+        dev_us = rep["device"]["busy_us"]
+        assert dev_us > 0, f"the capture of a {rows}-row request holds no device slices"
+        scan, n_scan = kernel_us(rep, "scan_knn_kernel")
+        merge, n_merge = kernel_us(rep, "scan_knn_merge_kernel")
+        assert (n_scan, n_merge) == counted, \
+            f"{rows}-row request: the timeline's scan/merge launches {(n_scan, n_merge)} " \
+            f"!= the wrappers' {counted}"
+        assert n_scan > 0 and (rows == 1000 or n_merge > 0), \
+            f"{rows}-row request: the timeline does not name scan_knn_kernel and " \
+            f"scan_knn_merge_kernel ({n_scan}, {n_merge} launches)"
+        lines.append(f"request {rows} rows: {wall:.2f} ms in a capture window; device ms "
+                     f"{dev_us / 1e3:.3f} (scan kernel {scan / 1e3:.3f} over {n_scan} and "
+                     f"merge kernel {merge / 1e3:.3f} over {n_merge} launches, each = its "
+                     f"wrapper's count; other (frontier, sort, copies) "
+                     f"{(dev_us - scan - merge) / 1e3:.3f}); the card idle "
+                     f"{100 * (1 - dev_us / 1e3 / wall):.1f}% of the request (obs.timeline); "
+                     f"the window with start, stop and export {rep['window_s']:.2f} s")
     return lines
 
 
@@ -685,7 +741,7 @@ def dfs_launches_per_step(run, mod, want):
     engine whose module ``mod`` calls ``_round_runner`` (the Morton, the
     classic or the bucketed DFS). An extra round is a valid schedule (each
     lane goes on with its own pops), so the answer must still equal
-    ``want``. Returns (launches per step or None, note)."""
+    ``want``. Returns (launches per step, note)."""
     import torch
 
     import kdtree_tpu_torch.ops.morton as morton_mod
@@ -695,18 +751,8 @@ def dfs_launches_per_step(run, mod, want):
 
     def counted(steps, dev, st):
         if not seen:
-            prof, why = _start_profiler()
-            steps()
-            torch.cuda.synchronize()
-            n = 0
-            if prof is not None:
-                try:
-                    prof.stop()
-                    n = sum(1 for e in prof.events()
-                            if e.device_type == torch.autograd.DeviceType.CUDA)
-                except Exception as e:  # the trace, not the DFS, failed
-                    why = f"{type(e).__name__}: {e}"
-            seen.append((n, why))
+            _, rep = captured(steps, dev)
+            seen.append(rep["device"]["n_slices"])
         return original(steps, dev, st)
 
     mod._round_runner = counted
@@ -716,9 +762,8 @@ def dfs_launches_per_step(run, mod, want):
         mod._round_runner = original
     assert torch.equal(d, want[0]) and torch.equal(i, want[1]), \
         "an extra DFS round changed the answer"
-    n, why = seen[0]
-    if why is not None or n == 0:
-        return None, why or "the trace holds no device events"
+    n = seen[0]
+    assert n > 0, "the capture of one DFS round holds no device slices"
     return n / morton_mod._ROUND_STEPS, f"{n} in one round of {morton_mod._ROUND_STEPS} steps"
 
 
@@ -923,9 +968,7 @@ def phase_cli(dev, points, tree, here, round_sweep=False):
     tiled_dispatch(f"query --queries ({CLI_DENSE_Q} rows, {CLI_BUILD_N} points)", ctree, dq, 1)
     per_step, note = dfs_launches_per_step(lambda: morton_knn(tree, qs[:4096], k=K),
                                            morton_mod, (sd[:4096], si[:4096]))
-    lines.append("DFS device launches per step: "
-                 + (f"{per_step:.2f} ({note}; torch.profiler)" if per_step is not None
-                    else f"not measured (profiler: {note})"))
+    lines.append(f"DFS device launches per step: {per_step:.2f} ({note}; obs.timeline)")
     if round_sweep:
         lines.append(dfs_round_sweep(tree, qs[:4 * 4096], (sd[:4 * 4096], si[:4 * 4096])))
     return lines, launches
@@ -1354,79 +1397,35 @@ def phase_serve(dev, points, tree, here, smi):
     return lines, launches
 
 
-def _device_events(prof):
-    """The device-side events (kernels, copies, memsets) a stopped
-    torch.profiler holds, each once: ``key_averages()`` would count a
-    kernel twice, under its own name and as the self device time of the
-    CPU op that launched it, and add the device spans of
-    ``record_function`` ranges."""
-    from torch.autograd import DeviceType
-
-    return [e for e in prof.events()
-            if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
-
-
-def _event_us(e) -> float:
-    us = getattr(e, "device_time_total", None)
-    return us if us is not None else e.cuda_time_total
-
-
-def _device_us(prof) -> float:
-    """Device microseconds of every kernel and copy a stopped
-    torch.profiler holds."""
-    return sum(_event_us(e) for e in _device_events(prof))
-
-
-def _range_device_ms(prof, name):
-    """(device ms, instances) of the kernels launched inside every
-    ``record_function(name)`` range a stopped torch.profiler holds."""
-    from torch.autograd import DeviceType
-
-    total, n = 0.0, 0
-    for e in prof.events():
-        if e.name == name and e.device_type == DeviceType.CPU:
-            total += _event_us(e)  # the kernels of the range and its children
-            n += 1
-    return total / 1e3, n
-
-
 def verb_split(tree, queries, r):
-    """The frontier/fold split of one radius_search call under
-    torch.profiler, read from the ``verbs.frontier`` and ``verbs.fold``
-    ranges that verbs/device.py opens on every pass (overflow retries
-    included). Returns one line."""
-    import torch
-
+    """The frontier/fold split of one radius_search call in a capture
+    window, read from the device time inside the ``verbs.frontier`` and
+    ``verbs.fold`` ranges that verbs/device.py opens on every pass
+    (overflow retries included; ``device.ranges`` of the timeline
+    report). Returns one line."""
     from kdtree_tpu_torch.verbs import device as vd
 
     Q = queries.shape[0]
-    prof, why = _start_profiler()
-    t0 = time.perf_counter()
-    res = vd.radius_search(tree, queries, r)
-    if tree.device.type == "cuda":
-        torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    split = None
-    if prof is not None:
-        try:
-            prof.stop()
-            whole = _device_us(prof) / 1e3
-            front, nf = _range_device_ms(prof, "verbs.frontier")
-            fold, nd = _range_device_ms(prof, "verbs.fold")
-            split = (whole, front, nf, fold, nd)
-        except Exception as e:  # the trace, not the call, failed
-            why = f"{type(e).__name__}: {e}"
-    if split is not None and (split[0] == 0.0 or split[2] == 0 or split[4] == 0):
-        split, why = None, "the trace holds no device events in the verbs' ranges"
-    head = (f"{Q}-row radius batch (r={r}, {int(res.counts.sum())} hits) under torch.profiler: "
-            f"{wall:.2f} ms wall, {res.retries} overflow retries")
-    if split is None:
-        return f"{head}; device split not measured (profiler: {why})"
-    whole, front, nf, fold, nd = split
-    return (f"{head}; device {whole:.3f} ms: verbs.frontier {front:.3f} ms over {nf} passes, "
-            f"verbs.fold {fold:.3f} ms over {nd} passes, the rest (query sort, padding, "
-            f"copies) {whole - front - fold:.3f} ms")
+
+    def call():
+        t0 = time.perf_counter()
+        res = vd.radius_search(tree, queries, r)
+        _sync(tree.device)
+        return res, (time.perf_counter() - t0) * 1e3
+
+    (res, wall), rep = captured(call, tree.device)
+    ranges = rep["device"]["ranges"]
+    front, fold = ranges.get("verbs.frontier"), ranges.get("verbs.fold")
+    assert rep["device"]["busy_us"] > 0 and front and fold, \
+        f"the capture holds no device time in the verbs' ranges: {sorted(ranges)}"
+    whole = rep["device"]["busy_us"] / 1e3
+    f_ms, d_ms = front["busy_us"] / 1e3, fold["busy_us"] / 1e3
+    nf, nd = (rep["spans"][n]["count"] for n in ("verbs.frontier", "verbs.fold"))
+    return (f"{Q}-row radius batch (r={r}, {int(res.counts.sum())} hits) in a capture window: "
+            f"{wall:.2f} ms wall, {res.retries} overflow retries; device {whole:.3f} ms: "
+            f"verbs.frontier {f_ms:.3f} ms over {nf} passes, verbs.fold {d_ms:.3f} ms over "
+            f"{nd} passes, the rest (query sort, padding, copies) {whole - f_ms - d_ms:.3f} ms "
+            f"(obs.timeline)")
 
 
 def _check_verb(what, resp, ora, verb, degraded=None):
@@ -2102,9 +2101,7 @@ def _dfs_lane(dev, name, run, mod, points, queries, k, rounded, profile_rows=Non
     if dev.type == "cuda":
         r = profile_rows or queries.shape[0]
         per_step, note = dfs_launches_per_step(lambda: run(None), mod, (d2[:r], ids[:r]))
-        line += ("; device launches per step: "
-                 + (f"{per_step:.2f} ({note}; torch.profiler)" if per_step is not None
-                    else f"not measured (profiler: {note})"))
+        line += f"; device launches per step: {per_step:.2f} ({note}; obs.timeline)"
     return line
 
 
@@ -2319,7 +2316,373 @@ def phase_classic(dev, points, here, smi):
     return lines, launches
 
 
+def raw_exec_union_us(path):
+    """(µs, slices) of the union of a Chrome trace's kernel, memcpy and
+    memset slices, read from the raw file by this script's own code: the
+    independent count phase 11 holds the package's timeline against."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    iv = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
+                for e in events if e.get("ph") == "X"
+                and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    total, cur = 0.0, None
+    for a, b in iv:
+        if cur is None or a > cur[1]:
+            if cur is not None:
+                total += cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    if cur is not None:
+        total += cur[1] - cur[0]
+    return total, len(iv)
+
+
+def _kernel_name(name):
+    """A kernel's trace name without its return type, namespace wrapper,
+    template arguments and parameter list."""
+    name = name.replace("(anonymous namespace)::", "")
+    name = name.split("(")[0].split("<")[0]
+    return name[5:] if name.startswith("void ") else name
+
+
+def _timeline_line(what, rep):
+    """One line of a timeline report's headline numbers."""
+    disp, lag = rep["dispatches"], rep["dispatches"]["lag_us"]
+    st = disp["stages"]
+    kernels = ", ".join(f"{_kernel_name(m['module'])} {m['busy_us'] / 1e3:.3f} ms x"
+                        f"{m['n_slices']}" for m in rep["device"]["modules"][:5])
+    frac = disp["busy_frac"]
+    return (f"{what}: capture {rep['capture']['wall_us'] / 1e3:.2f} ms, card busy "
+            f"{rep['device']['busy_us'] / 1e3:.3f} ms ({100 * rep['device']['busy_frac']:.2f}%, "
+            f"{rep['device']['n_slices']} kernel/copy slices), {disp['count']} tile.dispatch "
+            f"(busy between dispatches {'-' if frac is None else f'{100 * frac:.2f}%'}; lag "
+            f"median {lag['median'] if lag['median'] is None else round(lag['median'], 1)} us p90 "
+            f"{lag['p90'] if lag['p90'] is None else round(lag['p90'], 1)} us; host split prep "
+            f"{st['prep_us'] / 1e3:.2f} retire {st['retire_us'] / 1e3:.2f} drain "
+            f"{st['drain_us'] / 1e3:.2f} ms), kernel builds in window "
+            f"{rep['compile']['count']}; top kernels: {kernels}")
+
+
+def phase_obs(dev, points, tree, here, smi):
+    """Phase 11: device observability on the card (see the module
+    docstring). Prints its lines as it goes."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    import kdtree_tpu_torch.kernels.scan_knn as scan_mod
+    from kdtree_tpu_torch.obs import costs as costs_mod
+    from kdtree_tpu_torch.obs import flight
+    from kdtree_tpu_torch.obs import profile as obs_profile
+    from kdtree_tpu_torch.obs.registry import get_registry
+    from kdtree_tpu_torch.ops import tile_query as tqm
+    from kdtree_tpu_torch.ops.generate import generate_queries
+    from kdtree_tpu_torch.serve.engine import build_state
+    from kdtree_tpu_torch.serve.server import make_server
+
+    reg = get_registry()
+    cuda = dev.type == "cuda"
+    devflag = [] if cuda else ["--device", "cpu"]  # the CPU rehearsal's
+    work = Path(tempfile.mkdtemp(prefix="chip-smoke-obs-"))
+    try:
+        # 1. `profile` at full width: the answers under the window bit-equal
+        # to the warm run's outside it, and each call's scan launches
+        calls = []
+        original = tqm.morton_knn_tiled
+
+        def recorded(*a, **kw):
+            before = scan_mod.scan_tiles.launches
+            out = original(*a, **kw)
+            _sync(dev)
+            calls.append((out[0].clone(), out[1].clone(), scan_mod.scan_tiles.launches - before))
+            return out
+
+        tqm.morton_knn_tiled = recorded
+        t0 = time.perf_counter()
+        try:
+            out, _ = run_cli([*devflag, "profile", "--n", str(N_POINTS), "--q", str(TILED_QUERIES),
+                              "--k", str(K), "--format", "json", "--out",
+                              str(work / "timeline.json"), "--trace-dir", str(work / "trace")])
+        finally:
+            tqm.morton_knn_tiled = original
+        cli_s = time.perf_counter() - t0
+        summary = json.loads(out)
+        with open(work / "timeline.json") as f:
+            rep = json.load(f)
+        assert len(calls) == 2, "profile ran the tiled engine other than twice"
+        assert torch.equal(calls[0][0], calls[1][0]) and torch.equal(calls[0][1], calls[1][1]), \
+            "the tiled run answered differently inside the capture window"
+        raw_us, raw_n = raw_exec_union_us(summary["trace_file"])
+        busy = rep["device"]["busy_us"]
+        scan = [m for m in rep["device"]["modules"] if "scan_knn_kernel" in m["module"]]
+        if cuda:
+            assert rep["device"]["kind"] == "cuda" and raw_us > 0
+            assert abs(busy - raw_us) <= 1e-3 * raw_us, (busy, raw_us)
+            assert rep["device"]["n_slices"] == raw_n, (rep["device"]["n_slices"], raw_n)
+            assert scan, "the timeline's kernel table does not name scan_knn_kernel"
+            assert scan[0]["n_slices"] == calls[1][2] > 0, (scan[0]["n_slices"], calls[1][2])
+        else:  # the CPU rehearsal: no card, so no kernel slices
+            raw_us, scan = max(raw_us, busy), [{"busy_us": 0.0, "n_slices": 0}]
+        assert rep["dispatches"]["count"] > 0 and summary["correlated_spans"] > 0
+        q_wall = rep["spans"]["profile.query"]["wall_us"]
+        say("obs", f"profile --n {N_POINTS} --q {TILED_QUERIES} --k {K} ({cli_s:.1f} s in all): "
+                     f"answers bit-equal to the warm run outside the window; card busy "
+                     f"{busy:.1f} us vs {raw_us:.1f} us from the raw trace ({raw_n} slices, "
+                     f"{abs(busy - raw_us) / raw_us:.2e} apart); scan_knn_kernel "
+                     f"{scan[0]['busy_us'] / 1e3:.3f} ms over {scan[0]['n_slices']} launches = "
+                     f"scan_tiles.launches of the captured run; profile.query span "
+                     f"{q_wall / 1e3:.2f} ms")
+        say("obs", _timeline_line("tiled run (profile)", rep))
+        del calls
+
+        # 5a. the capture's cost on the tiled run: plain, captured,
+        # captured, plain; the run alone and the whole window
+        tq = generate_queries(SEED, DIM, TILED_QUERIES, device=dev)
+        runs = {"plain": [], "captured": [], "window": []}
+        for mode in ("plain", "captured", "captured", "plain"):
+            if mode == "plain":
+                _, s_ = _timed(dev, lambda: tqm.morton_knn_tiled(tree, tq, k=K))
+                runs["plain"].append(s_)
+                continue
+            t0 = time.perf_counter()
+            with obs_profile.capture(str(work / "overhead"), dev):
+                _, s_ = _timed(dev, lambda: tqm.morton_knn_tiled(tree, tq, k=K))
+            runs["window"].append(time.perf_counter() - t0)
+            runs["captured"].append(s_)
+        plain, capt = min(runs["plain"]), min(runs["captured"])
+        say("obs", f"capture overhead on the tiled run ({TILED_QUERIES} queries, plain, "
+                     f"captured, captured, plain): plain {', '.join(f'{x:.4f}' for x in runs['plain'])} s; "
+                     f"in a window {', '.join(f'{x:.4f}' for x in runs['captured'])} s "
+                     f"({100 * (capt / plain - 1):+.2f}% best to best); the whole window with "
+                     f"start, stop and export {', '.join(f'{x:.2f}' for x in runs['window'])} s [{smi}]")
+        shutil.rmtree(work / "overhead", ignore_errors=True)
+        del tq
+
+        # 2. a server on the 2^24 tree, 4 clients at 1-1,000 rows, and
+        # POST /debug/profile under that load
+        state = build_state(tree=tree, k=K, max_batch=MAX_BATCH)
+        srv = make_server(state, port=0, queue_rows=16 * MAX_BATCH)
+        srv.start()
+        port = srv.server_address[1]
+        base = f"http://127.0.0.1:{port}"
+        try:
+            pool = generate_queries(SEED + 1100, DIM, 1100, device=dev).cpu().numpy()
+            ora = Oracle(points, pool)
+            _, _, c0 = _http(port, "GET", "/debug/costs")
+            req0 = c0["totals"]["requests"]
+            stop = threading.Event()
+            results, errors = [], []
+
+            def client(i):
+                try:
+                    j = 0
+                    while not stop.is_set():
+                        rows = OBS_ROWS[(i + j) % len(OBS_ROWS)]
+                        off = (i * 131 + j * 17) % (len(pool) - rows)
+                        st, _, resp = _http(port, "POST", "/v1/knn",
+                                            {"queries": pool[off:off + rows].tolist()})
+                        results.append((rows, off, st, resp))
+                        j += 1
+                except Exception as e:  # re-raised below, on the main thread
+                    errors.append(e)
+
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(OBS_CLIENTS)]
+            for t in threads:
+                t.start()
+            while len(results) < 2 * OBS_CLIENTS and not errors:
+                time.sleep(0.01)
+            prof = {}
+            pt = threading.Thread(target=lambda: prof.update(r=_http(
+                port, "POST", f"/debug/profile?seconds={OBS_PROFILE_S:g}")))
+            pt.start()
+            while srv.batcher._capture_req is None:  # the window is asked for
+                time.sleep(0.005)
+            st409, _, busy409 = _http(port, "POST", "/debug/profile?seconds=1")
+            st, _, tresp = _http(port, "POST", "/v1/knn", {"queries": pool[:7].tolist()},
+                                 headers={"X-Request-Id": "obs-trace-7"})
+            assert st == 200
+            pt.join()
+            time.sleep(1.0)
+            stop.set()
+            for t in threads:
+                t.join()
+            assert not errors, errors
+            assert st409 == 409, (st409, busy409)
+            st, _, prep = prof["r"]
+            assert st == 200, (st, prep)
+            assert prep["device"]["kind"] == dev.type and prep["device"]["busy_frac"] > 0
+            assert prep["dispatches"]["count"] > 0, "no tile.dispatch of the batch worker"
+            assert not cuda or any("scan_knn_kernel" in m["module"]
+                                   for m in prep["device"]["modules"]), \
+                "the served window's kernel table does not name scan_knn_kernel"
+            ties = 0
+            for rows, off, st, resp in results:
+                assert st == 200 and resp["degraded"] is None, (rows, st, resp.get("error"))
+                ties += ora.check(np.arange(off, off + rows), resp, K, f"{rows}-row request")
+            ora.check(np.arange(7), tresp, K, "the traced request")
+            answered = len(results) + 1
+            say("obs", f"{answered} requests from {OBS_CLIENTS} clients at 1-1000 rows plus one "
+                         f"traced, every answer exact vs oracle ({ties} tied slots); POST "
+                         f"/debug/profile?seconds={OBS_PROFILE_S:g} under load: 200, a second "
+                         f"POST while it ran: {st409}")
+            say("obs", _timeline_line("served window (/debug/profile)", prep))
+            time.sleep(1.5)  # one more history tick after the last answer
+            _, _, metrics = _http(port, "GET", "/metrics")
+            assert "\nkdtree_device_busy_frac " in metrics, "no busy gauge on /metrics"
+            _, _, costs = _http(port, "GET", "/debug/costs")
+            got = costs["totals"]["requests"] - req0
+            assert got == answered, (got, answered)
+            _, _, health = _http(port, "GET", "/healthz")
+            hr = health["headroom"]
+            assert hr["data"] is True, hr
+            tr_out, _ = run_cli(["trace", "--target", base, "--id", "obs-trace-7"])
+            assert tr_out.startswith("trace obs-trace-7") and "serve/dispatch" in tr_out, tr_out
+            co_out, _ = run_cli(["costs", "--target", base])
+            assert "knn/exact/ok" in co_out and "headroom:" in co_out, co_out
+            say("obs", f"/debug/costs: {got:g} requests = the answered count, cost/query "
+                         f"{costs['totals']['cost_ms']} ms; /healthz headroom {hr['headroom_frac']:.4f} "
+                         f"(observed {hr['observed_rate']:.1f} vs predicted "
+                         f"{hr['predicted_rate']:.1f} req/s, busy {hr['busy_frac']}); "
+                         f"kdtree_device_busy_frac on /metrics; `trace --id obs-trace-7` renders "
+                         f"{len(tr_out.splitlines())} lines, `costs` renders "
+                         f"{len(co_out.splitlines())}")
+            say("obs", "trace obs-trace-7: " + " | ".join(tr_out.splitlines()[1:6]))
+
+            # 3 + 5b. the duty cycle at KDTREE_TPU_PROFILE_DUTY_PERIOD_S=5
+            # (KDTREE_TPU_PROFILE_DUTY=1: it is off by default), under 4
+            # clients at 1-1,000 rows: blocks with it off, on, off; each
+            # window's profiler start and stop (on the batch worker) and
+            # export (on the duty thread, holding the GIL)
+            windows_log = []
+
+            def duty_capture(seconds, log_dir):
+                t0 = time.perf_counter()
+                res = srv.batcher.capture_for(seconds, log_dir)
+                windows_log.append((t0, time.perf_counter(), res))
+                return res
+
+            def load_block(seconds, until=None):
+                lat, errs, stop_b = [], [], threading.Event()
+
+                def client_b(i):
+                    try:
+                        j = 0
+                        while not stop_b.is_set():
+                            rows = OBS_ROWS[(i + j) % len(OBS_ROWS)]
+                            off = (i * 131 + j * 17) % (len(pool) - rows)
+                            t = time.perf_counter()
+                            st, _, resp = _http(port, "POST", "/v1/knn",
+                                                {"queries": pool[off:off + rows].tolist()})
+                            assert st == 200 and resp["degraded"] is None, (st, resp)
+                            lat.append((t, time.perf_counter()))
+                            j += 1
+                    except Exception as e:  # re-raised below, on the main thread
+                        errs.append(e)
+
+                ths = [threading.Thread(target=client_b, args=(i,)) for i in range(OBS_CLIENTS)]
+                for t in ths:
+                    t.start()
+                t_end = time.perf_counter() + seconds
+                while not errs and (time.perf_counter() < t_end or (
+                        until is not None and not until() and time.perf_counter() < t_end + 60)):
+                    time.sleep(0.05)
+                stop_b.set()
+                for t in ths:
+                    t.join()
+                assert not errs, errs
+                return lat
+
+            def pct(lat):
+                ms = np.array([(t1 - t0) * 1e3 for t0, t1 in lat])
+                return (f"n {len(ms)}, median {np.median(ms):.2f}, p99 "
+                        f"{np.percentile(ms, 99):.2f}, max {ms.max():.2f} ms") if len(ms) else "n 0"
+
+            blocks = []
+            windows0 = reg.counter("kdtree_profile_duty_windows_total").value
+            for block in ("off", "on", "off"):
+                srv.duty.stop()
+                if block == "on":
+                    saved = {k: os.environ.get(k) for k in (
+                        "KDTREE_TPU_PROFILE_DUTY", "KDTREE_TPU_PROFILE_DUTY_PERIOD_S")}
+                    os.environ["KDTREE_TPU_PROFILE_DUTY"] = "1"
+                    os.environ["KDTREE_TPU_PROFILE_DUTY_PERIOD_S"] = OBS_DUTY_PERIOD_S
+                    try:
+                        srv.duty = costs_mod.ProfileDutyCycle(capture_for=duty_capture)
+                        srv.duty.start()
+                    finally:
+                        for k, v in saved.items():
+                            if v is None:
+                                os.environ.pop(k, None)
+                            else:
+                                os.environ[k] = v
+                    assert srv.duty.running and srv.duty.period_s == float(OBS_DUTY_PERIOD_S)
+                    lat = load_block(1.5 * OBS_BLOCK_S, until=lambda: len(windows_log) >= 2)
+                    srv.duty.stop()
+                    # read before the next block's requests push the
+                    # window's events out of the bounded flight ring
+                    duty_ev = [e for e in flight.recorder().snapshot()
+                               if e["type"] == "profile.duty_window"
+                               and e.get("busy_frac") is not None]
+                else:
+                    lat = load_block(OBS_BLOCK_S)
+                blocks.append((block, lat))
+            windows = reg.counter("kdtree_profile_duty_windows_total").value - windows0
+            assert windows >= 1 and windows_log, "the duty cycle closed no window"
+            assert duty_ev, "no duty window published a busy fraction"
+            gauge = reg.gauge("kdtree_device_busy_frac").value
+            say("obs", f"duty cycle (period {OBS_DUTY_PERIOD_S} s, window "
+                         f"{srv.duty.window_s:g} s): {windows:g} window(s), the last busy_frac "
+                         f"{duty_ev[-1]['busy_frac']:.4f}, lag median "
+                         f"{duty_ev[-1]['lag_us_median']} us; kdtree_device_busy_frac = {gauge:.4f}")
+            say("obs", "each duty window's pause, s: " + "; ".join(
+                f"profiler start {r.start_seconds:.4f} + stop {r.stop_seconds:.4f} on the "
+                f"batch worker, export {r.export_seconds:.4f} holding the GIL (asked to "
+                f"returned {t1 - t0:.3f})" for t0, t1, r in windows_log) + f" [{smi}]")
+            on_lat = blocks[1][1]
+            inside = [x for x in on_lat if any(x[0] < w1 and x[1] > w0 for w0, w1, _ in windows_log)]
+            outside = [x for x in on_lat if x not in inside]
+            say("obs", f"served under {OBS_CLIENTS} clients at 1-1000 rows, request ms: "
+                         + "; ".join(f"duty {b} {pct(lat)}" for b, lat in blocks)
+                         + f"; duty on, requests overlapping a window {pct(inside)}, the rest "
+                         f"{pct(outside)} [{smi}]")
+        finally:
+            srv.stop()
+
+        # 4. --metrics-out on bench, then stats and stats --diff
+        reps = []
+        for i in range(2):
+            path = str(work / f"bench-{i}.json")
+            argv = [*devflag, "--metrics-out", path, "bench"] + (
+                ["--trace", str(work / "bench-trace")] if i == 0 else [])
+            out, _ = run_cli(argv)
+            reps.append((path, json.loads(out)))
+        st_out, _ = run_cli(["stats", reps[0][0]])
+        diff_out, _ = run_cli(["stats", "--diff", reps[0][0], reps[1][0]])
+        assert "== spans (by total time) ==" in st_out and \
+            f"platform:            {dev.type}" in st_out
+        assert "== spans (by NEW total time) ==" in diff_out
+        assert list((work / "bench-trace").glob("*.pt.trace.json")), "bench --trace wrote nothing"
+        say("obs", f"--metrics-out on bench (engine {reps[0][1]['engine']}, "
+                     f"{reps[0][1]['pts_per_sec']:.0f} / {reps[1][1]['pts_per_sec']:.0f} pts/s): "
+                     f"`stats` renders {len(st_out.splitlines())} lines, `stats --diff` "
+                     f"{len(diff_out.splitlines())}; bench --trace wrote its trace")
+        say("obs", "stats: " + " | ".join(x for x in st_out.splitlines()[:5] if x))
+    finally:
+        from kdtree_tpu_torch import obs
+
+        obs.set_enabled(None)  # --metrics-out turned the gated metrics on
+        obs._metrics_out_path = None
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main(argv=None) -> int:
+    import faulthandler
+
+    faulthandler.enable()  # a crash in native code prints the Python stack
     argv = sys.argv[1:] if argv is None else argv
     try:
         import torch
@@ -2344,9 +2707,110 @@ def main(argv=None) -> int:
     plans = tempfile.mkdtemp(prefix="chip-smoke-plans-")
     os.environ["KDTREE_TPU_TORCH_PLAN_CACHE"] = plans
     try:
+        if "--profile-stress-child" in argv:
+            i = argv.index("--profile-stress-child")
+            return profile_stress_child(argv[i + 1], int(argv[i + 2]))
+        if "--profile-stress" in argv:
+            return profile_stress(int(argv[argv.index("--profile-stress") + 1]))
         return _run(argv, here, t_run)
     finally:
         shutil.rmtree(plans, ignore_errors=True)
+
+
+def profile_stress(n):
+    """``--profile-stress N``: see the module docstring."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    tally = {}
+    for mode in ("thread", "worker", "thread", "worker"):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, __file__, "--profile-stress-child", mode, str(n)],
+                              capture_output=True, text=True, timeout=60 * n + 300)
+        done = [ln for ln in proc.stdout.splitlines() if ln.startswith("window ")]
+        for ln in done:
+            say("stress", f"{mode}: {ln}")
+        crashed = proc.returncode != 0
+        if crashed:
+            tail = [ln for ln in proc.stderr.splitlines()
+                    if "Fatal" in ln or "Current thread" in ln or "File " in ln][:12]
+            say("stress", f"{mode}: the process died (exit {proc.returncode}) after "
+                          f"{len(done)} windows: " + " | ".join(tail))
+        t = tally.setdefault(mode, [0, 0])
+        t[0] += len(done) + crashed
+        t[1] += crashed
+        say("stress", f"{mode}: {len(done)} windows in {time.perf_counter() - t0:.1f} s")
+    say("stress", "windows under load opened by a thread of their own: "
+                  f"{tally['thread'][1]} of {tally['thread'][0]} crashed the process; by the "
+                  f"batch worker: {tally['worker'][1]} of {tally['worker'][0]} [{smi}]")
+    return 1 if tally["worker"][1] else 0
+
+
+def profile_stress_child(mode, n):
+    """One process of ``--profile-stress``: ``n`` windows opened by
+    ``mode`` ("thread": ``obs.profile.capture_for`` on a thread of its
+    own; "worker": ``POST /debug/profile``) under 4 clients."""
+    import os
+    import tempfile
+    import threading
+
+    import torch
+
+    from kdtree_tpu_torch.kernels import _build
+    from kdtree_tpu_torch.obs import profile as obs_profile
+    from kdtree_tpu_torch.obs import timeline
+    from kdtree_tpu_torch.ops.generate import generate_points_rowwise, generate_queries
+    from kdtree_tpu_torch.ops.morton import build_morton
+    from kdtree_tpu_torch.serve.engine import build_state
+    from kdtree_tpu_torch.serve.server import make_server
+
+    dev = torch.device("cuda")
+    _build.build()
+    tree = build_morton(generate_points_rowwise(SEED, DIM, N_POINTS, device=dev),
+                        bucket_cap=BUCKET)
+    srv = make_server(build_state(tree=tree, k=K, max_batch=MAX_BATCH), port=0,
+                      queue_rows=16 * MAX_BATCH)
+    srv.start()
+    port = srv.server_address[1]
+    pool = generate_queries(SEED + 1100, DIM, 1100, device=dev).cpu().numpy()
+    stop = threading.Event()
+
+    def client(i):
+        j = 0
+        while not stop.is_set():
+            rows = OBS_ROWS[(i + j) % len(OBS_ROWS)]
+            off = (i * 131 + j * 17) % (len(pool) - rows)
+            st, _, _ = _http(port, "POST", "/v1/knn", {"queries": pool[off:off + rows].tolist()})
+            assert st == 200
+            j += 1
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(OBS_CLIENTS)]
+    for t in threads:
+        t.start()
+    time.sleep(1.0)
+    log_dir = tempfile.mkdtemp(prefix="chip-smoke-stress-")
+    try:
+        for w in range(n):
+            if mode == "worker":
+                st, _, rep = _http(port, "POST", f"/debug/profile?seconds={OBS_PROFILE_S:g}")
+                assert st == 200, rep
+            else:
+                out = {}
+                t = threading.Thread(target=lambda: out.update(
+                    r=obs_profile.capture_for(OBS_PROFILE_S, log_dir, dev)))
+                t.start()
+                t.join()
+                rep = timeline.analyze_trace_file(out["r"].trace_file)
+            os.remove(rep["trace_file"])
+            print(f"window {w}: busy {rep['device']['busy_frac']:.4f}, "
+                  f"{rep['dispatches']['count']} tile.dispatch, {rep['device']['n_slices']} "
+                  f"slices", flush=True)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+        srv.stop()
+    return 0
 
 
 def _run(argv, here, t_run) -> int:
@@ -2449,7 +2913,7 @@ def _run(argv, here, t_run) -> int:
     ties = check_answer(points, tq_all[sample], td2[sample], tids[sample], K, "tiled sample")
     assert td2.shape == (TILED_QUERIES, K) and torch.isfinite(td2).all()
     say("main", f"tiled run: {SAMPLE}-query sample exact vs oracle ({ties} tied slots)")
-    for line in serve_profile(engine, served):
+    for line in serve_profile(engine, served, dev):
         say("main", line)
 
     # 5. the kernels at the main path's shapes. The forced engine bypasses
@@ -2481,7 +2945,7 @@ def _run(argv, here, t_run) -> int:
     # 9. distances above 32 axes, the recall dial, the ladder and tune
     t0 = time.perf_counter()
     phase_recall(dev, points, tree, smi)
-    del tree, engine  # phase 10 builds its trees on phase 4's points
+    del engine
     torch.cuda.empty_cache()
     wide_err = phase_wide(dev, smi)
     assert wide_err == 0.0, f"D > 32: kernel or tiled run differs by {wide_err}"
@@ -2494,9 +2958,16 @@ def _run(argv, here, t_run) -> int:
     classic_lines, _ = phase_classic(dev, points, here, smi)
     for line in classic_lines:
         say("classic", line)
-    del points
     say("classic", f"phase 10 in {time.perf_counter() - t0:.1f} s; the whole run "
                    f"{time.perf_counter() - t_run:.1f} s [{smi}]")
+
+    # 11. device observability: profile, the served window, costs, traces,
+    # the duty cycle, --metrics-out
+    t0 = time.perf_counter()
+    phase_obs(dev, points, tree, here, smi)
+    del points, tree
+    say("obs", f"phase 11 in {time.perf_counter() - t0:.1f} s; the whole run "
+               f"{time.perf_counter() - t_run:.1f} s [{smi}]")
 
     record = {"kernels": [{
         "name": "scan_knn",

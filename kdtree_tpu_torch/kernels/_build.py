@@ -6,7 +6,12 @@ the source, the ``.cuh`` headers beside it and the flags: an edited source
 builds anew, an unchanged one loads the library already there. Only the
 sources in this checkout and ``nvcc`` are used. :func:`build` starts one
 ``nvcc`` per source, all together, and waits for them; a failed build
-raises with nvcc's output.
+raises with nvcc's output. A build is the port's counterpart of an XLA
+compile: it runs inside a ``kernel.build`` profiler range (a capture
+window that holds one was not measuring steady state,
+:mod:`kdtree_tpu_torch.obs.timeline`) and each built source counts in
+``kdtree_kernel_builds_total`` with its seconds
+(:mod:`kdtree_tpu_torch.obs.torchrt`).
 """
 
 from __future__ import annotations
@@ -17,7 +22,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -57,26 +65,36 @@ def lib_path(name: str) -> Path:
 def build(names: list[str] | None = None) -> dict[str, str]:
     """Compile every named source (default: all) whose library is missing,
     one nvcc each, in parallel. Returns nvcc's output per built source."""
+    from kdtree_tpu_torch.obs import torchrt
+
     names = sources() if names is None else names
+    missing = [name for name in names if not lib_path(name).exists()]
+    if not missing:
+        return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = lib_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
-    logs, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        logs[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, out)
+    with torch.profiler.record_function("kernel.build"):
+        t0 = time.perf_counter()
+        procs = {}
+        for name in missing:
+            out = lib_path(name)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC_DIR / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True),
+                           tmp, out)
+        logs, failed = {}, []
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            logs[name] = log
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu (nvcc exit {proc.returncode}):"
+                              f"\n{log}")
+                continue
+            os.replace(tmp, out)
+        torchrt.record_build(len(missing) - len(failed),
+                             time.perf_counter() - t0)
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
     return logs

@@ -100,7 +100,8 @@ def merge_partials(pd: torch.Tensor, pi: torch.Tensor
                  T, S, TQ, k, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"scan_knn merge kernel launch failed with CUDA error {err}")
-    merge_partials.launches += 1
+    if T * TQ > 0:  # the launcher launches nothing for no rows
+        merge_partials.launches += 1
     return out_d, out_i
 
 
@@ -156,7 +157,8 @@ def scan_partials(tree, tq, cand, cand_lb, k: int,
     if err != 0:
         raise RuntimeError(f"scan_knn kernel launch failed with CUDA error "
                            f"{err}")
-    scan_tiles.launches += 1
+    if T > 0:  # the launcher launches nothing for no tiles
+        scan_tiles.launches += 1
     return out_d, out_i
 
 

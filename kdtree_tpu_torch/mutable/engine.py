@@ -861,6 +861,11 @@ class MutableEngine:
                         delta_rows=new_st.delta.rows,
                         tombstones=len(new_st.dead),
                     )
+            # the rebuild's wall cost lands in the maintenance side of the
+            # cost ledger: epochs are not free even though no request pays
+            from kdtree_tpu_torch.obs import costs as costs_mod
+
+            costs_mod.count_rebuild((time.time() - t0_unix) * 1e3)
             # a compaction IS a snapshot build: emit the new epoch's
             # artifact for blue/green secondaries (off the lock, on this
             # thread — the swap already landed, so serving never waits on

@@ -253,14 +253,23 @@ def record(kind: str, **fields) -> None:
 
 def _dump_history_companion(reason: str) -> None:
     """Every incident that earned a flight dump gets the metric-history
-    ring dumped alongside it (``history-<reason>.json``): the flight ring
-    says what happened in order, the history ring says how the totals
-    were trending into it. Piggybacks the flight rate limit — this only
-    runs when a flight file was claimed."""
+    ring dumped alongside it (``history-<reason>.json``) AND the pinned
+    distributed traces (``trace-<reason>.json``, obs/trace.py): the
+    flight ring says what happened in order, the history ring says how
+    the totals were trending into it, and the trace companion says where
+    each retained slow/errored/degraded request's time went. Piggybacks
+    the flight rate limit — this only runs when a flight file was
+    claimed."""
     try:
         from kdtree_tpu_torch.obs import history
 
         history.auto_dump(reason)
+    except Exception:
+        pass
+    try:
+        from kdtree_tpu_torch.obs import trace
+
+        trace.auto_dump(reason)
     except Exception:
         pass
 

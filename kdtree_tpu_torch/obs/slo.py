@@ -176,11 +176,12 @@ def default_specs() -> List[SloSpec]:
         ),
         SloSpec(
             name="device-busy",
-            # the gauge is written only when a profiler capture is
-            # analyzed; the port has no capture path yet (ROADMAP item
-            # 15), so the verdict stays OK with data:false — an idle
-            # gauge is missing data, never a burn. The spec is kept so
-            # /healthz names the same SLOs as the reference's.
+            # the gauge is written each time a profiler capture is
+            # analyzed (obs/timeline.py): a POST /debug/profile window,
+            # the `profile` command, or the server's duty cycle every
+            # KDTREE_TPU_PROFILE_DUTY_PERIOD_S when KDTREE_TPU_PROFILE_DUTY=1
+            # (off by default in the port). Between captures the gauge is
+            # missing data, never a burn.
             objective="captured device busy_frac stays above 0.5 (fed by "
                       "the profiling duty cycle; duty off => only manual "
                       "captures feed it and verdicts stay data:false "

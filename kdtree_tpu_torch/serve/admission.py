@@ -61,6 +61,7 @@ class PendingRequest:
         "queries", "k", "deadline", "enqueued_at", "dispatched_at",
         "event", "d2", "ids", "degraded", "error", "trace_id", "verb",
         "radius", "box_hi", "counts", "truncated", "recall_target", "gear",
+        "trace_ctx",
     )
 
     def __init__(
@@ -71,6 +72,7 @@ class PendingRequest:
         radius: Optional[np.ndarray] = None,
         box_hi: Optional[np.ndarray] = None,
         recall_target: Optional[float] = None,
+        trace_ctx=None,
     ) -> None:
         self.queries = queries  # f32[q, D], validated by the handler
         self.k = k
@@ -96,6 +98,10 @@ class PendingRequest:
         # queue/coalesce/device decomposition can be pulled from the
         # flight ring by id
         self.trace_id = trace_id
+        # the distributed-trace context (obs/trace.py) whose span id is
+        # the handler's server-root span: the batcher parents the request's
+        # queue and dispatch spans under it; None when tracing is off
+        self.trace_ctx = trace_ctx
         self.enqueued_at = time.monotonic()
         self.dispatched_at: Optional[float] = None
         self.event = threading.Event()

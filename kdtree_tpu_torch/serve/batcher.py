@@ -27,6 +27,28 @@ client-requested one is a kept contract, echoed as its ``gear`` only. At
 the ladder's floor gear every request goes through the brute-force path.
 The online recall sampler re-answers every Nth approximate batch exactly
 and publishes the measured recall as ``kdtree_recall_sampled``.
+
+Every answered request is attributed a cost vector in the server's
+:class:`~kdtree_tpu_torch.obs.costs.CostLedger`: its row share of the
+batch's measured dispatch span (the shares sum exactly to the span), its
+queue wait, rows, planned visits and overflow retries; the recall
+sampler's shadow re-answers go to the ledger's maintenance side. Under a
+request's trace context (:mod:`kdtree_tpu_torch.obs.trace`) the worker
+records its ``serve/queue`` and ``serve/dispatch`` spans, and the batch
+runs under the coalescing leader's context so engine spans nest there.
+
+Profiler capture windows (``POST /debug/profile``, the duty cycle) start
+and stop on the worker's own thread, between batches
+(:meth:`MicroBatcher.capture_for`): the thread that launches every
+kernel is the thread that starts and stops the profiler. Windows opened
+from another thread while the worker launched kernels crashed the
+process now and then (a SIGSEGV in a native thread; 1 of 21 on an H100
+under 4 clients, ``chip_smoke.py --profile-stress``); none of 30 opened
+on the worker's thread did. The asking thread writes the trace. No batch
+is dispatched while the profiler starts or stops, and the export holds
+the GIL: a window pauses serving for their sum (``CaptureResult``'s
+``start_seconds``/``stop_seconds``/``export_seconds``), seconds for the
+process's first window, when CUPTI starts.
 """
 
 from __future__ import annotations
@@ -38,7 +60,9 @@ from typing import List, Optional
 import numpy as np
 
 from kdtree_tpu_torch import obs
+from kdtree_tpu_torch.obs import costs as costs_mod
 from kdtree_tpu_torch.obs import flight
+from kdtree_tpu_torch.obs import trace as trace_mod
 from kdtree_tpu_torch.serve.admission import AdmissionQueue, PendingRequest
 from kdtree_tpu_torch.serve.engine import MIN_BUCKET, _pow2_ceil, batch_bucket
 from kdtree_tpu_torch.serve.faults import SITE_BATCH
@@ -58,6 +82,17 @@ __all__ = ["DEFAULT_MAX_BATCH", "DEFAULT_MAX_WAIT_MS", "MIN_BUCKET",
            "MicroBatcher", "batch_bucket"]
 
 
+class _CaptureRequest:
+    """One capture window asked of the batch worker."""
+
+    def __init__(self, seconds: float, log_dir: str) -> None:
+        self.seconds = max(float(seconds), 0.0)
+        self.log_dir = log_dir
+        self.done = threading.Event()
+        self.result = None
+        self.error: Optional[BaseException] = None
+
+
 class MicroBatcher:
     """The batch worker: one non-daemon thread draining an
     :class:`~kdtree_tpu_torch.serve.admission.AdmissionQueue` through the
@@ -72,6 +107,7 @@ class MicroBatcher:
         ladder=None,
         faults=None,
         recall_sample: float = 0.0,
+        costs: Optional[costs_mod.CostLedger] = None,
     ) -> None:
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
@@ -87,6 +123,11 @@ class MicroBatcher:
         self.max_batch = _pow2_ceil(max_batch)
         self.max_wait = max(float(max_wait_ms), 0.0) / 1e3
         self._thread: Optional[threading.Thread] = None
+        # the pending or open capture window (capture_for), and the
+        # worker-side state of an open one: (its Window, deadline)
+        self._capture_lock = threading.Lock()
+        self._capture_req: Optional[_CaptureRequest] = None
+        self._window: Optional[tuple] = None
         reg = obs.get_registry()
         self._lat = {
             phase: reg.histogram(
@@ -156,6 +197,50 @@ class MicroBatcher:
         self._sample_tick = 0
         self._sampled_ewma: Optional[float] = None
         self._samples = reg.counter("kdtree_recall_samples_total")
+        # the cost ledger; the server shares this instance so the HTTP
+        # layer's byte counts land in the same class table
+        self.costs = costs if costs is not None else costs_mod.CostLedger()
+
+    def _attribute(self, live, verb, gear, forced, span_ms, visit_cap,
+                   retries=0):
+        """Amortize one dispatch's span over its members by row share;
+        returns the per-member device_ms shares. Planned visits per row
+        are the resolved visit cap of an approximate gear, every bucket
+        of an exact one."""
+        return self.costs.attribute_batch(
+            verb=verb, gear=gear, span_ms=span_ms,
+            members=[
+                (r.rows, round((r.dispatched_at - r.enqueued_at) * 1e3, 3),
+                 "degraded" if forced is not None else "ok")
+                for r in live
+            ],
+            retries=retries,
+            visits_per_row=int(visit_cap or self.engine.tree.num_buckets),
+        )
+
+    @staticmethod
+    def _trace_phases(r, done, done_unix, dispatch_ctx, lead, **attrs):
+        """A request's ``serve/queue`` (admit -> dispatch) and
+        ``serve/dispatch`` (dispatch -> done) spans under its server-root
+        span: monotonic deltas anchored to one wall-clock read. The
+        leader's dispatch span keeps the id its engine spans nest under."""
+        if r.trace_ctx is None:
+            return
+        ctx = r.trace_ctx
+        trace_mod.record_span(
+            ctx.trace_id, trace_mod.new_span_id(), ctx.span_id,
+            "serve/queue",
+            done_unix - (done - r.enqueued_at),
+            done_unix - (done - r.dispatched_at),
+            rows=r.rows,
+        )
+        trace_mod.record_span(
+            ctx.trace_id,
+            (dispatch_ctx.span_id if lead is r and dispatch_ctx is not None
+             else trace_mod.new_span_id()),
+            ctx.span_id, "serve/dispatch",
+            done_unix - (done - r.dispatched_at), done_unix, **attrs,
+        )
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -178,6 +263,7 @@ class MicroBatcher:
 
     def _worker(self) -> None:
         while True:
+            self._service_capture()
             first = self.queue.pop_wait(0.05)
             if first is None:
                 # exit gates on the QUEUE's closed flag, not a separate
@@ -185,9 +271,80 @@ class MicroBatcher:
                 # raises, so a request this check can't see was never
                 # admitted
                 if self.queue.closed and self.queue.rows == 0:
+                    self._service_capture(closing=True)
                     return
                 continue
             self._dispatch(self._collect(first))
+
+    # -- profiler capture windows --------------------------------------------
+
+    def capture_for(self, seconds: float, log_dir: str):
+        """A capture window of ``seconds`` over the serving process. The
+        batch worker starts and stops the profiler on its own thread,
+        between batches, while it keeps serving; this (the asking) thread
+        waits, then writes the trace. Returns the closed
+        :class:`~kdtree_tpu_torch.obs.profile.CaptureResult`. Raises
+        :class:`~kdtree_tpu_torch.obs.profile.CaptureBusyError` when a
+        window is already pending or open, and whatever the capture
+        raised."""
+        from kdtree_tpu_torch.obs.profile import CaptureBusyError
+
+        req = _CaptureRequest(seconds, log_dir)
+        with self._capture_lock:
+            if self._capture_req is not None:
+                raise CaptureBusyError(
+                    "a profiler capture is already active in this process "
+                    "(one capture at a time)")
+            self._capture_req = req
+        while not req.done.wait(0.5):
+            if self._thread is None or not self._thread.is_alive():
+                # the worker exited before it saw the request
+                with self._capture_lock:
+                    if self._capture_req is req:
+                        self._capture_req = None
+                raise RuntimeError("the batch worker is not running")
+        if req.error is not None:
+            raise req.error
+        # the export is the window's longest step; it runs here, off the
+        # worker (it holds the GIL all the same, so Python threads pause)
+        return req.result.export()
+
+    def _service_capture(self, closing: bool = False) -> None:
+        """Between batches: open a requested window, or stop one whose
+        time is up (or, with ``closing``, any open one: the worker is
+        exiting) and hand it to the asking thread to export."""
+        from kdtree_tpu_torch.obs import profile
+
+        req = self._capture_req
+        if req is None:
+            return
+        if self._window is None:
+            if closing:
+                self._finish_capture(req, error=RuntimeError(
+                    "the server stopped before the capture window opened"))
+                return
+            try:
+                window = profile.Window(req.log_dir, self.engine.tree.device)
+            except Exception as e:
+                self._finish_capture(req, error=e)
+                return
+            self._window = (window, time.monotonic() + req.seconds)
+            return
+        window, deadline = self._window
+        if closing or time.monotonic() >= deadline:
+            self._window = None
+            try:
+                window.stop()
+            except Exception as e:
+                self._finish_capture(req, error=e)
+                return
+            self._finish_capture(req, result=window)
+
+    def _finish_capture(self, req, result=None, error=None) -> None:
+        req.result, req.error = result, error
+        with self._capture_lock:
+            self._capture_req = None
+        req.done.set()
 
     def _collect(self, first: PendingRequest) -> List[PendingRequest]:
         """Absorb arrivals behind ``first`` until the batch is full or
@@ -286,12 +443,17 @@ class MicroBatcher:
             pad = np.broadcast_to(q[-1], (bucket - rows, q.shape[1]))
             q = np.concatenate([q, pad], axis=0)
         effective, ladder_t = self._effective(live, spec)
+        # the batch's device work runs under the COALESCING LEADER's trace
+        # context (engine spans can parent under one trace only)
+        lead = next((r for r in live if r.trace_ctx is not None), None)
+        dispatch_ctx = lead.trace_ctx.child() if lead is not None else None
         try:
-            if effective is None:
-                d2, ids, source = self.engine.knn_batch(q)
-            else:
-                d2, ids, source = self.engine.knn_batch(
-                    q, recall_target=effective)
+            with trace_mod.active(dispatch_ctx):
+                if effective is None:
+                    d2, ids, source = self.engine.knn_batch(q)
+                else:
+                    d2, ids, source = self.engine.knn_batch(
+                        q, recall_target=effective)
         except Exception as e:
             self._errors.inc()
             flight.record("serve.batch_error", rows=rows,
@@ -315,17 +477,27 @@ class MicroBatcher:
             epoch=getattr(self.engine, "last_answer_epoch", 0),
             traces=[r.trace_id for r in live],
         )
+        shares = self._attribute(
+            live, "knn", gear, forced,
+            round((done - live[0].dispatched_at) * 1e3, 3), visit_cap)
+        done_unix = time.time()
         off = 0
-        for r in live:
+        for r, share in zip(live, shares):
             self._lat["dispatch"].observe(done - r.dispatched_at)
             self._lat["total"].observe(done - r.enqueued_at,
                                        exemplar=r.trace_id)
+            self._trace_phases(r, done, done_unix, dispatch_ctx, lead,
+                               rows=rows, bucket=bucket,
+                               coalesced=len(live), plan=source,
+                               gear=gear or "exact")
             # per-request decomposition, by trace id: queue (admit ->
-            # dispatch) vs device (dispatch -> done)
+            # dispatch) vs device (dispatch -> done, the wait) and the
+            # request's amortized share of the span (its cost)
             flight.record(
                 "serve.request", trace=r.trace_id, rows=r.rows,
                 queue_ms=round((r.dispatched_at - r.enqueued_at) * 1e3, 3),
                 device_ms=round((done - r.dispatched_at) * 1e3, 3),
+                device_share_ms=share,
                 total_ms=round((done - r.enqueued_at) * 1e3, 3),
             )
             # fulfill LAST: it wakes the waiting handler thread, and a
@@ -356,7 +528,11 @@ class MicroBatcher:
         try:
             from kdtree_tpu_torch.approx.recall import recall_at_k
 
+            t0 = time.monotonic()
             _, exact_ids, _ = self.engine.knn_batch(q)
+            # a correction dispatch answers no client: maintenance cost
+            self.costs.attribute_correction(
+                round((time.monotonic() - t0) * 1e3, 3), rows)
             measured = recall_at_k(approx_ids[:rows], exact_ids[:rows])
         except Exception as e:
             flight.record("recall.sample_error", error=repr(e)[:200])
@@ -402,13 +578,16 @@ class MicroBatcher:
             aux = np.concatenate([aux, ap], axis=0)
         effective, ladder_t = self._effective(live, spec)
         with_ids = not verb.startswith("count")
+        lead = next((r for r in live if r.trace_ctx is not None), None)
+        dispatch_ctx = lead.trace_ctx.child() if lead is not None else None
         try:
-            if verb in ("radius", "count_radius"):
-                res = self.engine.radius_batch(
-                    q, aux, recall_target=effective, with_ids=with_ids)
-            else:
-                res = self.engine.range_batch(
-                    q, aux, recall_target=effective, with_ids=with_ids)
+            with trace_mod.active(dispatch_ctx):
+                if verb in ("radius", "count_radius"):
+                    res = self.engine.radius_batch(
+                        q, aux, recall_target=effective, with_ids=with_ids)
+                else:
+                    res = self.engine.range_batch(
+                        q, aux, recall_target=effective, with_ids=with_ids)
         except Exception as e:
             self._errors.inc()
             flight.record("serve.batch_error", rows=rows,
@@ -438,15 +617,27 @@ class MicroBatcher:
             epoch=getattr(self.engine, "last_answer_epoch", 0),
             traces=[r.trace_id for r in live],
         )
+        # the span already CONTAINS the verb driver's overflow-retry
+        # re-dispatches; the retry count follows the same row shares
+        shares = self._attribute(
+            live, fam, gear, forced,
+            round((done - live[0].dispatched_at) * 1e3, 3), visit_cap,
+            retries=int(res.retries))
+        done_unix = time.time()
         off = 0
-        for r in live:
+        for r, share in zip(live, shares):
             self._lat["dispatch"].observe(done - r.dispatched_at)
             self._lat["total"].observe(done - r.enqueued_at,
                                        exemplar=r.trace_id)
+            self._trace_phases(r, done, done_unix, dispatch_ctx, lead,
+                               rows=rows, bucket=bucket,
+                               coalesced=len(live), verb=verb,
+                               gear=gear or "exact")
             flight.record(
                 "serve.request", trace=r.trace_id, rows=r.rows, verb=verb,
                 queue_ms=round((r.dispatched_at - r.enqueued_at) * 1e3, 3),
                 device_ms=round((done - r.dispatched_at) * 1e3, 3),
+                device_share_ms=share,
                 total_ms=round((done - r.enqueued_at) * 1e3, 3),
             )
             r.fulfill(
@@ -469,6 +660,7 @@ class MicroBatcher:
         self._by_gear["brute-deadline" if reason == "brute-deadline"
                       else "exact"].inc()
         counts = None
+        t0 = time.monotonic()
         try:
             if req.verb == "knn":
                 d2, ids = self.engine.fallback_knn(req.queries, req.k)
@@ -492,10 +684,39 @@ class MicroBatcher:
             req.fail(f"fallback dispatch failed: {e!r}")
             return
         done = time.monotonic()
+        # a fallback is its own single-member dispatch: the brute-force
+        # span is the request's whole device cost; every fallback answer
+        # is degraded
+        self.costs.attribute_request(
+            verb=self._verb_family(req.verb) if req.verb != "knn" else "knn",
+            gear="brute-deadline" if reason == "brute-deadline" else "exact",
+            span_ms=round((done - t0) * 1e3, 3),
+            rows=req.rows,
+            queue_ms=round(
+                ((req.dispatched_at if req.dispatched_at is not None
+                  else done) - req.enqueued_at) * 1e3, 3),
+            outcome="degraded",
+        )
         if req.dispatched_at is not None:
             self._lat["dispatch"].observe(done - req.dispatched_at)
         self._lat["total"].observe(done - req.enqueued_at,
                                    exemplar=req.trace_id)
+        if req.trace_ctx is not None:
+            ctx = req.trace_ctx
+            done_unix = time.time()
+            start = (req.dispatched_at if req.dispatched_at is not None
+                     else req.enqueued_at)
+            trace_mod.record_span(
+                ctx.trace_id, trace_mod.new_span_id(), ctx.span_id,
+                "serve/queue",
+                done_unix - (done - req.enqueued_at),
+                done_unix - (done - start), rows=req.rows,
+            )
+            trace_mod.record_span(
+                ctx.trace_id, trace_mod.new_span_id(), ctx.span_id,
+                "serve/fallback", done_unix - (done - start), done_unix,
+                rows=req.rows, degraded=reason,
+            )
         flight.record(
             "serve.request", trace=req.trace_id, rows=req.rows,
             degraded=reason,

@@ -302,6 +302,11 @@ class ServeState:
         of the full ladder."""
         if buckets is None:
             buckets = self.warmup_buckets()
+        # the runtime facts (platform, device, init time) every serving
+        # report carries; idempotent
+        from kdtree_tpu_torch.obs import torchrt
+
+        torchrt.install(self.engine.tree.device)
         with obs.span("serve.warmup", sync=False, buckets=len(buckets)):
             self.engine.warmup(buckets)
         obs.get_registry().gauge("kdtree_serve_warmup_buckets").set(

@@ -29,13 +29,23 @@ server's on the same points and requests (``tests/test_torch_server.py``,
   (with ``Retry-After``) while warming. The body carries the mutable
   block (epoch, delta rows, tombstones), the box, ``id_offset``,
   ``read_only`` and the ``snapshot`` block (role, dir, live version) when
-  they apply, the SLO verdicts and the degradation ladder's gear (when
-  the ladder is armed) — every key of the reference's but ``headroom``.
+  they apply, the SLO verdicts, the degradation ladder's gear (when
+  the ladder is armed) and the capacity ``headroom`` verdict
+  (``obs/costs.py``; ``data: false`` until requests were answered).
 - ``GET /metrics`` — the Prometheus text exposition of the registry
   (``?openmetrics=1`` for the exemplar flavour).
 - ``GET /debug/flight`` — the flight recorder's ring as JSON
   (``?trace=<id>`` / ``?reason=<r>`` filter it).
 - ``GET /debug/history`` — the metric-history ring (``?limit=N``).
+- ``POST /debug/profile?seconds=N`` — open a ``torch.profiler`` capture
+  window over the live process for N seconds (0 < N <= 60, default 3),
+  every thread and the card, then answer the analyzed device timeline
+  (``obs/timeline.py`` report JSON). One capture at a time: 409 while one
+  runs (the profiling duty cycle's windows included).
+- ``GET /debug/trace`` — the pinned-trace index; ``GET /debug/trace/<id>``
+  — one trace's local span list (``obs/trace.py``).
+- ``GET /debug/costs?window=S`` — the cost ledger: per-class cost
+  vectors, the windowed cost-per-query and the headroom verdict.
 - ``GET`` / ``POST /debug/faults`` — the deterministic fault-injection
   layer (``serve/faults.py``), opt-in (``--debug-faults`` or
   ``KDTREE_TPU_FAULTS``), 403 otherwise.
@@ -46,16 +56,15 @@ reference's text). An approximate answer echoes its ``gear``
 (``approx:<t>``); one the degradation ladder forced is also flagged
 ``degraded``; a verb answer cut by the visit cap says ``truncated``.
 
-What the reference serves beyond this answers 501 naming its ROADMAP
-item, after reading the request body (an unread body would desync a
-keep-alive connection): ``/debug/profile``, ``/debug/trace`` and
-``/debug/costs`` (item 15).
-
 429 shed responses carry a ``Retry-After`` header derived from the
 admission queue's measured drain rate. Every ``/v1/knn`` request carries
 a trace id (client ``X-Request-Id`` or server-generated, echoed as
 ``trace_id``) that threads admission, batcher and dispatch in the flight
-ring. Handler threads are glue: validate, admit, block on the request
+ring. The request adopts a propagated ``X-Trace-Context`` (or mints a
+local root): its server-root, queue and dispatch spans land in the trace
+buffer, and errored, degraded and p99-slow requests are pinned there.
+Every answer's request and response bytes go to the cost ledger.
+Handler threads are glue: validate, admit, block on the request
 future, serialize. All engine work happens in the batch worker — except
 the oversized-request degradations, which run brute force right here.
 """
@@ -77,8 +86,10 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 
 from kdtree_tpu_torch import obs
+from kdtree_tpu_torch.obs import costs as costs_mod
 from kdtree_tpu_torch.obs import flight
 from kdtree_tpu_torch.obs import history as obs_history
+from kdtree_tpu_torch.obs import trace as trace_mod
 from kdtree_tpu_torch.serve.admission import (
     AdmissionQueue,
     PendingRequest,
@@ -102,6 +113,8 @@ __all__ = ["GracefulHTTPServer", "JsonRequestHandler", "KnnRequestHandler",
 
 MAX_BODY_BYTES = 64 << 20  # a [max_batch, D] float batch is far smaller
 MAX_WRITE_IDS = 4096  # rows per upsert/delete request (split larger)
+DEFAULT_PROFILE_SECONDS = 3.0
+MAX_PROFILE_SECONDS = 60.0  # /debug/profile window cap
 
 # write-path apply latency buckets (milliseconds): healthy masked-write
 # applies sit in the sub-10ms range
@@ -109,12 +122,6 @@ _WRITE_LATENCY_BUCKETS_MS = (
     0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0,
     500.0, 1000.0, 2500.0,
 )
-
-# the reference's endpoints this port answers 501, by the ROADMAP queue 1
-# item that brings them
-_NOT_PORTED = {
-    "/debug/profile": 15, "/debug/trace": 15, "/debug/costs": 15,
-}
 
 _TRACE_ID_BAD = re.compile(r"[^A-Za-z0-9._-]")
 
@@ -131,11 +138,6 @@ def _count_request(status: str) -> None:
     obs.get_registry().counter(
         "kdtree_serve_requests_total", labels={"status": status}
     ).inc()
-
-
-def _not_ported(what: str, item: int) -> dict:
-    return {"error": f"{what} is not ported to kdtree_tpu_torch yet "
-                     f"(ROADMAP queue 1 item {item})"}
 
 
 class JsonRequestHandler(BaseHTTPRequestHandler):
@@ -175,7 +177,8 @@ class JsonRequestHandler(BaseHTTPRequestHandler):
         self, code: int, obj: dict, extra_headers: Optional[dict] = None,
     ) -> int:
         # default=str: flight-ring events carry arbitrary recorded fields;
-        # one unserializable value must not drop the connection
+        # one unserializable value must not drop the connection. Returns
+        # the body size — the cost ledger's bytes_out source
         return self._send_bytes(
             code, (json.dumps(obj, default=str) + "\n").encode("utf-8"),
             "application/json", extra_headers,
@@ -214,6 +217,22 @@ class JsonRequestHandler(BaseHTTPRequestHandler):
                              "matched": len(rep["events"])}
         self._send_json(200, rep)
 
+    def _send_trace(self, path: str) -> None:
+        """``GET /debug/trace`` (the pinned-trace index) and
+        ``GET /debug/trace/<id>`` (one trace's local span list)."""
+        tid = path[len("/debug/trace"):].strip("/")
+        if not tid:
+            self._send_json(200, trace_mod.index())
+            return
+        payload = trace_mod.get_trace(tid)
+        if payload is None:
+            self._send_json(404, {"error": f"no such trace: {tid} "
+                                           "(aged out or never recorded)"})
+            return
+        payload["trace_version"] = trace_mod.TRACE_VERSION
+        payload["pid"] = os.getpid()
+        self._send_json(200, payload)
+
     def _read_json_object(self, max_bytes: int = MAX_BODY_BYTES):
         """Read + parse one JSON-object request body, or None with the
         4xx already written: 411 missing Content-Length, 400 negative,
@@ -228,6 +247,9 @@ class JsonRequestHandler(BaseHTTPRequestHandler):
                             {"error": f"Content-Length must be in "
                                       f"[0, {max_bytes}]"})
             return None
+        # the cost ledger's bytes_in source: the declared body size the
+        # answer paths attribute to the request's cost class
+        self._body_bytes = length
         try:
             payload = json.loads(self.rfile.read(length).decode("utf-8"))
         except (UnicodeDecodeError, ValueError):
@@ -330,10 +352,22 @@ class KnnRequestHandler(JsonRequestHandler):
             self._send_json(200, {"enabled": self.server.faults_mutable,
                                   "active": self.server.faults.describe()})
             return
-        item = _NOT_PORTED.get(
-            "/debug/trace" if path.startswith("/debug/trace/") else path)
-        if item is not None:
-            self._send_json(501, _not_ported(f"GET {path}", item))
+        if path == "/debug/trace" or path.startswith("/debug/trace/"):
+            self._send_trace(path)
+            return
+        if path == "/debug/costs":
+            # the cost ledger's report: per-class cumulative cost vectors,
+            # the windowed cost-per-query and the headroom verdict — what
+            # the `costs` command renders
+            qs = parse_qs(urlparse(self.path).query)
+            try:
+                window_s = float(qs.get("window", ["60"])[0])
+            except ValueError:
+                window_s = costs_mod.DEFAULT_WINDOW_S
+            if not (window_s > 0):
+                window_s = costs_mod.DEFAULT_WINDOW_S
+            self._send_json(200, self.server.costs.report(
+                window_s=window_s, history=self.server.history))
             return
         self._send_json(404, {"error": f"no such path: {path}"})
 
@@ -384,12 +418,19 @@ class KnnRequestHandler(JsonRequestHandler):
                 "name": spec.name,
                 "recall_target": spec.recall_target,
             }
+        # the capacity-headroom verdict: predicted sustainable rate vs
+        # observed; data:false while idle — no traffic is not no headroom
+        body["headroom"] = self.server.costs.headroom(
+            history=self.server.history)
         return body
 
     # -- POST ---------------------------------------------------------------
 
     def do_POST(self) -> None:
         path = self.path.split("?", 1)[0]
+        if path == "/debug/profile":
+            self._do_debug_profile()
+            return
         if path == "/debug/faults":
             self._do_debug_faults()
             return
@@ -399,16 +440,13 @@ class KnnRequestHandler(JsonRequestHandler):
         if path in ("/v1/radius", "/v1/range", "/v1/count"):
             self._do_verb(path.rsplit("/", 1)[1])
             return
-        if path in _NOT_PORTED:
-            self._drain_body()
-            self._send_json(501, _not_ported(f"POST {path}", _NOT_PORTED[path]))
-            return
         if path != "/v1/knn":
             self._send_json(404, {"error": f"no such path: {path}"})
             return
         if self._fire_fault(SITE_KNN):
             return
         trace = _trace_id(self.headers)
+        tr = self._trace_start(trace)
         parsed = self._parse_knn_body()
         if parsed is None:
             return  # error response already sent
@@ -420,21 +458,77 @@ class KnnRequestHandler(JsonRequestHandler):
                             extra_headers={"Retry-After": "1"})
             return
         if queries.shape[0] > state.max_batch:
-            out = self._oversized(trace, int(queries.shape[0]),
+            out = self._oversized(trace, tr, int(queries.shape[0]),
                                   lambda: state.engine.fallback_knn(queries, k))
             if out is not None:
-                self._send_json(200, self._result_json(
+                sent = self._send_json(200, self._result_json(
                     out[0], out[1], k, degraded="oversized", trace_id=trace))
+                self._count_bytes("knn", "exact", "degraded", sent)
             return
         deadline = (time.monotonic() + deadline_s) if deadline_s else None
         req = PendingRequest(queries, k, deadline, trace_id=trace,
-                             recall_target=recall_target)
-        if self._submit_and_wait(req, trace):
-            self._send_json(200, self._result_json(
+                             recall_target=recall_target,
+                             trace_ctx=self._root_ctx(tr))
+        if self._submit_and_wait(req, trace, tr):
+            sent = self._send_json(200, self._result_json(
                 req.d2, req.ids, k, degraded=req.degraded, trace_id=trace,
                 gear=req.gear))
+            self._count_bytes("knn", req.gear,
+                              "degraded" if req.degraded else "ok", sent)
 
-    def _submit_and_wait(self, req: PendingRequest, trace: str) -> bool:
+    def _trace_start(self, trace: str):
+        """The request's trace handle: (adopted or minted context, its
+        server-root span id, start wall clock), or None with tracing off."""
+        if not trace_mod.enabled():
+            return None
+        return (trace_mod.adopt(self.headers, trace),
+                trace_mod.new_span_id(), time.time())
+
+    @staticmethod
+    def _root_ctx(tr):
+        """The context the batcher parents a request's spans under: the
+        server-root span of ``tr``."""
+        if tr is None:
+            return None
+        ctx, root_id, _ = tr
+        return trace_mod.TraceContext(ctx.trace_id, root_id, ctx.sampled)
+
+    def _trace_finish(self, tr, status: str, degraded, rows: int,
+                      track_slow: bool = True) -> None:
+        """Close the request's server-root span and apply the tail-sampling
+        promotion rules: errored/timed-out and degraded answers always pin,
+        p99-relative slow answers pin, head-sampled contexts pin. Never
+        raises — called on the response path."""
+        if tr is None:
+            return
+        try:
+            ctx, root_id, t0_unix = tr
+            end = time.time()
+            attrs = {"status": status, "rows": rows}
+            if degraded:
+                attrs["degraded"] = degraded
+            trace_mod.record_span(
+                ctx.trace_id, root_id, ctx.span_id or "",
+                "serve/request", t0_unix, end, **attrs,
+            )
+            if status in ("error", "timeout"):
+                trace_mod.promote(ctx.trace_id, "error")
+            if degraded:
+                trace_mod.promote(ctx.trace_id, "degraded")
+            if track_slow and status in ("ok", "degraded") and \
+                    self.server.slow_tracker.note(end - t0_unix):
+                trace_mod.promote(ctx.trace_id, "slow")
+            if ctx.sampled:
+                trace_mod.promote(ctx.trace_id, "sampled")
+        except Exception:
+            pass
+
+    def _count_bytes(self, verb: str, gear, outcome: str, sent: int) -> None:
+        self.server.costs.count_bytes(
+            verb=verb, gear=gear, outcome=outcome,
+            bytes_in=getattr(self, "_body_bytes", 0), bytes_out=sent)
+
+    def _submit_and_wait(self, req: PendingRequest, trace: str, tr) -> bool:
         """Admit ``req`` to the batcher and wait for its answer. False
         with the 429/503/504/500 already written; True once the answer is
         in ``req`` (counted ok or degraded) for the caller to send."""
@@ -456,17 +550,21 @@ class KnnRequestHandler(JsonRequestHandler):
             _count_request("timeout")
             flight.record("serve.timeout", trace=trace, rows=req.rows)
             flight.auto_dump("serve-error")
+            self._trace_finish(tr, "timeout", None, req.rows)
             self._send_json(504, {"error": "request timed out in service",
                                   "trace_id": trace})
             return False
         if req.error is not None:
             _count_request("error")
+            self._trace_finish(tr, "error", None, req.rows)
             self._send_json(500, {"error": req.error, "trace_id": trace})
             return False
         _count_request("degraded" if req.degraded else "ok")
+        self._trace_finish(tr, "degraded" if req.degraded else "ok",
+                           req.degraded, req.rows)
         return True
 
-    def _oversized(self, trace: str, rows: int, answer, **fields):
+    def _oversized(self, trace: str, tr, rows: int, answer, **fields):
         """One request bigger than any micro-batch: ``answer()`` (the
         brute-force path) runs HERE — exact, flagged degraded — instead of
         erroring or distorting the batch pipeline. The rows still charge
@@ -497,12 +595,14 @@ class KnnRequestHandler(JsonRequestHandler):
             _count_request("error")
             flight.record("serve.error", trace=trace, error=repr(e)[:200])
             flight.auto_dump("serve-error")
+            self._trace_finish(tr, "error", None, rows)
             self._send_json(500, {"error": f"engine failure: {e!r}",
                                   "trace_id": trace})
             return None
         finally:
             self.server.queue.release(charge)
         _count_request("degraded")
+        self._trace_finish(tr, "degraded", "oversized", rows)
         return out
 
     def _parse_knn_body(
@@ -587,6 +687,7 @@ class KnnRequestHandler(JsonRequestHandler):
         if self._fire_fault(SITE_VERB):
             return
         trace = _trace_id(self.headers)
+        tr = self._trace_start(trace)
         parsed = self._parse_verb_body(endpoint)
         if parsed is None:
             return  # error response already sent
@@ -604,23 +705,27 @@ class KnnRequestHandler(JsonRequestHandler):
             fallback = (state.engine.fallback_radius if by_radius
                         else state.engine.fallback_range)
             res = self._oversized(
-                trace, int(queries.shape[0]),
+                trace, tr, int(queries.shape[0]),
                 lambda: fallback(queries, radius if by_radius else box_hi,
                                  with_ids=not verb.startswith("count")),
                 verb=verb)
             if res is not None:
-                self._send_json(200, self._verb_result_json(
+                sent = self._send_json(200, self._verb_result_json(
                     verb, res.counts, res.d2, res.ids, bool(res.truncated),
                     degraded="oversized", trace_id=trace))
+                self._count_bytes(verb, "exact", "degraded", sent)
             return
         deadline = (time.monotonic() + deadline_s) if deadline_s else None
         req = PendingRequest(queries, state.engine.k, deadline,
                              trace_id=trace, verb=verb, radius=radius,
-                             box_hi=box_hi, recall_target=recall_target)
-        if self._submit_and_wait(req, trace):
-            self._send_json(200, self._verb_result_json(
+                             box_hi=box_hi, recall_target=recall_target,
+                             trace_ctx=self._root_ctx(tr))
+        if self._submit_and_wait(req, trace, tr):
+            sent = self._send_json(200, self._verb_result_json(
                 verb, req.counts, req.d2, req.ids, req.truncated,
                 degraded=req.degraded, trace_id=trace, gear=req.gear))
+            self._count_bytes(verb, req.gear,
+                              "degraded" if req.degraded else "ok", sent)
 
     def _parse_verb_body(self, endpoint: str):
         """Validated (verb, queries|lo, r|None, hi|None, deadline seconds
@@ -764,22 +869,39 @@ class KnnRequestHandler(JsonRequestHandler):
                 self._send_json(400, {"error": "points contain non-finite "
                                                "values"})
                 return
+        tr = self._trace_start(trace)
         t0 = time.perf_counter()
         try:
-            if op == "upsert":
-                res = engine.upsert(local, points)
-            else:
-                res = engine.delete(local)
+            # the write's root context is active, so engine-internal spans
+            # (delta append, rebuild start) nest under it
+            with trace_mod.active(self._root_ctx(tr)):
+                if op == "upsert":
+                    res = engine.upsert(local, points)
+                else:
+                    res = engine.delete(local)
         except ValueError as e:
+            self._trace_finish(tr, "error", None, len(ids))
             self._send_json(400, {"error": str(e), "trace_id": trace})
             return
         except RuntimeError as e:
+            self._trace_finish(tr, "error", None, len(ids))
             self._send_json(503, {"error": str(e), "trace_id": trace})
             return
         # apply duration includes the engine-lock wait, so rebuild-swap
         # contention shows up here, not only in a profiler capture
         apply_ms = (time.perf_counter() - t0) * 1e3
         self.server.write_latency[op].observe(apply_ms, exemplar=trace)
+        costs_mod.count_write(op, apply_ms)
+        if tr is not None:
+            ctx, root_id, t_w0 = tr
+            trace_mod.record_span(
+                ctx.trace_id, trace_mod.new_span_id(), root_id,
+                "serve/write", t_w0, t_w0 + apply_ms / 1e3,
+                op=op, ids=len(ids), applied=res["applied"],
+            )
+        # writes do not feed the k-NN slow tracker: rebuild-heavy applies
+        # would inflate the p99 the "slow" promotion is relative to
+        self._trace_finish(tr, "ok", None, len(ids), track_slow=False)
         flight.record("serve.write", op=op, trace=trace,
                       ids=len(ids), applied=res["applied"],
                       delta_rows=res["delta_rows"], epoch=res["epoch"])
@@ -823,6 +945,51 @@ class KnnRequestHandler(JsonRequestHandler):
             self._send_json(400, {"error": str(e)})
             return
         self._send_json(200, {"active": self.server.faults.describe()})
+
+    def _do_debug_profile(self) -> None:
+        """``POST /debug/profile?seconds=N``: a capture window over the
+        live process (every thread, and the serving card; the batch worker
+        opens and closes it), then the analyzed device-timeline report.
+        The single-capture lock maps to 409. The body, if any, is read
+        first (keep-alive)."""
+        from kdtree_tpu_torch.obs import profile as obs_profile
+        from kdtree_tpu_torch.obs import timeline as obs_timeline
+
+        self._drain_body()
+        qs = parse_qs(urlparse(self.path).query)
+        raw = qs.get("seconds", [str(DEFAULT_PROFILE_SECONDS)])[0]
+        try:
+            seconds = float(raw)
+        except ValueError:
+            self._send_json(400, {"error": f"seconds must be a number, "
+                                           f"got {raw!r}"})
+            return
+        if not (0.0 < seconds <= MAX_PROFILE_SECONDS):
+            self._send_json(400, {"error": "seconds must be in "
+                                           f"(0, {MAX_PROFILE_SECONDS:g}]"})
+            return
+        import tempfile
+
+        log_dir = tempfile.mkdtemp(prefix="kdtree-serve-profile-")
+        try:
+            # the batch worker opens and closes the window on its own
+            # thread, between batches (serve/batcher.py)
+            result = self.server.batcher.capture_for(seconds, log_dir)
+        except obs_profile.CaptureBusyError:
+            self._send_json(409, {"error": "a profiler capture is already "
+                                           "running (one at a time)"})
+            return
+        except Exception as e:
+            self._send_json(500, {"error": f"capture failed: {e!r}"})
+            return
+        try:
+            rep = obs_timeline.analyze_trace_file(result.trace_file)
+        except (OSError, ValueError) as e:
+            self._send_json(500, {"error": f"cannot parse trace "
+                                           f"{result.trace_file}: {e!r}"})
+            return
+        rep["seconds_requested"] = seconds
+        self._send_json(200, rep)
 
     def _result_json(
         self, d2: np.ndarray, ids: np.ndarray, k: int,
@@ -891,6 +1058,10 @@ class KnnServer(GracefulHTTPServer):
 
         self.ladder = DegradationLadder(state.slo_engine,
                                         enabled=state.ladder_enabled)
+        # ONE cost ledger per server: the batcher attributes dispatch
+        # spans into it, the HTTP layer adds bytes, /debug/costs and the
+        # healthz headroom block read it
+        self.costs = costs_mod.CostLedger()
         self.batcher = MicroBatcher(
             state.engine, self.queue,
             max_batch=state.max_batch,
@@ -898,7 +1069,16 @@ class KnnServer(GracefulHTTPServer):
             ladder=self.ladder,
             faults=self.faults,
             recall_sample=recall_sample,
+            costs=self.costs,
         )
+        # the profiling duty cycle: a short capture window every period
+        # keeps kdtree_device_busy_frac live; off unless
+        # KDTREE_TPU_PROFILE_DUTY=1 (each window pauses the batch worker)
+        self.duty = costs_mod.ProfileDutyCycle(
+            capture_for=self.batcher.capture_for)
+        # the p99-relative slowness detector behind the "slow" trace
+        # promotion: slow relative to this server's recent window
+        self.slow_tracker = trace_mod.SlowTracker()
         # the history ring /debug/history serves and the sampler feeds
         self.history = state.slo_engine.history
         self._sampler: Optional[obs_history.Sampler] = None
@@ -910,11 +1090,15 @@ class KnnServer(GracefulHTTPServer):
                               labels={"op": op})
             for op in ("upsert", "delete")
         }
+
     def _slo_tick(self) -> None:
         self.state.slo_engine.evaluate()  # never raises (sampler-thread contract)
         # the ladder's controller runs on the same tick, after the SLO
         # verdicts it reads
         self.ladder.tick()
+        # refresh the published cost/headroom gauges (never raises; they
+        # stay absent while idle)
+        self.costs.publish(history=self.history)
 
     def start(self, warmup: bool = True, warmup_buckets=None) -> None:
         """Start the batch worker, the history sampler (+ SLO evaluation
@@ -927,6 +1111,7 @@ class KnnServer(GracefulHTTPServer):
             on_sample=self._slo_tick,
         )
         self._sampler.start()
+        self.duty.start()  # no-op unless KDTREE_TPU_PROFILE_DUTY=1
         self._serve_thread = threading.Thread(
             target=self.serve_forever, name="kdtree-serve-accept"
         )
@@ -948,6 +1133,7 @@ class KnnServer(GracefulHTTPServer):
         if self._sampler is not None:
             self._sampler.stop()
             self._sampler = None
+        self.duty.stop()
         self.batcher.stop()  # closes admission, drains, fulfills futures
         # join any in-flight epoch rebuild: the drain must not race an
         # epoch swap, and the rebuild thread must not outlive teardown

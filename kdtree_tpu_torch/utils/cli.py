@@ -27,13 +27,23 @@ Output bytes and exit codes are the reference's:
   engine, print the recall@k-vs-speedup curve and persist the
   recall_target -> visit_cap calibration into the plan store;
 - ``tune``: sweep (tile, cmax) and then (v, tb) candidates of the tiled
-  engine and persist the winner into the plan store.
+  engine and persist the winner into the plan store;
+- ``profile``: a tiled k-NN workload under a ``torch.profiler`` capture
+  window, analyzed into the device timeline (busy/idle per batch
+  dispatch, dispatch lag, time and launches per kernel);
+- ``stats``: render a ``--metrics-out`` report (``--diff OLD NEW``
+  compares two);
+- ``trace`` / ``costs``: fetch a live server's distributed trace (the
+  ASCII waterfall) or its cost ledger (cost per query, headroom).
+
+``--metrics-out PATH`` (before the subcommand) writes the one-shot JSON
+telemetry report of any run on exit, failed runs included.
 
 Everything runs on the CUDA device unless ``--device cpu`` asks for the
 CPU. ``auto`` picks an engine by the reference's crossovers
-(:func:`_resolve_engine`). The reference's other engines exit with code
-1 and name the ROADMAP item that brings them; its other subcommands and
-flags are not here yet.
+(:func:`_resolve_engine`). The reference's other engines, and its
+``route``, ``loadgen``, ``lint`` and ``trend`` subcommands, exit with
+code 1 and name the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -47,6 +57,10 @@ import torch
 
 from kdtree_tpu_torch.ops.tile_query import dense_lowd
 from kdtree_tpu_torch.utils.checkpoint import UNPORTED_ENGINES
+
+# the reference's subcommands this port does not serve yet, by the ROADMAP
+# queue 1 item that brings them
+UNPORTED_COMMANDS = {"route": 18, "loadgen": 18, "lint": 18, "trend": 18}
 
 NUM_QUERIES = 10  # the reference program's fixed query count
 HARNESS_DIM = 128
@@ -230,6 +244,9 @@ def cmd_harness(args) -> None:
 
 
 def cmd_bench(args) -> None:
+    import contextlib
+
+    from kdtree_tpu_torch.obs import torchrt
     from kdtree_tpu_torch.utils.timing import PhaseTimer
 
     engine = _resolve_engine(args.engine, args.dim, q=NUM_QUERIES, n=args.n)
@@ -249,12 +266,24 @@ def cmd_bench(args) -> None:
 
     dev = args.dev
     count = torch.cuda.device_count() if dev.type == "cuda" else 1
+    # device init + platform/device facts land in the registry (and so in
+    # any --metrics-out report) before the first kernel runs
+    torchrt.probe_devices(dev)
     # warm-up on a distinct seed (kernel builds, allocator growth), excluded
     # from timing; the timed run uses fresh inputs
     run(args.seed + 1000, None).cpu()
 
     timer = PhaseTimer()
-    run(args.seed, timer)
+    if args.trace:
+        from kdtree_tpu_torch.obs import profile as obs_profile
+
+        window = obs_profile.capture(args.trace, dev)
+    else:
+        window = contextlib.nullcontext()
+    with window as cap:
+        run(args.seed, timer)
+    if cap is not None:
+        print(f"profiler trace written to {cap.trace_file}", file=sys.stderr)
     rep = timer.report()
     # pts/s excludes generation
     solve_s = rep["total"] - rep["generate"]
@@ -859,6 +888,8 @@ def cmd_recall(args) -> None:
             f.write("\n")
         os.replace(tmp, args.out)
         print(f"recall report written to {args.out}", file=sys.stderr)
+    # the telemetry sidecar carries the same block (like the reference's)
+    args._telemetry_extra = {"recall": block}
     print(json.dumps({
         "exact_qps": block["exact_qps"],
         "caps": len(block["curve"]),
@@ -868,10 +899,313 @@ def cmd_recall(args) -> None:
     }))
 
 
+def _load_report(path: str) -> dict:
+    """Load + validate one --metrics-out telemetry report (shared by
+    ``stats`` and ``stats --diff`` so both reject garbage identically)."""
+    try:
+        with open(path) as f:
+            rep = json.load(f)
+    except (OSError, ValueError) as e:
+        print(f"cannot read telemetry report {path}: {e}", file=sys.stderr)
+        sys.exit(1)
+    if not isinstance(rep, dict) or "counters" not in rep:
+        print(f"{path} is not a kdtree-tpu telemetry report "
+              "(missing 'counters'); was it written by --metrics-out?",
+              file=sys.stderr)
+        sys.exit(1)
+    return rep
+
+
+def cmd_stats(args) -> None:
+    """Render a --metrics-out JSON telemetry report human-readably (the
+    registry snapshot is machine-first; this is the operator view).
+    ``--diff OLD NEW`` renders two reports side-by-side with deltas —
+    the bench-regression triage view."""
+    from kdtree_tpu_torch.obs import export
+
+    if args.diff:
+        if len(args.report) != 2:
+            print("stats --diff needs exactly two reports: OLD NEW",
+                  file=sys.stderr)
+            sys.exit(1)
+        old, new = (_load_report(p) for p in args.report)
+        sys.stdout.write(export.render_report_diff(old, new))
+        return
+    if len(args.report) != 1:
+        print("stats renders one report (use --diff OLD NEW to compare "
+              "two)", file=sys.stderr)
+        sys.exit(1)
+    sys.stdout.write(export.render_report(_load_report(args.report[0])))
+
+
+def cmd_profile(args) -> None:
+    """Device-timeline profiling: run a representative tiled-query
+    workload under a ``torch.profiler`` capture window (every thread, and
+    the card on CUDA), join the card's kernel slices back to the host spans
+    by time overlap, and report where the card was busy vs waiting — per
+    batch dispatch, with dispatch-to-execution lag, time and launches per
+    kernel, and any kernel builds that polluted the window. Writes the
+    timeline report JSON to --out and renders it human-readably."""
+    import os
+    import tempfile
+
+    from kdtree_tpu_torch import obs
+    from kdtree_tpu_torch.obs import profile as obs_profile
+    from kdtree_tpu_torch.obs import timeline as obs_timeline
+    from kdtree_tpu_torch.ops.generate import (generate_points_rowwise,
+                                               generate_queries)
+    from kdtree_tpu_torch.ops.morton import build_morton
+    from kdtree_tpu_torch.ops.tile_query import morton_knn_tiled
+
+    trace_dir = args.trace_dir or tempfile.mkdtemp(
+        prefix="kdtree-tpu-profile-"
+    )
+    print(f"profiling: n={args.n} dim={args.dim} q={args.q} k={args.k} "
+          f"(trace dir {trace_dir})", file=sys.stderr)
+    pts = generate_points_rowwise(args.seed, args.dim, args.n, device=args.dev)
+    # a distinct seed for the query sample — profiling query==point
+    # geometry would overstate the prune rate (same idiom as tune)
+    queries = generate_queries(args.seed + 1, args.dim, args.q,
+                               device=args.dev)
+    with obs.span("profile.build") as h:
+        tree = build_morton(pts, device=args.dev)
+        h += [tree]
+    if not args.cold:
+        # warmup OUTSIDE the window: kernel builds and first-use costs
+        # would otherwise dominate the capture (--cold keeps them in)
+        d2, ids = morton_knn_tiled(tree, queries, k=args.k)
+        obs.hard_sync([d2, ids])
+    try:
+        with obs_profile.capture(trace_dir, args.dev) as cap:
+            with obs.span("profile.query") as h:
+                d2, ids = morton_knn_tiled(tree, queries, k=args.k)
+                h += [d2, ids]
+    except RuntimeError as e:
+        print(f"profiler capture failed: {e}", file=sys.stderr)
+        sys.exit(1)
+    try:
+        rep = obs_timeline.analyze_trace_file(cap.trace_file)
+    except (OSError, ValueError) as e:
+        print(f"cannot parse trace {cap.trace_file}: {e}", file=sys.stderr)
+        sys.exit(1)
+    rep["workload"] = {
+        "seed": args.seed, "dim": args.dim, "n": args.n, "q": args.q,
+        "k": args.k, "cold": bool(args.cold),
+    }
+    tmp = f"{args.out}.tmp-{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(rep, f, indent=2, sort_keys=True)
+        f.write("\n")
+    os.replace(tmp, args.out)
+    if args.format == "json":
+        print(json.dumps({
+            "out": args.out,
+            "trace_file": cap.trace_file,
+            "correlated_spans": rep["correlated_spans"],
+            "device_busy_frac": rep["device"]["busy_frac"],
+            "dispatches": rep["dispatches"]["count"],
+            "compiles_in_window": rep["compile"]["count"],
+        }))
+    else:
+        sys.stdout.write(obs_timeline.render_timeline(rep))
+    print(f"timeline report written to {args.out}; raw trace: "
+          f"{cap.trace_file}", file=sys.stderr)
+
+
+def cmd_trace(args) -> None:
+    """Fetch one distributed trace from a live server and render the ASCII
+    waterfall: ``--id T`` names the trace, ``--last-slow`` asks the
+    target's pinned-trace index for the most recent slow-promoted id. A
+    server renders its local spans (a reference router target assembles
+    across its shards, ``?assemble=1``). ``--out`` keeps the JSON
+    artifact the waterfall was rendered from."""
+    import urllib.error
+    import urllib.request
+
+    from kdtree_tpu_torch.obs import trace as trace_mod
+
+    base = args.target.rstrip("/")
+
+    def fetch(path: str) -> dict:
+        with urllib.request.urlopen(f"{base}{path}",
+                                    timeout=args.timeout_s) as resp:
+            return json.loads(resp.read().decode("utf-8"))
+
+    try:
+        tid = args.id
+        if tid is None:
+            idx = fetch("/debug/trace")
+            tid = (idx.get("last_promoted") or {}).get("slow")
+            if not tid:
+                # no slow promotion yet: fall back to the newest pinned
+                # trace — an errored/hedged waterfall beats "nothing"
+                pinned = idx.get("pinned") or []
+                tid = pinned[-1]["trace_id"] if pinned else None
+            if not tid:
+                print("no promoted traces at the target yet (nothing "
+                      "slow/errored/degraded so far)", file=sys.stderr)
+                sys.exit(1)
+        try:
+            payload = fetch(f"/debug/trace/{tid}?assemble=1")
+        except urllib.error.HTTPError as e:
+            if e.code == 404:
+                print(f"no such trace at {base}: {tid} (aged out or "
+                      "never recorded)", file=sys.stderr)
+                sys.exit(1)
+            raise
+    except (OSError, ValueError) as e:
+        print(f"cannot fetch trace from {base}: {e}", file=sys.stderr)
+        sys.exit(1)
+    if payload.get("assembled"):
+        assembled = payload
+    else:
+        # a shard target ignores ?assemble=1 and answers its local span
+        # list — assemble the single-source forest client-side so the
+        # rendering path is one shape
+        assembled = trace_mod.assemble(tid, [{
+            "source": f"pid{payload.get('pid', '?')}",
+            "clock_offset_s": 0.0,
+            "spans": payload.get("spans") or [],
+            "error": None,
+        }])
+        assembled["reasons"] = payload.get("reasons", [])
+        assembled["pinned"] = payload.get("pinned", False)
+    sys.stdout.write(trace_mod.render_waterfall(assembled) + "\n")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(assembled, f, indent=2, sort_keys=True, default=str)
+            f.write("\n")
+        print(f"trace artifact written to {args.out}", file=sys.stderr)
+
+
+def _render_cost_report(rep: dict, indent: str = "") -> list:
+    """Human lines for one shard's ``/debug/costs`` payload: the
+    per-class cost table, the windowed cost-per-query, the headroom
+    verdict, and the maintenance (unattributed) spend."""
+    lines = []
+    classes = rep.get("classes") or []
+    if classes:
+        lines.append(f"{indent}{'class':<34s}  {'req':>8s}  "
+                     f"{'cost/q':>10s}  {'rows':>8s}  {'retries':>7s}  "
+                     f"{'bytes out':>10s}")
+        for row in classes:
+            ck = "/".join((str(row.get("verb", "?")),
+                           str(row.get("gear", "?")),
+                           str(row.get("outcome", "?"))))
+            cm = row.get("cost_ms")
+            lines.append(
+                f"{indent}{ck:<34s}  {row.get('requests', 0):>8g}  "
+                f"{f'{cm:.3f}ms' if cm is not None else '-':>10s}  "
+                f"{row.get('rows', 0):>8g}  {row.get('retries', 0):>7g}  "
+                f"{row.get('bytes_out', 0):>10g}"
+            )
+    else:
+        lines.append(f"{indent}no answered requests yet")
+    window = rep.get("window")
+    if isinstance(window, dict):
+        lines.append(
+            f"{indent}window ({window.get('window_s', 0):g}s): "
+            f"{window.get('requests', 0):g} req at "
+            f"{window.get('observed_rate', 0):g} req/s, cost/query "
+            f"{window.get('cost_per_query_ms', 0):g} ms"
+        )
+    hr = rep.get("headroom")
+    if isinstance(hr, dict):
+        if hr.get("data"):
+            lines.append(
+                f"{indent}headroom: {hr.get('headroom_frac', 0):.1%} "
+                f"(observed {hr.get('observed_rate', 0):g} vs predicted "
+                f"{hr.get('predicted_rate', 0):g} req/s"
+                + (f", busy {hr['busy_frac']:.2f}"
+                   if hr.get("busy_frac") is not None else "")
+                + ")"
+            )
+        else:
+            lines.append(f"{indent}headroom: no data (no answered "
+                         "requests in the window)")
+    maint = rep.get("maintenance")
+    if isinstance(maint, dict) and any(maint.values()):
+        lines.append(
+            f"{indent}maintenance: corrections "
+            f"{maint.get('correction_ms', 0):g} ms / "
+            f"{maint.get('correction_rows', 0):g} rows, writes "
+            f"{maint.get('write_ms', 0):g} ms, rebuilds "
+            f"{maint.get('rebuilds', 0):g} ({maint.get('rebuild_ms', 0):g}"
+            " ms) — device/wall time no request class is charged for"
+        )
+    return lines
+
+
+def cmd_costs(args) -> None:
+    """Fetch ``/debug/costs`` from a live server and render the
+    cost-attribution view: the per-class cost/query table, the windowed
+    cost-per-query, and the capacity-headroom verdict (a reference router
+    target renders every shard's ledger plus the fleet aggregation).
+    ``--json`` emits the raw payload for scripting."""
+    import urllib.request
+
+    base = args.target.rstrip("/")
+    url = f"{base}/debug/costs?window={args.window_s:g}"
+    try:
+        with urllib.request.urlopen(url, timeout=args.timeout_s) as resp:
+            payload = json.loads(resp.read().decode("utf-8"))
+    except (OSError, ValueError) as e:
+        print(f"cannot fetch costs from {base}: {e}", file=sys.stderr)
+        sys.exit(1)
+    if args.json:
+        json.dump(payload, sys.stdout, indent=2, sort_keys=True)
+        sys.stdout.write("\n")
+        return
+    lines = []
+    if "shards" in payload and "classes" not in payload:
+        # router payload: per-shard ledgers + the fleet headroom block
+        for ent in payload.get("shards") or []:
+            tag = (f"shard {ent.get('shard', '?')}"
+                   + (f"/r{ent['replica']}" if ent.get("replica") else "")
+                   + f" ({ent.get('url', '?')})")
+            if "error" in ent:
+                lines.append(f"== {tag}: {ent['error']} ==")
+                continue
+            lines.append(f"== {tag} ==")
+            lines.extend(_render_cost_report(ent.get("costs") or {},
+                                             indent="  "))
+        fleet = payload.get("headroom") or {}
+        lines.append("== fleet ==")
+        if fleet.get("data"):
+            lines.append(
+                f"  headroom: {fleet.get('headroom_frac', 0):.1%} "
+                f"(observed {fleet.get('observed_rate', 0):g} vs "
+                f"predicted {fleet.get('predicted_rate', 0):g} req/s "
+                f"over {fleet.get('shards_reporting', 0)}/"
+                f"{fleet.get('shards_total', 0)} shards)"
+            )
+        else:
+            lines.append(
+                f"  headroom: no data "
+                f"({fleet.get('shards_reporting', 0)}/"
+                f"{fleet.get('shards_total', 0)} shards reporting)"
+            )
+    else:
+        lines.extend(_render_cost_report(payload))
+    sys.stdout.write("\n".join(lines) + "\n")
+
+
+def cmd_unported(args) -> None:
+    print(f"{args.cmd!r} is not ported to kdtree_tpu_torch yet "
+          f"(ROADMAP queue 1 item {UNPORTED_COMMANDS[args.cmd]})",
+          file=sys.stderr)
+    sys.exit(1)
+
+
 def build_parser() -> argparse.ArgumentParser:
     """The CLI's argument parser (``main`` parses with it)."""
     p = argparse.ArgumentParser(prog="kdtree-tpu-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--metrics-out", default=None, metavar="PATH",
+                   help="write a one-shot JSON telemetry report (metrics "
+                        "registry + spans + the torch runtime's facts) on "
+                        "exit; also enables the device-side metrics that "
+                        "cost a fetch. Render it with the 'stats' subcommand")
     p.add_argument("--device", default=None,
                    help="torch device to run on (default: cuda; 'cpu' on request)")
     p.add_argument("--generator", choices=["threefry", "mt19937"], default="mt19937",
@@ -893,6 +1227,10 @@ def build_parser() -> argparse.ArgumentParser:
     b.add_argument("--dim", type=int, default=3)
     b.add_argument("--n", type=int, default=1 << 20)
     b.add_argument("--k", type=int, default=1)
+    b.add_argument("--trace", default=None, metavar="DIR",
+                   help="write a torch.profiler Chrome trace (Perfetto) of "
+                        "the timed run into DIR; the phases appear as named "
+                        "ranges")
     b.set_defaults(fn=cmd_bench)
 
     bu = sub.add_parser("build", help="build a tree and save to npz")
@@ -1083,20 +1421,117 @@ def build_parser() -> argparse.ArgumentParser:
     rc.add_argument("--out", default="recall_report.json", metavar="FILE",
                     help="standalone recall report artifact; '' disables")
     rc.set_defaults(fn=cmd_recall)
+
+    st = sub.add_parser(
+        "stats", help="render a --metrics-out telemetry report "
+                      "(--diff OLD NEW compares two)"
+    )
+    st.add_argument("report", nargs="+", metavar="REPORT.json",
+                    help="path a previous run's --metrics-out wrote "
+                         "(two paths with --diff)")
+    st.add_argument("--diff", action="store_true",
+                    help="render two reports side-by-side with deltas "
+                         "(spans, counters, compile counts) — the "
+                         "bench-regression triage view")
+    st.set_defaults(fn=cmd_stats)
+
+    pr = sub.add_parser(
+        "profile",
+        help="device-timeline profiling: capture a torch.profiler trace "
+             "of a tiled-query workload and report device busy/idle per "
+             "batch dispatch and time and launches per kernel",
+    )
+    pr.add_argument("--seed", type=int, default=42)
+    pr.add_argument("--dim", type=int, default=3)
+    pr.add_argument("--n", type=int, default=1 << 16,
+                    help="point count of the seeded problem to profile")
+    pr.add_argument("--q", type=int, default=1 << 13,
+                    help="query-batch size (the dense tiled shape)")
+    pr.add_argument("--k", type=int, default=8)
+    pr.add_argument("--cold", action="store_true",
+                    help="skip the warmup run so the capture includes "
+                         "kernel builds and first-use costs (default: "
+                         "profile steady state)")
+    pr.add_argument("--trace-dir", default=None, metavar="DIR",
+                    help="where the raw profiler trace lands (default: a "
+                         "temp dir, path printed on stderr); open it in "
+                         "Perfetto for the full picture")
+    pr.add_argument("--out", default="timeline.json", metavar="FILE",
+                    help="timeline report JSON artifact")
+    pr.add_argument("--format", choices=["human", "json"], default="human",
+                    help="stdout format (the JSON artifact is always "
+                         "written to --out)")
+    pr.set_defaults(fn=cmd_profile)
+
+    tw = sub.add_parser(
+        "trace",
+        help="fetch a distributed trace from a live server and render "
+             "the ASCII waterfall; writes the JSON artifact with --out",
+    )
+    tw.add_argument("--target", default="http://127.0.0.1:8080",
+                    metavar="URL",
+                    help="server base url (its local spans; a reference "
+                         "router target assembles across its shards)")
+    tw_which = tw.add_mutually_exclusive_group(required=True)
+    tw_which.add_argument("--id", default=None, metavar="TRACE_ID",
+                          help="trace id to fetch (a request's "
+                               "trace_id / X-Request-Id)")
+    tw_which.add_argument("--last-slow", action="store_true",
+                          help="render the target's most recently "
+                               "slow-promoted trace (falls back to "
+                               "the newest pinned one)")
+    tw.add_argument("--out", default=None, metavar="PATH",
+                    help="also write the assembled trace JSON here")
+    tw.add_argument("--timeout-s", type=float, default=5.0,
+                    help="per-fetch HTTP timeout")
+    tw.set_defaults(fn=cmd_trace)
+
+    co = sub.add_parser(
+        "costs",
+        help="fetch /debug/costs from a live server and render "
+             "per-class cost/query + the capacity-headroom verdict",
+    )
+    co.add_argument("--target", default="http://127.0.0.1:8080",
+                    metavar="URL",
+                    help="server base url (one ledger; a reference "
+                         "router answers per-shard ledgers + the fleet "
+                         "aggregation)")
+    co.add_argument("--window-s", type=float, default=60.0,
+                    help="history window the cost-per-query and "
+                         "headroom verdicts are computed over")
+    co.add_argument("--json", action="store_true",
+                    help="emit the raw /debug/costs payload instead of "
+                         "the rendered table")
+    co.add_argument("--timeout-s", type=float, default=5.0,
+                    help="HTTP timeout")
+    co.set_defaults(fn=cmd_costs)
+
+    for name, item in UNPORTED_COMMANDS.items():
+        un = sub.add_parser(name, help=f"not ported yet (ROADMAP queue 1 "
+                                       f"item {item})", add_help=False)
+        un.set_defaults(fn=cmd_unported)
     return p
 
 
 def main(argv=None) -> None:
     p = build_parser()
-    args = p.parse_args(argv)
+    # an unported subcommand takes the reference's arguments: name its item
+    # whatever they are
+    args, extra = p.parse_known_args(argv)
+    if extra and args.cmd not in UNPORTED_COMMANDS:
+        p.error(f"unrecognized arguments: {' '.join(extra)}")
     if args.cmd == "harness" and args.spec and len(args.spec) != 3:
         print(f"Usage: {p.prog} harness SEED DIM_POINTS  NUM_POINTS", file=sys.stderr)
         sys.exit(1)
+    if args.cmd in ("stats", "trace", "costs", *UNPORTED_COMMANDS):
+        # host-only paths: no device, no telemetry framing
+        args.fn(args)
+        return
     if args.cmd != "query" and args.engine in UNPORTED_ENGINES:
         print(f"engine {args.engine!r} is not ported to kdtree_tpu_torch yet "
               f"(ROADMAP queue 1 item {UNPORTED_ENGINES[args.engine]})", file=sys.stderr)
         sys.exit(1)
-    from kdtree_tpu_torch import resolve_device
+    from kdtree_tpu_torch import obs, resolve_device
     from kdtree_tpu_torch.ops.morton import BuildCapacityError
 
     try:
@@ -1104,12 +1539,24 @@ def main(argv=None) -> None:
     except RuntimeError as e:
         print(str(e).replace("device='cpu'", "--device cpu"), file=sys.stderr)
         sys.exit(1)
+    if args.metrics_out:
+        obs.configure(metrics_out=args.metrics_out, device=args.dev)
     try:
         args.fn(args)
     except BuildCapacityError as e:
         # the device-memory guard of the build: crisp stderr + exit code
         print(str(e), file=sys.stderr)
         sys.exit(1)
+    finally:
+        # write the report even on failed exits — a degraded run's
+        # telemetry is the part worth keeping — and never let a failed
+        # WRITE replace the run's own exit
+        if args.metrics_out:
+            try:
+                obs.finalize(extra=getattr(args, "_telemetry_extra", None))
+            except OSError as e:
+                print(f"cannot write telemetry report {args.metrics_out}: "
+                      f"{e}", file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
 """Benchmark timing: named phases, each fenced so asynchronous launches
 cannot end its clock early.
 
-The port of ``kdtree_tpu/utils/timing.py``'s ``PhaseTimer``. A phase
-yields a list; the code in it appends what the phase produced, and the
-clock stops only after :func:`hard_sync` has waited for those outputs:
+The port of ``kdtree_tpu/utils/timing.py``'s ``PhaseTimer``, a thin
+wrapper over the obs spans. A phase yields a list; the code in it appends
+what the phase produced, and the clock stops only after :func:`hard_sync`
+has waited for those outputs:
 ``torch.cuda.synchronize()`` plus a one-element fetch to the host, a
 data-dependent barrier. Warm-up is the caller's: time fresh inputs after
 a first run.
@@ -12,7 +13,6 @@ a first run.
 from __future__ import annotations
 
 import contextlib
-import time
 from typing import Dict
 
 import torch
@@ -51,11 +51,18 @@ class PhaseTimer:
 
     @contextlib.contextmanager
     def phase(self, name: str):
-        outputs: list = []
-        t0 = time.perf_counter()
-        yield outputs
-        hard_sync(outputs)
-        self.phases[name] = self.phases.get(name, 0.0) + time.perf_counter() - t0
+        """A phase is an obs span (:mod:`kdtree_tpu_torch.obs.spans`): it
+        lands in the metrics registry, names itself in a profiler trace,
+        and syncs what the caller appends before its clock stops."""
+        from kdtree_tpu_torch.obs.spans import span
+
+        sp = None
+        try:
+            with span(name) as sp:
+                yield sp
+        finally:
+            if sp is not None and sp.duration is not None:
+                self.phases[name] = self.phases.get(name, 0.0) + sp.duration
 
     def total(self) -> float:
         return sum(self.phases.values())

@@ -424,3 +424,118 @@ def test_tune_cli_matches_reference(tmp_path, monkeypatch):
     monkeypatch.setenv("KDTREE_TPU_TORCH_PLAN_CACHE", "off")
     code, out, err = _port(argv)
     assert code == 1 and out == "" and "plan store is disabled" in err
+
+
+@pytest.fixture
+def _telemetry_reset():
+    """--metrics-out flips each package's process-wide device-metrics gate
+    and records the report path; restore both after the test."""
+    from kdtree_tpu import obs as jobs
+    from kdtree_tpu_torch import obs as tobs
+
+    yield
+    for o in (jobs, tobs):
+        o.set_enabled(None)
+        o._metrics_out_path = None
+
+
+def _sections(text):
+    return [line for line in text.splitlines() if line.startswith("==")]
+
+
+def test_metrics_out_then_stats(tmp_path, _telemetry_reset, monkeypatch):
+    """``--metrics-out`` on ``bench``: the report has the reference's keys
+    (the runtime facts are each package's own families), ``stats``
+    renders it with the reference's sections, ``stats --diff`` compares
+    two, and ``bench --trace`` leaves a Chrome trace of the timed run.
+    Each package reports into a registry of this test's own: the
+    process-wide ones hold whatever earlier tests in this worker counted
+    (a served request adds the cost sections to one package's report)."""
+    from kdtree_tpu.obs import registry as jreg
+    from kdtree_tpu_torch.obs import registry as treg
+
+    for mod in (jreg, treg):
+        monkeypatch.setattr(mod, "_default_registry", mod.MetricsRegistry())
+    argv = ["--generator", "threefry", "--engine", "morton", "bench", "--n", "4096"]
+    jm, tm, tm2 = (str(tmp_path / n) for n in ("j.json", "t.json", "t2.json"))
+    r = _run(jcli.main, ["--metrics-out", jm, "--platform", "cpu", *argv])
+    t = _run(tcli.main, ["--metrics-out", tm, "--device", "cpu", *argv,
+                         "--trace", str(tmp_path / "tr")])
+    assert r[0] == t[0] == 0
+    jr, tr = (json.loads(Path(p).read_text()) for p in (jm, tm))
+    assert set(tr) == set(jr)
+    assert set(tr["spans"]) & set(jr["spans"]) >= {"generate", "build", "query"}
+    assert any(k.startswith("torch_platform_info{") for k in tr["gauges"])
+    assert list((tmp_path / "tr").glob("*.pt.trace.json"))
+    rs, ts = _run(jcli.main, ["stats", jm]), _run(tcli.main, ["stats", tm])
+    assert rs[0] == ts[0] == 0
+    # the reference's gated device-side histogram (kdtree_bucket_occupancy,
+    # a build-time fetch) is not ported: its "histograms" section is the
+    # one the port's rendering lacks
+    assert _sections(ts[1]) == [x for x in _sections(rs[1]) if x != "== histograms =="]
+    ran = {'kdtree_builds_total{engine="morton"}', 'kdtree_queries_total{engine="morton"}'}
+    assert ran <= set(tr["counters"]) & set(jr["counters"])
+    assert "platform:            cpu" in ts[1] and "devices:             1" in ts[1]
+    assert _run(tcli.main, ["--metrics-out", tm2, "--device", "cpu", *argv])[0] == 0
+    diff = _run(tcli.main, ["stats", "--diff", tm, tm2])
+    assert diff[0] == 0 and "== spans (by NEW total time) ==" in diff[1]
+    for argv_bad in (["stats", tm, tm2], ["stats", "--diff", tm],
+                     ["stats", str(tmp_path / "missing.json")]):
+        assert _run(tcli.main, argv_bad)[0] == _run(jcli.main, argv_bad)[0] == 1
+
+
+def test_profile_writes_its_artifact(tmp_path, _telemetry_reset):
+    argv = ["profile", "--n", "4096", "--q", "512", "--k", "4", "--format", "json"]
+    r = _ref([*argv, "--out", str(tmp_path / "j.json"), "--trace-dir", str(tmp_path / "jt")])
+    t = _port([*argv, "--out", str(tmp_path / "t.json"), "--trace-dir", str(tmp_path / "tt")])
+    assert r[0] == t[0] == 0, t[2][-800:]
+    rj, tj = json.loads(r[1]), json.loads(t[1])
+    assert set(tj) == set(rj) and tj["dispatches"] >= 1
+    assert 0 < tj["device_busy_frac"] <= 1 and tj["correlated_spans"] >= 1
+    ja, ta = (json.loads((tmp_path / n).read_text()) for n in ("j.json", "t.json"))
+    assert set(ta) == set(ja)
+    assert ta["workload"] == ja["workload"] and ta["device"]["kind"] == "cpu"
+    assert "profile.query" in ta["spans"]
+    human = _port(["profile", "--n", "4096", "--q", "512", "--out", str(tmp_path / "h.json")])
+    assert human[0] == 0 and "== capture ==" in human[1]
+
+
+def test_profile_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    code, out, err = _run(tcli.main, ["profile", "--n", "1024", "--q", "64"])
+    assert code == 1 and out == "" and "--device cpu" in err
+
+
+def test_trace_and_costs_against_a_live_server(_telemetry_reset):
+    from kdtree_tpu_torch.serve import engine as tengine
+    from kdtree_tpu_torch.serve import server as tserver
+
+    srv = tserver.make_server(tengine.build_state(problem=(5, 3, 4096), k=4, max_batch=16,
+                                                  device="cpu"), port=0)
+    srv.start(warmup_buckets=[8])
+    try:
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        import urllib.request
+
+        req = urllib.request.Request(
+            f"{base}/v1/knn", data=json.dumps({"queries": [[1.0, 2.0, 3.0]]}).encode(),
+            headers={"X-Request-Id": "cli-trace-1"})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            assert json.loads(resp.read())["trace_id"] == "cli-trace-1"
+        code, out, err = _run(tcli.main, ["trace", "--target", base, "--id", "cli-trace-1"])
+        assert code == 0 and out.startswith("trace cli-trace-1\n"), err
+        assert "serve/request" in out and "serve/dispatch" in out
+        assert _run(tcli.main, ["trace", "--target", base, "--id", "nope"])[0] == 1
+        code, out, _ = _run(tcli.main, ["costs", "--target", base])
+        assert code == 0 and "knn/exact/ok" in out and "headroom:" in out
+        code, out, _ = _run(tcli.main, ["costs", "--target", base, "--json"])
+        assert code == 0 and json.loads(out)["totals"]["requests"] >= 1
+    finally:
+        srv.stop()
+    assert _run(tcli.main, ["costs", "--target", base, "--timeout-s", "2"])[0] == 1
+
+
+@pytest.mark.parametrize("cmd", ["route", "loadgen", "lint", "trend"])
+def test_unported_subcommands_name_their_item(cmd):
+    code, out, err = _run(tcli.main, [cmd, "--anything"])
+    assert code == 1 and out == "" and "item 18" in err

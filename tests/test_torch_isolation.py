@@ -45,6 +45,12 @@ def _cli():
     return cli
 
 
+def _profile():
+    from kdtree_tpu_torch.obs import profile
+
+    return profile
+
+
 def _classic():
     from kdtree_tpu_torch.ops import build_presort
 
@@ -67,7 +73,9 @@ def test_every_module_imports_without_jax_or_the_reference():
     for sub in ("snapshot.store", "snapshot.follower", "verbs.device", "verbs.oracle",
                 "verbs.wire", "tuning.store", "tuning.feedback", "tuning.tuner",
                 "approx.search", "approx.recall", "approx.ladder", "models.tree",
-                "ops.build", "ops.build_presort", "ops.query", "ops.bucket"):
+                "ops.build", "ops.build_presort", "ops.query", "ops.bucket",
+                "obs.profile", "obs.timeline", "obs.torchrt", "obs.trace",
+                "obs.costs"):
         assert f"kdtree_tpu_torch.{sub}" in mods, sub
     code = (
         "import importlib, sys\n"
@@ -124,6 +132,7 @@ def test_public_surface_resolves_lazily():
                                           kind="classic"), _Q),
     lambda: kdtree_tpu_torch.bucket_knn(
         kdtree_tpu_torch.build_bucket(torch.zeros(4, 3).numpy()), _Q),
+    lambda: _profile().capture_for(0.0, "never-created"),
 ])
 def test_default_device_without_cuda_raises(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -74,8 +74,20 @@ def test_openmetrics_text_byte_equal(monkeypatch):
     assert out.endswith("# EOF\n") and 'trace_id="t2"' in out
 
 
+# the port's runtime families: the counterparts of the reference's jax_*
+# families (obs/torchrt.py), with help texts of their own
+PORT_RUNTIME_FAMILIES = frozenset({
+    "kdtree_kernel_builds_total", "kdtree_kernel_build_seconds_total",
+    "torch_platform_info", "torch_device_init_seconds", "torch_device_count",
+    "torch_device_memory_bytes",
+})
+
+
 def test_metric_help_texts_are_the_references():
     for name, text in texp.METRIC_HELP.items():
+        if name in PORT_RUNTIME_FAMILIES:
+            assert text and name not in jexp.METRIC_HELP, name
+            continue
         assert jexp.METRIC_HELP.get(name) == text, name
 
 
@@ -233,3 +245,164 @@ def test_defer_flush_runs_callbacks_and_survives_errors():
     obs.set_enabled(True)
     assert obs.enabled()
     obs.set_enabled(None)
+
+
+# ---------------------------------------------------------------------------
+# the one-shot report, its renderings, the JSONL log, the runtime facts
+# ---------------------------------------------------------------------------
+
+
+def _report(step: int) -> dict:
+    """A report dict as the reference writes it, with every optional
+    block the renderers read: spans, cost classes, a capacity block (with
+    a slowest trace) and a recall block."""
+    from kdtree_tpu.obs import costs as jcosts
+
+    reg = jreg.MetricsRegistry()
+    _drive(reg, step)
+    reg.histogram("kdtree_span_seconds", buckets=(0.1, 1.0),
+                  labels={"span": "query"}).observe(0.2 + step)
+    led = jcosts.CostLedger(registry=reg)
+    led.attribute_batch(verb="knn", gear=None, span_ms=3.5 + step,
+                        members=[(4, 0.5, "ok"), (7, 0.25, "ok")])
+    led.attribute_batch(verb="radius", gear="approx:0.9", span_ms=9.0,
+                        members=[(1 + step, 1.0, "degraded")], retries=2)
+    rep = jexp.report(registry=reg, extra={"platform": "cpu", "passes": 1})
+    rep["capacity"] = {
+        "knee_rate": 120.0 + step, "slo_ms": 50, "max_bad_frac": 0.01,
+        "predicted": {"predicted_rate": 130.0, "cost_per_query_ms": 7.5,
+                      "within_band": True, "band": 0.25},
+        "steps": [{"rate": 50.0, "sent": 100, "goodput_rps": 49.0, "p50_ms": 3.0,
+                   "p95_ms": 9.0, "p99_ms": 12.0 + step, "shed_frac": 0.0,
+                   "bad_frac": 0.0, "slowest_trace_id": "abc", "slowest_ms": 40.0,
+                   "gears": {"exact": 100 - step}}],
+    }
+    rep["recall"] = {"n": 100, "q": 10, "k": 4, "nbp": 8, "exact_qps": 1000.0,
+                     "curve": [{"visit_cap": 2, "recall": 0.9 - 0.1 * step,
+                                "qps": 5000.0, "speedup": 5.0},
+                               {"visit_cap": 8, "recall": 1.0, "qps": None,
+                                "speedup": None}]}
+    return rep
+
+
+def _port_text(text: str) -> str:
+    # the capacity block names each package's own CLI for the waterfall
+    return text.replace("kdtree-tpu-torch trace", "kdtree-tpu trace")
+
+
+@pytest.mark.parametrize("step", [0, 1])
+def test_render_report_byte_equal(step):
+    rep = _report(step)
+    text = texp.render_report(rep)
+    assert _port_text(text) == jexp.render_report(rep)
+    assert "kdtree-tpu-torch trace --id" in text and "== cost per query" in text
+
+
+def test_render_report_diff_byte_equal():
+    old, new = _report(0), _report(1)
+    assert texp.render_report_diff(old, new) == jexp.render_report_diff(old, new)
+    new["passes"] = 2
+    assert texp.render_report_diff(old, new) == jexp.render_report_diff(old, new)
+
+
+def test_render_report_reads_the_torch_runtime_facts():
+    reg = treg.MetricsRegistry()
+    from kdtree_tpu_torch.obs import torchrt
+
+    torchrt.record_device_init(0.25, "cpu", registry=reg)
+    reg.counter("kdtree_kernel_builds_total").inc(2)
+    reg.counter("kdtree_kernel_build_seconds_total").inc(11.5)
+    rep = texp.report(registry=reg)
+    text = texp.render_report(rep)
+    assert "platform:            cpu\n" in text and "device init:         0.250 s" in text
+    assert "devices:             1\n" in text
+    assert "kernel builds:       2 (11.50 s total)" in text
+    old = dict(rep, counters={})
+    assert "kernel builds" in texp.render_report_diff(old, rep)
+
+
+def test_write_report_has_the_reference_keys(tmp_path):
+    """The same keys as the reference's report; the runtime facts are each
+    package's own families (torch_* / kdtree_kernel_* against jax_*)."""
+    j, t = _pair()
+    for s in range(2):
+        _drive(j, s)
+        _drive(t, s)
+    jr = jexp.write_report(str(tmp_path / "j.json"), registry=j, extra={"platform": "cpu"})
+    tr = texp.write_report(str(tmp_path / "t.json"), registry=t, extra={"platform": "cpu"})
+    assert set(tr) == set(jr)
+    for key in ("counters", "gauges", "histograms", "spans", "platform", "report_version"):
+        assert tr[key] == jr[key], key
+    import json as _json
+
+    assert _json.loads((tmp_path / "t.json").read_text()) == _json.loads(
+        _json.dumps(tr))
+    assert not list(tmp_path.glob("*.tmp-*"))
+
+
+def test_jsonl_log_rotates_like_the_reference(tmp_path):
+    import json as _json
+
+    for mod, name in ((jexp, "j.jsonl"), (texp, "t.jsonl")):
+        path = str(tmp_path / name)
+        mod.configure_jsonl(path, max_bytes=400)
+        try:
+            for i in range(12):
+                mod.emit_event({"type": "span", "span": f"s{i}", "seconds": 0.5})
+        finally:
+            mod.configure_jsonl(None)
+    lines = {n: [_json.loads(x) for x in (tmp_path / n).read_text().splitlines()]
+             for n in ("j.jsonl", "t.jsonl", "j.jsonl.1", "t.jsonl.1")}
+    strip = [[{k: v for k, v in e.items() if k != "ts" and k != "previous"} for e in lines[n]]
+             for n in lines]
+    assert strip[0] == strip[1] and strip[2] == strip[3]
+    assert lines["t.jsonl"][0]["type"] == "rotated"
+
+
+def test_configure_finalize_writes_the_report(tmp_path):
+    from kdtree_tpu_torch.obs import torchrt
+
+    path = str(tmp_path / "m.json")
+    try:
+        obs.configure(metrics_out=path, device="cpu")
+        assert obs.enabled()
+        with obs.span("configured.run", sync=False):
+            pass
+        rep = obs.finalize_guarded(extra={"platform": "cpu"})
+    finally:
+        obs.set_enabled(None)
+        obs._metrics_out_path = None
+    assert rep is not None and "configured.run" in rep["spans"]
+    assert any(k.startswith("torch_platform_info{") for k in rep["gauges"])
+    assert torchrt.snapshot_device_memory() == {}  # a CPU run has no device memory
+    assert obs.sidecar_path("x.json") in ("x.json", None)
+
+
+def test_kernel_build_round_counts_each_source_and_its_wall_once(tmp_path, monkeypatch):
+    """Sources built by one parallel nvcc round each count a build, and
+    the round's wall time counts once however many of them overlapped."""
+    from kdtree_tpu_torch.kernels import _build
+    from kdtree_tpu_torch.obs import torchrt
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("a", "b", "c"):
+        (csrc / f"{name}.cu").write_text(f"// {name}\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\nwhile [ $# -gt 0 ]; do [ "$1" = "-o" ] && out=$2; shift; done\n'
+                    'sleep 1\n: > "$out"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    reg = obs.get_registry()
+    builds = torchrt.build_count()
+    secs = reg.counter("kdtree_kernel_build_seconds_total").value
+    t0 = time.perf_counter()
+    assert set(_build.build()) == {"a", "b", "c"}
+    wall = time.perf_counter() - t0
+    assert torchrt.build_count() - builds == 3
+    got = reg.counter("kdtree_kernel_build_seconds_total").value - secs
+    assert 1.0 <= got <= wall < 3.0, (got, wall)
+    assert _build.build() == {}  # built: nothing counts again
+    assert torchrt.build_count() - builds == 3

@@ -4,14 +4,16 @@ distances / degraded answers (concurrent clients, per-request k,
 oversized, an expired deadline, id_offset, writes over HTTP), the same
 4xx / 429 / 403 answers, the same /healthz keys, a drained shutdown, the
 same approximate answers under a recall_target on k-NN and the verbs,
-and 501s for what the port does not serve yet (the profiling
-endpoints)."""
+and the reference's debug endpoints (profile, trace, costs) with no 501
+left."""
 
 from __future__ import annotations
 
 import contextlib
 import http.client
 import json
+import os
+import tempfile
 import threading
 import time
 
@@ -186,11 +188,17 @@ def test_shed_429_with_retry_after():
 def test_healthz_keys_match(servers):
     (sj, _, hj), (st, _, ht) = both(servers, "GET", "/healthz")
     assert sj == st == 200
-    assert set(ht) == set(hj) - {"headroom"}
+    assert set(ht) == set(hj)
     for key in ht:
-        if key not in ("server_unix", "slo"):
+        if key not in ("server_unix", "slo", "headroom"):
             assert ht[key] == hj[key], key
     assert set(ht["slo"]["slos"]) == set(hj["slo"]["slos"])
+    # the capacity verdict: the same block; its numbers are each
+    # process's own traffic
+    assert ht["headroom"]["data"] in (True, False)
+    assert set(ht["headroom"]) <= {"data", "window_s", "busy_frac",
+                                   "cost_per_query_ms", "observed_rate",
+                                   "predicted_rate", "headroom_frac"}
 
 
 def test_debug_endpoints_match(servers):
@@ -241,22 +249,84 @@ def test_recall_target_answers_byte_identical(servers, path, body):
 
 
 @pytest.mark.parametrize("path,body", [
-    ("/debug/profile", {}),
+    ("/debug/profile?seconds=0", {}),
 ])
 def test_unported_endpoints_answer_501_and_keep_the_connection(servers, path, body):
+    """Every endpoint of the reference's item 15 is served now: a bad
+    /debug/profile window answers the reference's 400 (its body read, so
+    the keep-alive socket stays in sync), the trace and costs GETs answer
+    as the reference's do, and no path answers 501. (The name dates from
+    when these paths answered 501; it is kept so the test's history reads
+    on.)"""
     conn = http.client.HTTPConnection("127.0.0.1", servers[1].server_address[1], timeout=60)
     try:
         conn.request("POST", path, body=json.dumps(body))
         resp = conn.getresponse()
         err = json.loads(resp.read())["error"]
-        assert resp.status == 501 and "ROADMAP queue 1 item" in err
+        assert resp.status == 400 and "seconds must be in" in err
         # the body was read: the next request on this socket parses cleanly
         conn.request("GET", "/healthz")
         assert conn.getresponse().status == 200
     finally:
         conn.close()
     for get in ("/debug/trace", "/debug/trace/abc", "/debug/costs"):
-        assert call(servers[1], "GET", get)[0] == 501
+        (sj, _, _), (st, _, _) = both(servers, "GET", get)
+        assert st == sj != 501, get
+
+
+def test_capture_window_opens_on_the_batch_worker(tmp_path):
+    """The batch worker opens and closes a window between batches on its
+    own thread (it launches every kernel); once the server stopped, asking
+    for one raises instead of waiting forever."""
+    with pair() as p:
+        srv = p[1]
+        stop = threading.Event()
+
+        def client():
+            while not stop.is_set():
+                call(srv, "POST", "/v1/knn", {"queries": queries(5, 77).tolist()})
+
+        t = threading.Thread(target=client)
+        t.start()
+        try:
+            res = srv.batcher.capture_for(0.3, str(tmp_path))
+        finally:
+            stop.set()
+            t.join(60)
+        from kdtree_tpu_torch.obs import timeline as ttl
+
+        trace = ttl.load_trace(res.trace_file)
+        worker = srv.batcher._thread.native_id
+        dispatch_tids = {e["tid"] for e in trace["traceEvents"]
+                         if e.get("name") == "tile.dispatch"}
+        assert dispatch_tids == {worker}, (dispatch_tids, worker)
+    with pytest.raises(RuntimeError, match="not running"):
+        srv.batcher.capture_for(0.1, str(tmp_path))
+
+
+def test_capture_window_exports_on_the_asking_thread(tmp_path, monkeypatch):
+    """The worker only starts and stops the profiler; the thread that asked
+    for the window writes the trace, and the result carries what each step
+    took (the pause a window puts on serving)."""
+    from kdtree_tpu_torch.obs import profile as tprof
+
+    threads = {}
+    for step in ("stop", "export"):
+        def wrapped(self, _orig=getattr(tprof.Window, step), _step=step):
+            threads[_step] = threading.get_ident()
+            return _orig(self)
+
+        monkeypatch.setattr(tprof.Window, step, wrapped)
+    with pair() as p:
+        srv = p[1]
+        st, _, _ = call(srv, "POST", "/v1/knn", {"queries": queries(3, 78).tolist()})
+        assert st == 200
+        res = srv.batcher.capture_for(0.05, str(tmp_path))
+        worker = srv.batcher._thread.ident
+    assert threads == {"stop": worker, "export": threading.get_ident()}
+    assert res.trace_file and os.path.exists(res.trace_file)
+    assert min(res.start_seconds, res.stop_seconds, res.export_seconds) >= 0.0
+    assert not tprof.capture_active()
 
 
 def _write_both(p, op, body):
@@ -357,3 +427,105 @@ def test_shutdown_drains_admitted_requests():
     for _, _, resp in got:
         assert np.array_equal(np.asarray(resp["ids"]), want)
     assert srv.queue.closed and srv.queue.rows == 0
+
+
+def _costs_totals(srv):
+    st, _, rep = call(srv, "GET", "/debug/costs?window=30")
+    assert st == 200 and rep["costs_version"] == 1
+    return rep
+
+
+def test_debug_costs_count_the_answered_requests(servers):
+    """Every answered request lands in the ledger once: the delta of
+    /debug/costs requests equals the answers sent, on both servers, and
+    the payloads have the same keys and class rows."""
+    before = [_costs_totals(s)["totals"] for s in servers]
+    sizes = (1, 3, 16, 5)
+    for i, rows in enumerate(sizes):
+        assert_same_knn(servers, {"queries": queries(rows, 300 + i).tolist()})
+    (sj, _, _), (st, _, _) = both(servers, "POST", "/v1/count",
+                                  {"queries": queries(2, 310).tolist(), "r": 30.0})
+    assert sj == st == 200
+    after = [_costs_totals(s) for s in servers]
+    for b, a in zip(before, after):
+        assert a["totals"]["requests"] - b["requests"] == len(sizes) + 1
+        assert a["totals"]["rows"] - b["rows"] == sum(sizes) + 2
+        assert a["totals"]["bytes_out"] > b["bytes_out"]
+    assert set(after[1]) == set(after[0])
+    assert {(c["verb"], c["gear"], c["outcome"]) for c in after[1]["classes"]} >= \
+        {("knn", "exact", "ok"), ("count", "exact", "ok")}
+    assert after[1]["headroom"]["data"] in (True, False)
+
+
+def test_debug_trace_holds_the_request_spans(servers):
+    rid = "trace-me-42"
+    for s in servers:
+        st, _, body = call(s, "POST", "/v1/knn", {"queries": queries(3, 320).tolist()},
+                           headers={"X-Request-Id": rid})
+        assert st == 200 and body["trace_id"] == rid
+    (sj, _, tj), (st, _, tt) = both(servers, "GET", f"/debug/trace/{rid}")
+    assert sj == st == 200 and tt["trace_id"] == tj["trace_id"] == rid
+    names = {s["name"] for s in tt["spans"]}
+    assert {"serve/request", "serve/queue", "serve/dispatch"} <= names
+    assert {n for n in names if n.startswith("serve/")} == \
+        {s["name"] for s in tj["spans"] if s["name"].startswith("serve/")}
+    root = next(s for s in tt["spans"] if s["name"] == "serve/request")
+    kids = [s for s in tt["spans"] if s["parent_id"] == root["span_id"]]
+    assert {s["name"] for s in kids} >= {"serve/queue", "serve/dispatch"}
+    (sj, _, ij), (st, _, it) = both(servers, "GET", "/debug/trace")
+    assert sj == st == 200 and set(it) == set(ij)
+    assert both(servers, "GET", "/debug/trace/never-sent")[1][0] == 404
+
+
+def test_debug_profile_captures_the_worker_under_load(servers):
+    """POST /debug/profile?seconds=0.4 while a client keeps the batch
+    worker busy: 200 with a timeline whose dispatches are the worker
+    thread's tile.dispatch ranges; a second POST while a capture is open
+    gets 409; the busy gauge is on /metrics."""
+    from kdtree_tpu_torch.obs import profile as tprof
+
+    srv = servers[1]
+    stop = threading.Event()
+    answered = []
+
+    def client():
+        i = 0
+        while not stop.is_set():
+            st, _, _ = call(srv, "POST", "/v1/knn", {"queries": queries(9, 400 + i).tolist()})
+            answered.append(st)
+            i += 1
+
+    t = threading.Thread(target=client)
+    t.start()
+    try:
+        deadline = time.monotonic() + 60
+        while not answered and time.monotonic() < deadline:
+            time.sleep(0.01)
+        st, _, rep = call(srv, "POST", "/debug/profile?seconds=0.4")
+    finally:
+        stop.set()
+        t.join(60)
+    assert not t.is_alive() and set(answered) == {200}
+    assert st == 200, rep
+    assert rep["seconds_requested"] == 0.4 and rep["device"]["kind"] == "cpu"
+    assert rep["dispatches"]["count"] > 0 and rep["device"]["busy_frac"] > 0
+    assert rep["timeline_version"] == 1 and rep["trace_file"]
+    # a second window while one is asked of the batch worker, and while
+    # another part of the process holds the profiler: 409 both
+    first = {}
+    t = threading.Thread(target=lambda: first.update(
+        r=call(srv, "POST", "/debug/profile?seconds=0.3")))
+    t.start()
+    while srv.batcher._capture_req is None and t.is_alive():
+        time.sleep(0.002)
+    st, _, busy = call(srv, "POST", "/debug/profile?seconds=0.1")
+    t.join(60)
+    assert st == 409 and "already" in busy["error"] and first["r"][0] == 200
+    with tprof.capture(tempfile.mkdtemp(), device="cpu"):
+        st, _, busy = call(srv, "POST", "/debug/profile?seconds=0.1")
+    assert st == 409 and "already" in busy["error"]
+    for bad in ("0", "61", "-1", "abc"):
+        (sj, _, rj), (st, _, rt) = both(servers, "POST", f"/debug/profile?seconds={bad}")
+        assert sj == st == 400 and rt == rj
+    _, _, text = call(srv, "GET", "/metrics")
+    assert "\nkdtree_device_busy_frac " in text and "kdtree_profile_captures_total" in text
