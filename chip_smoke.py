@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--dfs-round-sweep]
     python3 chip_smoke.py --profile-stress N
+    python3 chip_smoke.py --forest-only
 
 ``--dfs-round-sweep`` adds to phase 6 the DFS timed at 4, 8, 16 and 32
 steps per host look on 16,384 of the sparse lane's queries: the run that
@@ -16,6 +17,9 @@ then by the batch worker (``MicroBatcher.capture_for``, what ``POST
 /debug/profile`` does), twice each. A process that dies is counted, not fatal, where the windows were
 opened off the worker; the mode fails if a batch-worker window crashes.
 It is the run that chose to open server windows on the batch worker.
+
+``--forest-only`` runs phases 1-3 and 12 alone (no kernels record), for
+work on the multi-device engines.
 
 Phases, one line each (any failure raises and exits non-zero):
 
@@ -114,7 +118,7 @@ Phases, one line each (any failure raises and exits non-zero):
              kdtree_tpu_torch serve --snapshot`` as a subprocess: its ready
              line, one /v1/knn and one /v1/radius answer against the oracle,
              SIGTERM -> exit 0.
-9. recall  — (a) distances above 32 axes: 2^20-point trees at D = 47 and
+9. recall  — (a) distances above 32 axes: 2^19-point trees at D = 47 and
              D = 64, morton_knn_tiled at k=16 over 4,096 queries, the scan
              kernel against the plain scan bit for bit at its final collect
              dispatch and a query sample against the exact brute-force
@@ -179,6 +183,37 @@ Phases, one line each (any failure raises and exits non-zero):
              seconds) and off; ``--metrics-out`` on ``bench`` (one with
              ``--trace``), then ``stats`` and ``stats --diff``.
 
+12. forest — the multi-device engines (``kdtree_tpu_torch.parallel``) on a
+             single-controller mesh, with both kernels' launch counts
+             zeroed just before and read just after: (a) bench.py's scale
+             lane, build_global_morton at 2^26 x 3-D on a one-shard mesh
+             (slack 1.05; generation and build, warm, best of 2, pts/s) and
+             10 queries at k=1 by the per-shard DFS, d2 bit-equal to
+             morton_knn over the same rows and ids to the oracle; (b) its
+             SPMD tiled lane, 2^22 points, 2^16 queries at k=16 (q/s), 512
+             queries against the oracle; (c) four shards on the one card
+             (a Mesh of cuda:0 four times), 2^24 x 3-D uniform and then
+             clustered (the --distribution clustered stream) at the default
+             slack, 2^20 queries at k=16 through global_morton_query_tiled:
+             d2 bit-equal to the single tree's morton_knn_tiled over the
+             same rows, ids equal except between tied distances, per-shard
+             occupancy, occ_max, the slack, overflow retries and scan
+             launches per shard; (d) ensemble_knn's dense route (2^20
+             queries over 2^24 points, equal to the single tree's) and
+             fused route (10 queries), global-exact at 2^22 (tiled; its
+             DFS lane at 2^20, cut so the classic DFS's launches per step
+             stay near 15 s), the global tree at 2^20 (node for node build_jit's),
+             dsharded_knn at 2^16 x 128-D with 1,024 queries (equal to its
+             column-block oracle; within 1e-5 relative of float64), each on
+             four shards; (e) the CLI: ``--engine global-morton --devices 1
+             build --n 2^24 --sharded`` then ``query`` (stdout = the
+             oracle's lines), and a ``--device cpu --devices 8`` checkpoint
+             at 2^16 queried on the card through the mesh-free Morton view
+             (4,096 queries, k=8: scan kernel launches > 0, exact). After
+             the counts are read: the scan kernel against the plain scan at
+             the P=1 and P=4 forest shapes (one shard's collect batch), timed
+             beside its bound.
+
 Every phase runs on a plan store of this run's own (a temporary
 directory). The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -225,7 +260,7 @@ VERB_ROWS = (1, 64, 1000)
 SNAP_CLI_N = 1 << 20  # points of phase 8's `build --save` / `serve --snapshot`
 SNAP_CLI_R = 4.0  # its radius: about 35 hits per query at 2^20 points
 WIDE_DIMS = (47, 64)  # phase 9a: 47 pads each row with 8 zeros in front, 9 behind
-WIDE_N = 1 << 20
+WIDE_N = 1 << 19  # cut from 2^20 to keep the whole run near 600 s
 WIDE_Q = 4096
 WIDE_SAMPLE = 256
 RECALL_Q = 1 << 16  # phase 9b's sweep sample
@@ -240,7 +275,21 @@ OBS_CLIENTS = 4  # phase 11's concurrent HTTP clients
 OBS_ROWS = (1, 7, 64, 1000)
 OBS_PROFILE_S = 2.0  # the /debug/profile window under load
 OBS_DUTY_PERIOD_S = "5"  # KDTREE_TPU_PROFILE_DUTY_PERIOD_S of the duty-cycle run
-OBS_BLOCK_S = 10.0  # each block of phase 11's served-overhead measurement
+OBS_BLOCK_S = 6.0  # each block of phase 11's served-overhead measurement
+SCALE_N = 1 << 26  # phase 12a: bench.py's scale lane, one shard
+SCALE_Q = 10
+SPMD_N = 1 << 22  # phase 12b: bench.py's SPMD tiled lane, one shard
+SPMD_Q = 1 << 16
+SPMD_SAMPLE = 512
+FOREST_N = 1 << 24  # phase 12c: four shards on one card
+FOREST_Q = 1 << 20
+FOREST_SHARDS = 4
+EXACT_N = 1 << 22  # phase 12d: global-exact (build and tiled lane)
+EXACT_DFS_N = 1 << 20  # its DFS lane: the classic DFS's launches per step cost ~75 s at 2^22
+GTREE_N = 1 << 20  # global-tree
+DSHARD_N, DSHARD_D, DSHARD_Q = 1 << 16, 128, 1024  # dsharded_knn
+FOREST_CPU_N = 1 << 16  # 12e: the CPU-built 8-shard checkpoint
+FOREST_CPU_Q = 4096
 
 
 def say(phase: str, msg: str) -> None:
@@ -2679,6 +2728,290 @@ def phase_obs(dev, points, tree, here, smi):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def _ties_ok(points, queries, d2, ids, want, what):
+    """d2 equal to ``want``'s bit for bit; where the ids differ, each of
+    ours must be a distinct point at exactly that distance (a tie that
+    the two engines broke differently, with a neighbouring rank or with a
+    point past the k-th). Returns the count of such slots."""
+    import torch
+
+    from kdtree_tpu_torch.ops._arith import sq_dist
+
+    want_d2, want_ids = want
+    assert d2.shape == want_d2.shape and ids.shape == want_ids.shape, what
+    assert torch.equal(d2, want_d2), f"{what}: d2 differs"
+    rows = (ids != want_ids).any(1).nonzero()[:, 0]
+    if rows.numel():
+        r_ids = ids[rows].long()
+        again = sq_dist(queries[rows][:, None, :], points[r_ids])
+        assert torch.equal(again, d2[rows]), f"{what}: a differing id is not at its d2"
+        assert (r_ids.sort(dim=1).values.diff(dim=1) != 0).all(), f"{what}: dup ids"
+    return int((ids != want_ids).sum())
+
+
+class _SayList(list):
+    """Phase 12's lines, each printed the moment it is added, so that a
+    later failure keeps what came before."""
+
+    def append(self, line):
+        say("forest", line)
+        super().append(line)
+
+
+def _forest_shape(name, forest, queries, k, dev):
+    """The scan kernel against the plain scan on shard 0's tree at the
+    forest's per-shard plan (the plan its SPMD query takes, the kernel
+    forced), one collect batch, timed beside its bound."""
+    from kdtree_tpu_torch.ops import tile_query as tqm
+    from kdtree_tpu_torch.parallel.global_morton import _shard_n_real
+
+    n_shard = _shard_n_real(forest, k)
+    plan = tqm.plan_tiled(queries.shape[0], queries.shape[1], n_shard, forest.num_buckets,
+                          forest.bucket_size, k, use_kernel=True, device=dev,
+                          devices=forest.devices)
+    sq, _ = tqm._sort_queries(queries, plan.bits, (-queries.shape[0]) % plan.qbatch)
+    tq = sq[: plan.qbatch].reshape(-1, plan.tile, queries.shape[1]).contiguous()
+    tree = forest.shard(0, n_shard)
+    cand, lb = collect_inputs(tree, tq, k, plan.seeds, plan.cmax, grow=True)
+    return time_shape(name, tree, tq, cand, lb, k, 1, 20, 1)
+
+
+def phase_forest(dev, here, smi):
+    """Phase 12: the multi-device engines (see the module docstring).
+    Returns the lines to print, the scan and merge kernels' launches over
+    the phase's driven path, and the kernel records at the forest shapes."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import kdtree_tpu_torch.kernels.scan_knn as scan_mod
+    from kdtree_tpu_torch import obs
+    from kdtree_tpu_torch.ops import bruteforce
+    from kdtree_tpu_torch.ops import tile_query as tqm
+    from kdtree_tpu_torch.ops.build import build_jit
+    from kdtree_tpu_torch.ops.generate import (
+        generate_points_rowwise, generate_points_shard_clustered, generate_queries,
+    )
+    from kdtree_tpu_torch.ops.morton import build_morton, morton_knn
+    from kdtree_tpu_torch.parallel import (
+        build_global, build_global_exact, build_global_morton, dsharded_knn, ensemble_knn,
+        global_exact_query, global_knn, global_morton_query, global_morton_query_tiled,
+    )
+    from kdtree_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    lines = _SayList()
+    on_card = dev.type == "cuda"
+    dev_args = [] if on_card else ["--device", str(dev)]
+    one = make_mesh(1, device=dev)
+    four = Mesh([dev] * FOREST_SHARDS)  # four shards on the one card
+    keep = {}
+
+    def timed(fn):
+        return _timed(dev, fn)
+
+    scan_mod.scan_tiles.launches = 0
+    scan_mod.merge_partials.launches = 0
+
+    # (a) bench.py's scale lane: gen + build at 2^26 on one shard, 10 queries
+    q10 = generate_queries(77, DIM, SCALE_Q, device=dev)
+    timed(lambda: build_global_morton(999, DIM, SCALE_N, mesh=one, slack=1.05))  # warm-up
+    torch.cuda.empty_cache()
+    builds = []
+    for seed in (1, 2):
+        f, s_ = timed(lambda: build_global_morton(seed, DIM, SCALE_N, mesh=one, slack=1.05))
+        builds.append(s_)
+    (d2, ids), q_s = timed(lambda: global_morton_query(f, q10, k=1, mesh=one))
+    del f
+    torch.cuda.empty_cache()
+    pts = generate_points_rowwise(2, DIM, SCALE_N, device=dev)
+    sd, si = morton_knn(build_morton(pts, bucket_cap=128), q10, k=1)
+    assert torch.equal(d2, sd), "scale lane: d2 differs from the single tree's DFS"
+    ties = check_answer(pts, q10, d2, ids, 1, "scale lane")
+    lines.append(f"(a) scale lane, {SCALE_N} x {DIM}-D on one shard (slack 1.05): gen+build "
+                 f"{min(builds):.3f} s best of 2 ({builds[0]:.3f} / {builds[1]:.3f}; "
+                 f"{SCALE_N / min(builds):.0f} pts/s), {SCALE_Q} queries k=1 by the per-shard "
+                 f"DFS {q_s * 1e3:.2f} ms; d2 bit-equal to morton_knn over the same rows, ids "
+                 f"to the oracle ({ties} tied slots) [{smi}]")
+    del pts, sd, si
+    torch.cuda.empty_cache()
+
+    # (b) bench.py's SPMD tiled lane: 2^22 on one shard, 2^16 queries, k=16
+    f1 = build_global_morton(21, DIM, SPMD_N, mesh=one, slack=1.05)
+    global_morton_query(f1, generate_queries(77, DIM, SPMD_Q, device=dev), k=K, mesh=one)
+    qs = generate_queries(78, DIM, SPMD_Q, device=dev)
+    before = scan_mod.scan_tiles.launches
+    (d2, ids), spmd_s = timed(lambda: global_morton_query(f1, qs, k=K, mesh=one))
+    spmd_launch = scan_mod.scan_tiles.launches - before
+    pts = generate_points_rowwise(21, DIM, SPMD_N, device=dev)
+    ties = check_answer(pts, qs[:SPMD_SAMPLE], d2[:SPMD_SAMPLE], ids[:SPMD_SAMPLE], K,
+                        "SPMD tiled lane")
+    lines.append(f"(b) SPMD tiled lane, {SPMD_N} x {DIM}-D, one shard, {SPMD_Q} queries k={K}: "
+                 f"{spmd_s:.4f} s ({SPMD_Q / spmd_s:.0f} q/s), {spmd_launch} scan kernel "
+                 f"launches; {SPMD_SAMPLE} queries exact vs oracle ({ties} tied slots)")
+    keep["p1"] = (f1, qs)
+    del pts
+
+    # (c) four shards on one card, uniform then clustered, default slack
+    for dist in ("uniform", "clustered"):
+        reg = obs.get_registry()
+        f4, b_s = timed(lambda: build_global_morton(SEED, DIM, FOREST_N, mesh=four,
+                                                    distribution=dist))
+        slack = reg.snapshot()["gauges"]["kdtree_exchange_slack"]
+        occ = [int((g >= 0).sum()) for g in f4.bucket_gid]
+        if dist == "uniform":
+            pts = generate_points_rowwise(SEED, DIM, FOREST_N, device=dev)
+            q = generate_queries(SEED + 12, DIM, FOREST_Q, device=dev)
+        else:
+            rows = generate_points_shard_clustered(SEED, DIM, 0, FOREST_N + FOREST_Q, device=dev)
+            pts, q = rows[:FOREST_N], rows[FOREST_N:]
+        stats = tqm.TileStats()
+        before = scan_mod.scan_tiles.launches
+        (d2, ids), q_s = timed(lambda: global_morton_query_tiled(f4, q, k=K, mesh=four,
+                                                                 stats=stats))
+        launched = scan_mod.scan_tiles.launches - before
+        assert launched % FOREST_SHARDS == 0, launched
+        single = build_morton(pts, bucket_cap=BUCKET)
+        (sd, si), s_s = timed(lambda: tqm.morton_knn_tiled(single, q, k=K))
+        ties = _ties_ok(pts, q, d2, ids, (sd, si), f"4 shards, {dist}")
+        sample = torch.arange(0, FOREST_Q, FOREST_Q // SAMPLE, device=dev)
+        check_answer(pts, q[sample], d2[sample], ids[sample], K, f"4 shards, {dist}")
+        lines.append(
+            f"(c) {FOREST_SHARDS} shards on one card, {FOREST_N} x {DIM}-D {dist}: build "
+            f"{b_s:.3f} s ({FOREST_N / b_s:.0f} pts/s), slack {slack:g}, per-shard occupancy "
+            f"{occ} (occ_max {f4.occ_max}); {FOREST_Q} queries k={K}: {q_s:.3f} s "
+            f"({FOREST_Q / q_s:.0f} q/s; the single tree's tiled run {s_s:.3f} s), "
+            f"{stats.batches} batches, {stats.retries} overflow retries, "
+            f"{launched // FOREST_SHARDS} scan launches per shard; d2 bit-equal to the single "
+            f"tree's morton_knn_tiled, ids equal but {ties} slots tied otherwise; {SAMPLE}-query sample "
+            f"exact vs oracle")
+        if dist == "uniform":
+            keep["p4"] = (f4, q)
+            upts, uq, utree, uans = pts, q, single, (sd, si)
+        del single
+    del pts, q, d2, ids, sd, si
+    torch.cuda.empty_cache()
+
+    # (d) the other engines
+    (d2, ids), e_s = timed(lambda: ensemble_knn(upts, uq, k=K, mesh=four))
+    ties = _ties_ok(upts, uq, d2, ids, uans, "ensemble dense route")
+    e10 = generate_queries(SEED + 13, DIM, SCALE_Q, device=dev)
+    (fd, fi), ef_s = timed(lambda: ensemble_knn(upts, e10, k=K, mesh=four))
+    check_answer(upts, e10, fd, fi, K, "ensemble fused route")
+    lines.append(f"(d) ensemble_knn on {FOREST_SHARDS} shards, {FOREST_N} points: dense route "
+                 f"{FOREST_Q} queries {e_s:.3f} s ({FOREST_Q / e_s:.0f} q/s), equal to the "
+                 f"single tree's but {ties} slots tied otherwise; fused route {SCALE_Q} queries "
+                 f"{ef_s:.3f} s, exact vs oracle")
+    del upts, uq, utree, uans, d2, ids
+    torch.cuda.empty_cache()
+
+    gd = build_global_exact(SEED, DIM, EXACT_DFS_N, mesh=four)
+    (d2, ids), xd_s = timed(lambda: global_exact_query(gd, e10, k=K, mesh=four))
+    check_answer(generate_points_rowwise(SEED, DIM, EXACT_DFS_N, device=dev), e10, d2, ids, K,
+                 "global-exact DFS")
+    del gd
+    gx, gx_s = timed(lambda: build_global_exact(SEED, DIM, EXACT_N, mesh=four))
+    xpts = generate_points_rowwise(SEED, DIM, EXACT_N, device=dev)
+    xq = generate_queries(SEED + 14, DIM, SPMD_Q, device=dev)
+    (d2, ids), xt_s = timed(lambda: global_exact_query(gx, xq, k=K, mesh=four))
+    check_answer(xpts, xq[:SPMD_SAMPLE], d2[:SPMD_SAMPLE], ids[:SPMD_SAMPLE], K,
+                 "global-exact tiled")
+    lines.append(f"(d) global-exact, {EXACT_N} points on {FOREST_SHARDS} shards: build "
+                 f"{gx_s:.3f} s; DFS {SCALE_Q} queries {xd_s:.3f} s (on {EXACT_DFS_N} "
+                 f"points), tiled {SPMD_Q} queries "
+                 f"{xt_s:.3f} s ({SPMD_Q / xt_s:.0f} q/s); both exact vs oracle (tiled on "
+                 f"{SPMD_SAMPLE})")
+    del gx, xpts, d2, ids
+
+    gpts = generate_points_rowwise(SEED, DIM, GTREE_N, device=dev)
+    gt, gt_s = timed(lambda: build_global(gpts, mesh=four))
+    single = build_jit(gpts)
+    npt = single.node_point.long()
+    assert torch.equal(gt.node_gid.long(), npt), "global tree: node ids != build_jit's"
+    held = npt >= 0
+    assert torch.equal(gt.node_coords[held], gpts[npt[held]]), "global tree: node points"
+    (d2, ids), gq_s = timed(lambda: global_knn(gt, e10, k=K))
+    check_answer(gpts, e10, d2, ids, K, "global tree")
+    lines.append(f"(d) global tree, {GTREE_N} points on {FOREST_SHARDS} shards: build "
+                 f"{gt_s:.3f} s, node for node build_jit's; {SCALE_Q} queries {gq_s:.3f} s, "
+                 f"exact vs oracle")
+    del gt, gpts, single
+
+    dpts = generate_points_rowwise(SEED, DSHARD_D, DSHARD_N, device=dev)
+    dq = generate_queries(SEED + 15, DSHARD_D, DSHARD_Q, device=dev)
+    (d2, ids), ds_s = timed(lambda: dsharded_knn(dpts, dq, k=K, mesh=four))
+    w = DSHARD_D // FOREST_SHARDS
+    full = bruteforce.block_d2_exact(dq[:, :w], dpts[:, :w])
+    for s_ in range(1, FOREST_SHARDS):
+        full = full + bruteforce.block_d2_exact(dq[:, s_ * w:(s_ + 1) * w],
+                                                dpts[:, s_ * w:(s_ + 1) * w])
+    idx = torch.arange(DSHARD_N, dtype=torch.int64, device=dev)
+    od, oi = bruteforce._unkey(bruteforce._smallest(
+        bruteforce._keys(full, idx[None].expand_as(full)), K))
+    assert torch.equal(d2, od) and torch.equal(ids, oi), "dsharded != its column-block oracle"
+    exact64 = ((dq.double()[:, None, :] - dpts.double()[ids.long()]) ** 2).sum(-1)
+    rel = float(((d2.double() - exact64).abs() / exact64.clamp_min(1e-30)).max())
+    assert rel < 1e-5, rel
+    lines.append(f"(d) dsharded_knn, {DSHARD_N} x {DSHARD_D}-D on {FOREST_SHARDS} shards, "
+                 f"{DSHARD_Q} queries k={K}: {ds_s:.3f} s; equal to the column-block oracle, "
+                 f"within {rel:.2e} relative of float64")
+    del dpts, dq, full, d2, ids
+    torch.cuda.empty_cache()
+
+    # (e) the CLI: a sharded forest checkpoint built and queried on the
+    # card; an 8-shard checkpoint built on the CPU, served on the card
+    work = Path(tempfile.mkdtemp(prefix="chip-smoke-forest-"))
+    ck = str(work / "forest.npz")
+    (out, _), cb_s = timed(lambda: run_cli([*dev_args, "--engine", "global-morton", "--devices", "1",
+                                            "build", "--n", str(FOREST_N), "--sharded",
+                                            "--out", ck]))
+    assert "per-device shard files" in out, out
+    (out, _), cq_s = timed(lambda: run_cli([*dev_args, "query", "--tree", ck]))
+    pts = generate_points_rowwise(42, DIM, FOREST_N, device=dev)
+    od, _ = bruteforce.knn(pts, generate_queries(42, DIM, 10, device=dev), k=1)
+    want = "".join(f"ID: {FOREST_N + i} \t DISTANCE: {float(np.sqrt(v)):g}\n"
+                   for i, v in enumerate(od[:, 0].cpu().numpy())) + "DONE\n"
+    assert out == want, (out, want)
+    del pts
+    cpu_ck = str(work / "cpu8.npz")
+    run_cli(["--device", "cpu", "--engine", "global-morton", "--devices", "8", "build",
+             "--n", str(FOREST_CPU_N), "--out", cpu_ck])
+    qf = str(work / "q.npy")
+    cq = generate_queries(SEED + 16, DIM, FOREST_CPU_Q, device=dev)
+    np.save(qf, cq.cpu().numpy())
+    before = scan_mod.scan_tiles.launches
+    (out, _), cv_s = timed(lambda: run_cli([*dev_args, "query", "--tree", cpu_ck, "--queries", qf,
+                                            "--k", "8", "--out", str(work / "ans.npz")]))
+    view_launch = scan_mod.scan_tiles.launches - before
+    assert view_launch > 0 or not on_card, "the mesh-free view never launched the scan kernel"
+    with np.load(work / "ans.npz") as z:
+        ans = (torch.from_numpy(z["d2"]).to(dev), torch.from_numpy(z["ids"]).to(dev))
+    ties = check_answer(generate_points_rowwise(42, DIM, FOREST_CPU_N, device=dev), cq, *ans,
+                        8, "CPU-built 8-shard checkpoint on the card")
+    lines.append(f"(e) CLI: `--engine global-morton --devices 1 build --n {FOREST_N} --sharded` "
+                 f"{cb_s:.2f} s, `query` {cq_s:.2f} s, stdout = the oracle's lines; a "
+                 f"`--device cpu --devices 8` checkpoint at {FOREST_CPU_N} queried on the card "
+                 f"through the mesh-free view: {FOREST_CPU_Q} queries k=8 {cv_s:.2f} s, "
+                 f"{view_launch} scan launches, exact vs oracle ({ties} tied slots)")
+    shutil.rmtree(work, ignore_errors=True)
+
+    launches = scan_mod.scan_tiles.launches
+    merges = scan_mod.merge_partials.launches
+    assert launches > 0 or not on_card, "phase 12 never launched the scan kernel"
+    lines.append(f"phase 12's path: scan_tiles.launches={launches}, "
+                 f"merge_partials.launches={merges}")
+
+    # the kernel against the plain scan at the forest shapes (after the
+    # counts were read)
+    if not on_card:
+        return lines, launches, merges, {}
+    recs = {"p1": _forest_shape(f"forest P=1 ({SPMD_N} points) shard collect shape",
+                                *keep["p1"][:2], K, dev),
+            "p4": _forest_shape(f"forest P=4 ({FOREST_N} points) shard 0 collect shape",
+                                *keep["p4"][:2], K, dev)}
+    return lines, launches, merges, recs
+
+
 def main(argv=None) -> int:
     import faulthandler
 
@@ -2842,6 +3175,11 @@ def _run(argv, here, t_run) -> int:
     import kdtree_tpu_torch.kernels.scan_knn as scan_mod
 
     max_err = phase_kernel(dev)
+    if "--forest-only" in argv:
+        _phase12(dev, here, smi, t_run)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
 
     # 4. main path
     from kdtree_tpu_torch.ops import tile_query as tqm
@@ -2968,6 +3306,30 @@ def _run(argv, here, t_run) -> int:
     del points, tree
     say("obs", f"phase 11 in {time.perf_counter() - t0:.1f} s; the whole run "
                f"{time.perf_counter() - t_run:.1f} s [{smi}]")
+    torch.cuda.empty_cache()
+
+    # 12. the multi-device engines
+    f_launches, f_merges, _ = _phase12(dev, here, smi, t_run)
+    launches += f_launches
+    merges += f_merges
+
+    print_record(kind, smi, launches, merges, max_err, main_rec, sparse)
+    return 0
+
+
+def _phase12(dev, here, smi, t_run):
+    """Phase 12 with its lines printed; returns its launch counts and its
+    kernel records."""
+    t0 = time.perf_counter()
+    _, launches, merges, recs = phase_forest(dev, here, smi)
+    say("forest", f"phase 12 in {time.perf_counter() - t0:.1f} s; the whole run "
+                  f"{time.perf_counter() - t_run:.1f} s [{smi}]")
+    return launches, merges, recs
+
+
+def print_record(kind, smi, launches, merges, max_err, main_rec, sparse):
+    """The kernels' JSON line, the nvidia-smi line and the result line."""
+    import torch
 
     record = {"kernels": [{
         "name": "scan_knn",
@@ -2999,7 +3361,6 @@ def _run(argv, here, t_run) -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -7,7 +7,10 @@ query verbs (radius, range, count), the recall dial (bounded-visit
 approximate k-NN, the recall harness, the degradation ladder), the plan
 store with its feedback and ``tune`` sweep, the classic median-split
 trees (the level-synchronous build, its presort strategy, the bucketed
-tree, and their plane-bound DFS queries), the serving engine facade and
+tree, and their plane-bound DFS queries), the multi-device engines on a
+single-controller mesh (:mod:`kdtree_tpu_torch.parallel`: the global
+Morton forest, ensemble, global-exact, global-tree and feature-sharded
+k-NN), the serving engine facade and
 HTTP front, npz checkpoints, serving snapshots, and the CLI
 (``python -m kdtree_tpu_torch``). The JAX
 package ``kdtree_tpu`` stays beside this one as the reference it is held
@@ -36,6 +39,8 @@ _LAZY = {
     "generate_queries": "kdtree_tpu_torch.ops.generate",
     "generate_points_rowwise": "kdtree_tpu_torch.ops.generate",
     "generate_points_shard": "kdtree_tpu_torch.ops.generate",
+    "generate_clustered": "kdtree_tpu_torch.ops.generate",
+    "generate_points_shard_clustered": "kdtree_tpu_torch.ops.generate",
     "ServeEngine": "kdtree_tpu_torch.serve.engine",
     "tree_from_arrays": "kdtree_tpu_torch.interop",
     "tree_to_arrays": "kdtree_tpu_torch.interop",
@@ -66,6 +71,7 @@ _SUBMODULES = {
     "bruteforce": "kdtree_tpu_torch.ops.bruteforce",
     "approx": "kdtree_tpu_torch.approx",
     "tuning": "kdtree_tpu_torch.tuning",
+    "parallel": "kdtree_tpu_torch.parallel",
 }
 
 __all__ = ["resolve_device", *_LAZY, *_SUBMODULES]

@@ -374,6 +374,20 @@ METRIC_HELP = {
     "kdtree_build_points_total": "rows indexed by engine",
     "kdtree_queries_total": "query calls by engine",
     "kdtree_query_rows_total": "query rows by engine",
+    "kdtree_shard_queries_total":
+        "per-shard query rows absorbed by the forest engines",
+    "kdtree_tile_candidates_total":
+        "collect-pass candidate buckets actually scanned",
+    "kdtree_tile_scan_units_total":
+        "(tile x local-tree) frontier descents",
+    "kdtree_tile_prune_rate":
+        "1 - candidates/(scan_units x buckets) of the last tiled run",
+    "kdtree_forest_devices": "device count of the last forest build",
+    "kdtree_exchange_slack":
+        "sample-sort exchange capacity factor of the last scale build",
+    "kdtree_slack_occupancy_sized_total":
+        "scale builds whose exchange slack was sized from warm "
+        "occupancy profiles",
     # spans
     "kdtree_span_seconds": "duration distribution per host span path",
     # PyTorch runtime (obs/torchrt.py), the counterpart of the

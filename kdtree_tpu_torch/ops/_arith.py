@@ -42,6 +42,21 @@ def sq_add(acc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return bits.view(torch.float64).float()
 
 
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``fma(a, b, c)``, rounded once, for any signs: the product
+    is exact in float64, and the sum is rounded to odd there before the
+    one cast to float32, as :func:`sq_add` does."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bp = s - p
+    err = (p - (s - bp)) + (cd - bp)
+    bits = s.view(torch.int64)
+    nudge = (err != 0) & ((bits & 1) == 0) & torch.isfinite(s)
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    return (bits + nudge.to(torch.int64) * step).view(torch.float64).float()
+
+
 def sq_sum_unrolled(xs: list[torch.Tensor]) -> torch.Tensor:
     """The same sum written out as ``acc = 0; acc = acc + x_d * x_d`` in
     straight-line code, as XLA:CPU compiles it: the simplifier drops the

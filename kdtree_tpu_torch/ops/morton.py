@@ -99,14 +99,22 @@ def default_bits(dim: int) -> int:
     return max(1, min(32 // max(dim, 1), 16))
 
 
-def quantize(points: torch.Tensor, bits: int) -> torch.Tensor:
-    """int64 cell coordinates in [0, 2^bits), per axis, on the data's own
-    per-axis bounds. Rows with a non-finite coordinate go to the top cell
-    (they sort to the end); the clip happens in float, before the cast."""
+def quantize(points: torch.Tensor, bits: int, lo=None, hi=None) -> torch.Tensor:
+    """int64 cell coordinates in [0, 2^bits), per axis. The grid is the
+    data's own per-axis bounds, or ``lo``/``hi`` (scalars or [D], taken
+    as float32) when given, so that several shards quantize on one grid.
+    Rows with a non-finite coordinate go to the top cell (they sort to the
+    end); values outside the grid clamp to its edge cells. The clip
+    happens in float, before the cast."""
     finite = torch.isfinite(points)
     inf = torch.tensor(float("inf"), dtype=points.dtype, device=points.device)
-    lo = torch.where(finite, points, inf).amin(dim=0)
-    hi = torch.where(finite, points, -inf).amax(dim=0)
+    d = points.shape[1]
+
+    def given(v):
+        return torch.as_tensor(v, dtype=points.dtype, device=points.device).expand(d)
+
+    lo = torch.where(finite, points, inf).amin(dim=0) if lo is None else given(lo)
+    hi = torch.where(finite, points, -inf).amax(dim=0) if hi is None else given(hi)
     scale = torch.where(hi > lo, hi - lo, torch.ones_like(hi))
     t = (points - lo) / scale * float(1 << bits)
     t = torch.where(finite.all(dim=1, keepdim=True), t,
@@ -114,12 +122,14 @@ def quantize(points: torch.Tensor, bits: int) -> torch.Tensor:
     return t.clamp(0.0, float((1 << bits) - 1)).to(torch.int64)
 
 
-def morton_codes(points: torch.Tensor, bits: int) -> torch.Tensor:
-    """Morton (Z-order) codes, u32 values in int64; ``bits`` per axis.
-    Interleave slots at or past bit 32 do not contribute (the reference's
-    guard for D > 32)."""
+def morton_codes(points: torch.Tensor, bits: int, lo=None,
+                 hi=None) -> torch.Tensor:
+    """Morton (Z-order) codes, u32 values in int64; ``bits`` per axis, on
+    the grid :func:`quantize` takes (``lo``/``hi`` fix it, as the forest's
+    shards do). Interleave slots at or past bit 32 do not contribute (the
+    reference's guard for D > 32)."""
     n, d = points.shape
-    cells = quantize(points, bits)
+    cells = quantize(points, bits, lo, hi)
     code = torch.zeros(n, dtype=torch.int64, device=points.device)
     for b in range(bits):
         for a in range(d):
@@ -237,16 +247,16 @@ def morton_view(points, gid=None, n_real: int | None = None,
 _BUDGET_EXCEEDED = object()
 
 
-def serving_view(owner, make_inputs):
+def serving_view(owner, make_inputs, cache_attr: str = "_morton_view"):
     """Cache-or-build a dense-serving :func:`morton_view` on ``owner``.
 
     Builds the view once from ``make_inputs() ->`` ``morton_view`` kwargs,
-    caches it on the object (``owner._morton_view``), and returns ``None``
+    caches it on the object (the attribute ``cache_attr``), and returns ``None``
     when the view would not fit the device (``BuildCapacityError``), so
     that the caller falls back to its memory-lean engine. The over-budget
     outcome is cached too. The port of
     ``kdtree_tpu/ops/morton.py::serving_view``."""
-    view = getattr(owner, "_morton_view", None)
+    view = getattr(owner, cache_attr, None)
     if view is _BUDGET_EXCEEDED:
         return None
     if view is not None:
@@ -254,9 +264,9 @@ def serving_view(owner, make_inputs):
     try:
         view = morton_view(**make_inputs())
     except BuildCapacityError:
-        owner._morton_view = _BUDGET_EXCEEDED
+        setattr(owner, cache_attr, _BUDGET_EXCEEDED)
         return None
-    owner._morton_view = view
+    setattr(owner, cache_attr, view)
     return view
 
 
@@ -409,8 +419,17 @@ def morton_knn(tree: MortonTree, queries, k: int = 1, chunk: int = 4096,
     :func:`kdtree_tpu_torch.ops.tile_query.morton_knn_tiled`."""
     queries = torch.as_tensor(queries, dtype=torch.float32, device=tree.device)
     k = min(k, tree.n_real)
+    obs.count_query("morton", queries.shape[0])
+    return morton_knn_chunks(tree, queries, k, chunk, stats)
+
+
+def morton_knn_chunks(tree: MortonTree, queries: torch.Tensor, k: int,
+                      chunk: int = 4096, stats: DfsStats | None = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`morton_knn`'s DFS without its counters: queries on the
+    tree's device, ``k`` already clamped. The forest engines run it once
+    per shard."""
     q = queries.shape[0]
-    obs.count_query("morton", q)
     chunk = min(chunk, max(q, 1))
     if q <= chunk:
         return _morton_knn_batch(tree, queries, k, stats)

@@ -126,6 +126,23 @@ def _knn_batch(node_point: torch.Tensor, points: torch.Tensor, queries: torch.Te
                          d2_fn)
 
 
+def _knn_batch_nodes(node_coords: torch.Tensor, node_gid: torch.Tensor,
+                     node_traversable: torch.Tensor, queries: torch.Tensor, k: int,
+                     max_depth: int,
+                     stats: DfsStats | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k-NN over a node-coordinate heap (the global tree's storage): node
+    i's point at ``node_coords[i]``, its global id at ``node_gid[i]`` (-1:
+    padding or an empty slot), and ``node_traversable[i]`` whether its
+    subtree can hold real points."""
+    heap_size, d = node_coords.shape
+
+    def get_node(node):
+        return node_coords[node], node_gid[node], node_traversable[node]
+
+    node_axes = _node_axes(heap_size, d, node_coords.device)
+    return _knn_lockstep(get_node, node_axes, heap_size, max_depth, k, queries, stats)
+
+
 def knn(tree: KDTree, queries, k: int = 1,
         stats: DfsStats | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact k-NN for a batch of queries, on the tree's device.

@@ -231,7 +231,8 @@ def _tiled_batch_core(tree, sq, k: int, tile: int, cmax: int, seeds: int,
                       v: int, tb: int, use_kernel: bool = False,
                       visit_cap: int | None = None):
     """Seed + collect + scan for ONE batch of sorted queries. Returns
-    (d2 f32[q, k], ids i32[q, k], overflow bool scalar tensor).
+    (d2 f32[q, k], ids i32[q, k], overflow bool scalar tensor, candidate
+    buckets collected: an int scalar tensor).
 
     ``visit_cap`` keeps only the first ``visit_cap`` buckets of each
     tile's lb-ascending collect list (the seed pass and the overflow flag
@@ -261,9 +262,10 @@ def _tiled_batch_core(tree, sq, k: int, tile: int, cmax: int, seeds: int,
         # contiguous lists
         cand = cand[:, :visit_cap].contiguous()
         cand_lb = cand_lb[:, :visit_cap].contiguous()
+    ncand = (cand >= 0).sum()
     fd, fi = scan(cand, cand_lb)
     q = T * tile
-    return fd.reshape(q, k), fi.reshape(q, k), overflow.any()
+    return fd.reshape(q, k), fi.reshape(q, k), overflow.any(), ncand
 
 
 def _unsort(order, d2, gi, qreal: int):
@@ -345,6 +347,7 @@ def plan_tiled(
     tile: int | None = None, cmax: int = DEFAULT_CMAX,
     seeds: int = DEFAULT_SEEDS, use_kernel: bool | None = None,
     device=None, scan_v: int | None = None, scan_tb: int | None = None,
+    devices: int = 1,
 ) -> TiledPlan:
     """Resolve the static knobs of a tiled run from the problem shape.
 
@@ -359,7 +362,9 @@ def plan_tiled(
     (``None`` means CUDA) and the plain scan on the CPU; a profile
     recorded for the other engine reads as a miss. ``scan_v`` /
     ``scan_tb`` force the plain scan's block shape; exactness never
-    depends on either."""
+    depends on either. ``devices`` is the per-shard plan context: a
+    forest's shard count, so that a shard plan never collides with a
+    single-device plan of the same shape."""
     forced_engine = use_kernel is not None
     if use_kernel is None:
         backend = resolve_device(device).type
@@ -372,7 +377,8 @@ def plan_tiled(
     if auto:
         from kdtree_tpu_torch import tuning
 
-        sig = tuning.make_signature(Q, D, n_real, k, B, nbp, backend=backend)
+        sig = tuning.make_signature(Q, D, n_real, k, B, nbp, devices=devices,
+                                    backend=backend)
         prof = tuning.lookup(sig, use_kernel=use_kernel)
         if prof is not None:
             tile, cmax = int(prof["tile"]), int(prof["cmax"])
@@ -426,10 +432,11 @@ def drive_batches(
     lookahead: int = DEFAULT_LOOKAHEAD,
     stats: TileStats | None = None,
     feedback=None,
+    scan_units_per_batch: int | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pipelined batch dispatch with overflow retry.
 
-    ``run_batch(offset, cap) -> (d2, gid, overflow)``. The first batch
+    ``run_batch(offset, cap) -> (d2, gid, overflow[, ncand])``. The first batch
     settles the cap synchronously (``settle_first``); then up to
     ``lookahead`` batches stay queued on the device, and retiring the
     oldest reads its one overflow flag (``.item()``-style host fetch) while
@@ -447,6 +454,15 @@ def drive_batches(
     dispatch window's busy/idle), ``tile.retire`` around the blocking flag
     fetch of a retire, ``tile.drain`` around the stacked fetch. Outside a
     capture they cost about a microsecond each.
+
+    With device metrics enabled (``obs.enabled()``) and a 4th output (the
+    batch's candidate-bucket count), the counts are stacked on the device
+    and fetched at report time: ``kdtree_tile_candidates_total``, and with
+    ``scan_units_per_batch`` (tiles per batch x shards, the (tile, tree)
+    pairs that could each have kept ``nbp`` buckets)
+    ``kdtree_tile_scan_units_total`` and the prune rate
+    ``kdtree_tile_prune_rate = 1 - candidates / (units * nbp)``, which the
+    feedback handle records into the plan profile too.
     """
     nretries = 0
     bcmax = cmax
@@ -508,9 +524,29 @@ def drive_batches(
         stats.retries += nretries
     if feedback is not None:
         feedback.settled(cmax=bcmax, retries=nretries)
+    if obs.enabled() and len(batches[0]) > 3:
+        _defer_candidates(torch.stack([b[3] for b in batches]),
+                          (scan_units_per_batch or 0) * n, nbp, feedback)
     d2 = torch.cat([b[0] for b in batches]) if n > 1 else batches[0][0]
     gi = torch.cat([b[1] for b in batches]) if n > 1 else batches[0][1]
     return d2, gi
+
+
+def _defer_candidates(ncand_dev, units: int, nbp: int, feedback) -> None:
+    """Record a run's candidate counts at report time (one fetch then)."""
+    reg = obs.get_registry()
+
+    def flush():
+        ncand = int(ncand_dev.sum())
+        reg.counter("kdtree_tile_candidates_total").inc(ncand)
+        if units:
+            reg.counter("kdtree_tile_scan_units_total").inc(units)
+            rate = 1.0 - ncand / (units * nbp)
+            reg.gauge("kdtree_tile_prune_rate").set(rate)
+            if feedback is not None:
+                feedback.record_stats(prune_rate=rate)
+
+    obs.defer(flush)
 
 
 def morton_knn_tiled(
@@ -574,5 +610,6 @@ def morton_knn_tiled(
     d2, gi = drive_batches(run_batch, list(range(0, sq.shape[0], plan.qbatch)),
                            plan.cmax, tree.num_buckets,
                            settle_first=plan.source != "warm", stats=stats,
-                           feedback=feedback)
+                           feedback=feedback,
+                           scan_units_per_batch=plan.qbatch // plan.tile)
     return _unsort(order, d2, gi, Q)

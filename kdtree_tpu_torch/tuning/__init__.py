@@ -20,7 +20,7 @@ from __future__ import annotations
 from typing import Optional
 
 from kdtree_tpu_torch import obs
-from kdtree_tpu_torch.tuning.feedback import PlanFeedback, feedback_for
+from kdtree_tpu_torch.tuning.feedback import PlanFeedback, feedback_for, occupancy_p90_hint
 from kdtree_tpu_torch.tuning.store import (
     ENV_CACHE_DIR,
     PlanSignature,
@@ -79,5 +79,6 @@ __all__ = [
     "feedback_for",
     "lookup",
     "make_signature",
+    "occupancy_p90_hint",
     "profile_for",
 ]

@@ -3,8 +3,10 @@ online server.
 
 The port of ``kdtree_tpu/utils/cli.py``'s ``harness``, ``bench``, ``build``,
 ``query`` and ``serve``, for the ``auto``, ``morton``, ``tiled``, ``tree``
-(the classic median-split tree), ``bucket`` and ``bruteforce`` engines and
-the ``threefry`` and ``mt19937`` generators.
+(the classic median-split tree), ``bucket``, ``bruteforce`` and the
+multi-device engines (``ensemble``, ``global``, ``global-morton``,
+``global-exact``, over ``--devices`` shards) and the ``threefry`` and
+``mt19937`` generators.
 Output bytes and exit codes are the reference's:
 
 - ``harness``: the course grading protocol — ``READY`` on stdout, seed
@@ -41,9 +43,11 @@ telemetry report of any run on exit, failed runs included.
 
 Everything runs on the CUDA device unless ``--device cpu`` asks for the
 CPU. ``auto`` picks an engine by the reference's crossovers
-(:func:`_resolve_engine`). The reference's other engines, and its
-``route``, ``loadgen``, ``lint`` and ``trend`` subcommands, exit with
-code 1 and name the ROADMAP item that brings them.
+(:func:`_resolve_engine`). The multi-device engines run on a mesh of
+``--devices`` CUDA devices (default: all), or of that many logical shards
+with ``--device cpu`` (default 1). The reference's ``route``, ``loadgen``,
+``lint`` and ``trend`` subcommands exit with code 1 and name the ROADMAP
+item that brings them.
 """
 
 from __future__ import annotations
@@ -56,7 +60,6 @@ import numpy as np
 import torch
 
 from kdtree_tpu_torch.ops.tile_query import dense_lowd
-from kdtree_tpu_torch.utils.checkpoint import UNPORTED_ENGINES
 
 # the reference's subcommands this port does not serve yet, by the ROADMAP
 # queue 1 item that brings them
@@ -67,7 +70,10 @@ HARNESS_DIM = 128
 HARNESS_NUM_POINTS = 500000
 AUTO_TREE_DIM_MAX = 16
 
-ENGINES = ("auto", "morton", "tiled", "tree", "bucket", "bruteforce")
+ENGINES = ("auto", "morton", "tiled", "tree", "bucket", "bruteforce", "ensemble",
+           "global", "global-morton", "global-exact")
+# engines whose build draws the seeded row stream shard by shard
+SCALE_ENGINES = ("global-morton", "global-exact")
 
 
 def _validate_input(seed: int, dim: int, num_points: int) -> None:
@@ -160,8 +166,18 @@ def _resolve_engine(engine: str, dim: int, q: int | None = None,
     return "morton"
 
 
-def _build_index(points, engine: str):
-    """Build phase: the index object for an engine."""
+def _mesh(mesh_devices, dev):
+    from kdtree_tpu_torch.parallel import make_mesh
+
+    return make_mesh(mesh_devices, device=dev)
+
+
+def _build_index(points, engine: str, mesh_devices: int | None = None,
+                 problem=None, slack: float | None = None, dev=None):
+    """Build phase: the index object for an engine. ``problem`` = (seed,
+    dim, n[, distribution]) is what the scale engines build from (they
+    never materialize [N, D]; ``points`` may be None there); ``slack``
+    overrides their exchange capacity factor."""
     if engine in ("morton", "tiled"):
         from kdtree_tpu_torch.ops.morton import build_morton
 
@@ -176,10 +192,39 @@ def _build_index(points, engine: str):
         return build_bucket(points)
     if engine == "bruteforce":
         return points  # the index IS the point array
+    if engine == "global":
+        from kdtree_tpu_torch.parallel.global_tree import build_global
+
+        return build_global(points, mesh=_mesh(mesh_devices, dev))
+    if engine in SCALE_ENGINES:
+        from kdtree_tpu_torch.parallel import build_global_exact, build_global_morton
+
+        build = build_global_morton if engine == "global-morton" else build_global_exact
+        seed, dim, num_points = problem[:3]
+        kw = {} if slack is None else {"slack": slack}
+        return build(seed, dim, num_points, mesh=_mesh(mesh_devices, dev),
+                     distribution=_problem_distribution(problem), **kw)
     raise SystemExit(f"engine {engine!r} has no split build phase")
 
 
-def _query_index(index, queries, k: int, engine: str):
+def _problem_distribution(problem) -> str:
+    """problem is (seed, dim, n) or (seed, dim, n, distribution)."""
+    return problem[3] if len(problem) > 3 else "uniform"
+
+
+def _check_distribution(engine: str, dist: str) -> None:
+    """Non-uniform row streams exist only for the scale engines (shared by
+    bench and build)."""
+    if dist != "uniform" and engine not in SCALE_ENGINES:
+        print(f"--distribution {dist} needs a generative scale engine "
+              "(global-morton / global-exact); other engines define their "
+              "problems by the uniform stream or user --points data",
+              file=sys.stderr)
+        sys.exit(1)
+
+
+def _query_index(index, queries, k: int, engine: str,
+                 mesh_devices: int | None = None, dev=None):
     """Query phase against the object _build_index returned."""
     if engine == "morton":
         from kdtree_tpu_torch.ops.morton import morton_knn
@@ -201,13 +246,46 @@ def _query_index(index, queries, k: int, engine: str):
         from kdtree_tpu_torch.ops import bruteforce
 
         return bruteforce.knn(index, queries, k=k)
+    if engine == "global":
+        from kdtree_tpu_torch.parallel.global_tree import global_knn
+
+        return global_knn(index, queries, k=k)
+    if engine == "global-morton":
+        from kdtree_tpu_torch.parallel.global_morton import global_morton_query
+
+        return global_morton_query(index, queries, k=k, mesh=_mesh(mesh_devices, dev))
+    if engine == "global-exact":
+        from kdtree_tpu_torch.parallel.global_exact import global_exact_query
+
+        return global_exact_query(index, queries, k=k, mesh=_mesh(mesh_devices, dev))
     raise SystemExit(f"engine {engine!r} has no split query phase")
 
 
-def _solve(points, queries, k: int, engine: str):
+def _solve(points, queries, k: int, engine: str, mesh_devices: int | None = None,
+           problem=None, dev=None):
     """Returns (d2[Q,k], idx[Q,k]) by the chosen engine."""
-    engine = _resolve_engine(engine, queries.shape[1], q=queries.shape[0], n=points.shape[0])
-    return _query_index(_build_index(points, engine), queries, k, engine)
+    dim = queries.shape[1]
+    n = points.shape[0] if points is not None else (problem[2] if problem else None)
+    engine = _resolve_engine(engine, dim, q=queries.shape[0], n=n)
+    if engine == "ensemble":
+        # one build-and-query per shard by design
+        from kdtree_tpu_torch.parallel import ensemble_knn, ensemble_knn_gen
+
+        mesh = _mesh(mesh_devices, dev)
+        if points is None:
+            seed, pdim, num_points = problem[:3]
+            return ensemble_knn_gen(seed, pdim, num_points, queries, k=k, mesh=mesh)
+        return ensemble_knn(points, queries, k=k, mesh=mesh)
+    index = _build_index(points, engine, mesh_devices, problem=problem, dev=dev)
+    return _query_index(index, queries, k, engine, mesh_devices, dev)
+
+
+def _generative(engine: str, generator: str) -> bool:
+    """Engines whose build draws the seeded row stream shard by shard and
+    never materializes [N, D]: the scale engines always, ensemble under
+    the threefry generator (the mt19937 replay needs the sequential
+    stream)."""
+    return engine in SCALE_ENGINES or (engine == "ensemble" and generator == "threefry")
 
 
 def cmd_harness(args) -> None:
@@ -234,8 +312,20 @@ def cmd_harness(args) -> None:
     _validate_input(seed, dim, num_points)
 
     engine = _resolve_engine(args.engine, dim, q=NUM_QUERIES, n=num_points)
-    points, queries, _ = _generate(seed, dim, num_points, args.generator, args.dev)
-    d2, _ = _solve(points, queries, k=1, engine=engine)
+    if _generative(engine, args.generator):
+        if args.generator != "threefry":
+            print(f"note: {engine} defines its points by the threefry "
+                  "row stream (shard-local generation); using threefry "
+                  "queries", file=sys.stderr)
+        from kdtree_tpu_torch.ops.generate import generate_queries
+
+        queries = generate_queries(seed, dim, NUM_QUERIES, device=args.dev)
+        d2, _ = _solve(None, queries, k=1, engine=engine, mesh_devices=args.devices,
+                       problem=(seed, dim, num_points), dev=args.dev)
+    else:
+        points, queries, _ = _generate(seed, dim, num_points, args.generator, args.dev)
+        d2, _ = _solve(points, queries, k=1, engine=engine, mesh_devices=args.devices,
+                       dev=args.dev)
     dists = np.sqrt(d2[:, 0].cpu().numpy().astype(np.float64))
     for q in range(NUM_QUERIES):
         # query ids are num_points + q, as in the reference program
@@ -250,17 +340,37 @@ def cmd_bench(args) -> None:
     from kdtree_tpu_torch.utils.timing import PhaseTimer
 
     engine = _resolve_engine(args.engine, args.dim, q=NUM_QUERIES, n=args.n)
+    fused_gen = _generative(engine, args.generator)  # generation inside the build
+    fused_bq = engine == "ensemble"  # one build-and-query per shard
+    dist = args.distribution
+    _check_distribution(engine, dist)
 
     def run(seed: int, timer: PhaseTimer | None):
         t = timer or PhaseTimer()
+        problem = (seed, args.dim, args.n, dist)
+        points = None
         with t.phase("generate") as h:
-            points, queries, _ = _generate(seed, args.dim, args.n, args.generator, args.dev)
-            h += [points, queries]
+            if fused_gen:
+                from kdtree_tpu_torch.ops.generate import generate_queries
+
+                queries = generate_queries(seed, args.dim, NUM_QUERIES, device=args.dev)
+                h += [queries]
+            else:
+                points, queries, _ = _generate(seed, args.dim, args.n, args.generator,
+                                               args.dev)
+                h += [points, queries]
+        if fused_bq:
+            with t.phase("build+query") as h:
+                d2, idx = _solve(points, queries, k=args.k, engine=engine,
+                                 mesh_devices=args.devices, problem=problem, dev=args.dev)
+                h += [d2, idx]
+            return d2
         with t.phase("build") as h:
-            index = _build_index(points, engine)
+            index = _build_index(points, engine, args.devices, problem=problem,
+                                 dev=args.dev)
             h += [index]
         with t.phase("query") as h:
-            d2, idx = _query_index(index, queries, args.k, engine)
+            d2, idx = _query_index(index, queries, args.k, engine, args.devices, args.dev)
             h += [d2, idx]
         return d2
 
@@ -295,29 +405,43 @@ def cmd_bench(args) -> None:
     print(json.dumps(rep))
 
 
-def _build_tree_for_engine(points, engine: str):
+def _build_tree_for_engine(points, engine: str, mesh_devices: int | None = None,
+                           problem=None, slack: float | None = None, dev=None):
     """The tree to checkpoint for an engine choice: ``auto``, ``morton``
     and ``tiled`` share the Morton tree (tiled is a query strategy, not an
-    index); ``tree`` and ``bucket`` build their own."""
+    index); the others build their own."""
     if engine in ("auto", "morton", "tiled"):
         from kdtree_tpu_torch.ops.morton import build_morton
 
         return build_morton(points)
-    if engine in ("tree", "bucket"):
-        return _build_index(points, engine)
+    if engine in ("tree", "bucket", "global", *SCALE_ENGINES):
+        return _build_index(points, engine, mesh_devices, problem=problem, slack=slack,
+                            dev=dev)
     raise SystemExit(f"engine {engine!r} does not produce a checkpointable tree")
 
 
 def _tree_knn(tree, queries, k: int):
     """k-NN on whichever tree a checkpoint held. Dense low-D batches take
     the tiled engine (the same crossover as :func:`_resolve_engine`):
-    directly on a Morton tree, through a cached Morton view on a classic
-    or bucketed tree; the rest take the tree's own DFS."""
+    directly on a Morton tree or a forest, through a cached Morton view on
+    a classic or bucketed tree; the rest take the tree's own DFS."""
     from kdtree_tpu_torch.models.tree import KDTree
     from kdtree_tpu_torch.ops.bucket import BucketKDTree, bucket_knn
     from kdtree_tpu_torch.ops.morton import MortonTree, morton_knn
+    from kdtree_tpu_torch.parallel import (
+        GlobalExactTree, GlobalKDTree, GlobalMortonForest, global_exact_query,
+        global_knn, global_morton_query,
+    )
 
     q, dim = queries.shape
+    if isinstance(tree, GlobalMortonForest):
+        # routes dense batches to the tiled engine itself, and runs
+        # mesh-free when the hardware does not match the forest
+        return global_morton_query(tree, queries, k=k)
+    if isinstance(tree, GlobalExactTree):
+        return global_exact_query(tree, queries, k=k)
+    if isinstance(tree, GlobalKDTree):
+        return global_knn(tree, queries, k=k)
     if isinstance(tree, MortonTree):
         if dense_lowd(q, tree.n_real, dim):
             from kdtree_tpu_torch.ops.tile_query import morton_knn_tiled
@@ -399,25 +523,146 @@ def _load_array(path: str, what: str) -> "np.ndarray":
     return arr
 
 
+def _shard_file_paths(pattern: str) -> list:
+    """The contiguous ``{i}``-numbered files of a pre-sharded --points
+    pattern, from i = 0; exits crisply on a malformed pattern, on no
+    match, or on a gap in the sequence."""
+    import glob as globmod
+    import os
+
+    if "{" in pattern.replace("{i}", "") or "}" in pattern.replace("{i}", ""):
+        print(f"bad --points pattern {pattern}: only the literal {{i}} placeholder "
+              "is supported (no format specs like {i:02d}, no other fields)",
+              file=sys.stderr)
+        sys.exit(1)
+    paths = []
+    while os.path.exists(pattern.format(i=len(paths))):
+        paths.append(pattern.format(i=len(paths)))
+    if not paths:
+        print(f"no shard files match {pattern} (i=0...)", file=sys.stderr)
+        sys.exit(1)
+    stray = set(globmod.glob("*".join(globmod.escape(part)
+                                      for part in pattern.split("{i}")))) - set(paths)
+    if stray:
+        print(f"shard sequence has a gap: {len(paths)} contiguous file(s) from i=0, "
+              f"but also found {sorted(stray)[:3]}... — refusing to build a "
+              "partial index", file=sys.stderr)
+        sys.exit(1)
+    return paths
+
+
+def _open_points_streaming(path: str):
+    """A user point file for block-streamed ingest: a ``.npy`` opens as a
+    memmap (per-block checks happen as blocks are read); anything else
+    takes the validating in-memory loader."""
+    if path.endswith(".npy"):
+        try:
+            arr = np.load(path, mmap_mode="r", allow_pickle=False)
+        except (OSError, ValueError) as e:
+            print(f"cannot load points file {path}: {e}", file=sys.stderr)
+            sys.exit(1)
+        if arr.ndim != 2 or arr.shape[0] < 1 or arr.shape[1] < 1:
+            print(f"points file {path} must be non-empty [N, D], got shape "
+                  f"{arr.shape}", file=sys.stderr)
+            sys.exit(1)
+        if not np.issubdtype(arr.dtype, np.number):
+            print(f"points file {path} must be numeric, got dtype {arr.dtype}",
+                  file=sys.stderr)
+            sys.exit(1)
+        return arr
+    return _load_array(path, "points")
+
+
+def _build_forest_from_points(args):
+    """``build --points`` with the scale engine: a ``{i}`` pattern maps
+    pre-sharded files onto shards as they are; one file streams block by
+    block through the exchange. Returns (forest, n, dim)."""
+    import os
+
+    from kdtree_tpu_torch.parallel import make_mesh
+    from kdtree_tpu_torch.parallel.global_morton import (
+        build_global_morton_from_points, build_global_morton_from_shard_files,
+    )
+
+    if "{i}" in args.points or (("{" in args.points or "}" in args.points)
+                                and not os.path.exists(args.points)):
+        paths = _shard_file_paths(args.points)
+        if args.devices is not None and args.devices != len(paths):
+            print(f"--devices {args.devices} conflicts with {len(paths)} shard "
+                  "files (file i maps to device i verbatim)", file=sys.stderr)
+            sys.exit(1)
+        try:
+            tree = build_global_morton_from_shard_files(
+                paths, mesh=make_mesh(len(paths), device=args.dev))
+        except (OSError, ValueError) as e:
+            print(f"cannot build from {args.points}: {e}", file=sys.stderr)
+            sys.exit(1)
+        return tree, tree.num_points, tree.dim
+    arr = _open_points_streaming(args.points)
+    skw = {} if args.slack is None else {"slack": args.slack}
+    try:
+        tree = build_global_morton_from_points(
+            arr, mesh=make_mesh(args.devices, device=args.dev), **skw)
+    except (ValueError, RuntimeError) as e:
+        print(f"cannot build from {args.points}: {e}", file=sys.stderr)
+        sys.exit(1)
+    return tree, arr.shape[0], arr.shape[1]
+
+
 def cmd_build(args) -> None:
     from kdtree_tpu_torch.utils.checkpoint import save_tree
 
+    dist = args.distribution
+    _check_distribution(args.engine, dist)
     if not args.out and not args.save:
         print("build needs --out FILE (npz checkpoint) and/or --save DIR "
               "(serving snapshot)", file=sys.stderr)
         sys.exit(1)
     if args.points:
         # user data, not a seeded problem
-        points = torch.from_numpy(_load_array(args.points, "points")).to(args.dev)
+        if args.engine == "global-exact":
+            print("engine global-exact is generative (exact-median row "
+                  "streams); use global-morton for scale-tier --points "
+                  "ingest, or a materialized engine", file=sys.stderr)
+            sys.exit(1)
+        if args.engine == "global-morton":
+            tree, n, dim = _build_forest_from_points(args)
+        else:
+            points = torch.from_numpy(_load_array(args.points, "points")).to(args.dev)
+            tree = _build_tree_for_engine(points, args.engine, args.devices, dev=args.dev)
+            n, dim = points.shape
         meta = {"generator": "file"}
+    elif args.engine in SCALE_ENGINES:
+        # generative: the [N, D] array never exists
+        if args.generator != "threefry":
+            print(f"note: {args.engine} defines its points by the threefry "
+                  "row stream (shard-local generation); --generator "
+                  f"{args.generator} does not apply", file=sys.stderr)
+        try:
+            tree = _build_tree_for_engine(None, args.engine, args.devices,
+                                          problem=(args.seed, args.dim, args.n, dist),
+                                          slack=args.slack, dev=args.dev)
+        except RuntimeError as e:
+            # exchange capacity overflow: crisp stderr + exit code
+            print(f"cannot build: {e}", file=sys.stderr)
+            sys.exit(1)
+        n, dim = args.n, args.dim
+        meta = {"seed": args.seed, "generator": "threefry", "distribution": dist}
     else:
         points, _, gen_used = _generate(args.seed, args.dim, args.n, args.generator, args.dev)
+        tree = _build_tree_for_engine(points, args.engine, args.devices, dev=args.dev)
+        n, dim = points.shape
         meta = {"seed": args.seed, "generator": gen_used}
-    tree = _build_tree_for_engine(points, args.engine)
-    n, dim = points.shape
     if args.out:
-        save_tree(args.out, tree, meta=meta)
-        print(f"saved {type(tree).__name__} (n={n}, dim={dim}) to {args.out}")
+        try:
+            fmt = save_tree(args.out, tree, meta=meta, sharded=True if args.sharded else None)
+        except TypeError as e:
+            print(f"cannot save sharded: {e}", file=sys.stderr)
+            sys.exit(1)
+        # a sharded checkpoint is NOT one self-contained file: say so
+        suffix = (f" (+ per-device shard files {args.out}.shard*.npz)"
+                  if fmt == "sharded" else "")
+        print(f"saved {type(tree).__name__} (n={n}, dim={dim}) to {args.out}{suffix}")
     if args.save:
         # serving snapshot: the built index's arrays as checksummed flat
         # .npy segments + a versioned manifest, so `serve --snapshot`
@@ -447,7 +692,8 @@ def cmd_query(args) -> None:
     from kdtree_tpu_torch.utils.checkpoint import load_tree
 
     try:
-        tree, meta = load_tree(args.tree, device=args.dev)
+        tree, meta = load_tree(args.tree, device=args.dev,
+                               allow_host_materialize=args.allow_host_materialize)
     except (OSError, ValueError, zipfile.BadZipFile) as e:
         print(f"cannot load tree {args.tree}: {e}", file=sys.stderr)
         sys.exit(1)
@@ -1210,11 +1456,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device to run on (default: cuda; 'cpu' on request)")
     p.add_argument("--generator", choices=["threefry", "mt19937"], default="mt19937",
                    help="problem generator (mt19937 = bit-exact reference replay)")
-    p.add_argument("--engine", choices=[*ENGINES, *UNPORTED_ENGINES], default="auto",
+    p.add_argument("--engine", choices=ENGINES, default="auto",
                    help="tiled = Morton tree + Hilbert-tiled batched scan (large "
                         "query counts); tree = classic median-split tree; bucket = "
-                        "median-split tree with leaf buckets; the engines not "
-                        "ported yet exit with the ROADMAP item that brings them")
+                        "median-split tree with leaf buckets; ensemble = one local "
+                        "tree per shard; global = one tree built across the "
+                        "shards; global-morton = the scale engine (shard-local "
+                        "generation + one all_to_all sample-sort partition); "
+                        "global-exact = the exact-median tree (radix-selected "
+                        "medians for the top log2 P levels, shard-local below)")
+    p.add_argument("--devices", type=int, default=None,
+                   help="shard count of the multi-device engines (default: every "
+                        "CUDA device; with --device cpu, that many logical shards, "
+                        "default 1)")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     h = sub.add_parser("harness", help="course grading protocol (READY/DONE)")
@@ -1227,6 +1481,9 @@ def build_parser() -> argparse.ArgumentParser:
     b.add_argument("--dim", type=int, default=3)
     b.add_argument("--n", type=int, default=1 << 20)
     b.add_argument("--k", type=int, default=1)
+    b.add_argument("--distribution", choices=["uniform", "clustered"], default="uniform",
+                   help="generative row stream for the scale engines (clustered = "
+                        "Gaussian-mixture load-imbalance stress)")
     b.add_argument("--trace", default=None, metavar="DIR",
                    help="write a torch.profiler Chrome trace (Perfetto) of "
                         "the timed run into DIR; the phases appear as named "
@@ -1239,7 +1496,16 @@ def build_parser() -> argparse.ArgumentParser:
     bu.add_argument("--n", type=int, default=1 << 20)
     bu.add_argument("--points", default=None, metavar="FILE",
                     help="build over user data ([N, D] .npy/.npz) instead of a "
-                         "seeded problem")
+                         "seeded problem; with --engine global-morton a '{i}' "
+                         "placeholder (e.g. part-{i}.npy) maps pre-sharded files "
+                         "onto shards verbatim")
+    bu.add_argument("--distribution", choices=["uniform", "clustered"],
+                    default="uniform",
+                    help="generative row stream for the scale engines")
+    bu.add_argument("--slack", type=float, default=None,
+                    help="scale-engine exchange capacity factor (the 'capacity "
+                         "overflow ... retry with slack > X' errors name this as "
+                         "the remedy)")
     bu.add_argument("--out", default=None,
                     help="npz checkpoint path (required unless --save "
                          "is given)")
@@ -1254,6 +1520,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "older generations GC'd) — `serve --snapshot "
                          "DIR --snapshot-version V` rolls back to a "
                          "retained one (default 1)")
+    bu.add_argument("--sharded", action="store_true",
+                    help="force the per-device shard checkpoint format (forest "
+                         "engines auto-shard above 1 GiB)")
     bu.set_defaults(fn=cmd_build)
 
     q = sub.add_parser("query", help="load a tree and run the 10 protocol queries")
@@ -1267,6 +1536,10 @@ def build_parser() -> argparse.ArgumentParser:
     q.add_argument("--out", default=None, metavar="FILE",
                    help="with --queries: save (d2, ids) npz instead of printing "
                         "protocol lines")
+    q.add_argument("--allow-host-materialize", action="store_true",
+                   help="load a sharded forest checkpoint onto one device even "
+                        "above the budget when fewer devices than its shards "
+                        "exist")
     q.set_defaults(fn=cmd_query)
 
     sv = sub.add_parser(
@@ -1527,10 +1800,6 @@ def main(argv=None) -> None:
         # host-only paths: no device, no telemetry framing
         args.fn(args)
         return
-    if args.cmd != "query" and args.engine in UNPORTED_ENGINES:
-        print(f"engine {args.engine!r} is not ported to kdtree_tpu_torch yet "
-              f"(ROADMAP queue 1 item {UNPORTED_ENGINES[args.engine]})", file=sys.stderr)
-        sys.exit(1)
     from kdtree_tpu_torch import obs, resolve_device
     from kdtree_tpu_torch.ops.morton import BuildCapacityError
 

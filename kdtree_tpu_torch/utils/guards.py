@@ -22,11 +22,14 @@ def check_rows_fit_i32(n: int, what: str) -> None:
 
 def validate_loaded_tree(tree) -> None:
     """Checkpoint-load guard: NaN anywhere in a tree's float arrays is
-    corruption (inf is legal padding in bucket and box arrays)."""
+    corruption (inf is legal padding in bucket and box arrays). A forest's
+    per-shard lists count as one stacked [P, ...] array."""
     for t in vars(tree).values():
-        if isinstance(t, torch.Tensor) and t.is_floating_point():
-            if bool(torch.isnan(t).any()):
+        for x in t if isinstance(t, list) else [t]:
+            if isinstance(x, torch.Tensor) and x.is_floating_point() \
+                    and bool(torch.isnan(x).any()):
+                shape = ((len(t),) if isinstance(t, list) else ()) + tuple(x.shape)
                 raise ValueError(
-                    f"loaded tree contains NaN in a {tuple(t.shape)} array — "
+                    f"loaded tree contains NaN in a {shape} array — "
                     "checkpoint is corrupt"
                 )

@@ -26,17 +26,19 @@ def _tensors(obj):
             yield from _tensors(o)
     elif hasattr(obj, "__dict__"):
         for o in vars(obj).values():
-            if isinstance(o, torch.Tensor):
-                yield o
+            if isinstance(o, (torch.Tensor, list, tuple)):
+                yield from _tensors(o)
 
 
 def hard_sync(outputs) -> None:
     """Wait until every CUDA tensor in ``outputs`` (tensors, nested
-    lists/tuples, or objects holding tensors) is computed."""
+    lists/tuples, or objects holding tensors or per-shard lists of them)
+    is computed, on every device they live on."""
     cuda = [t for t in _tensors(outputs) if t.device.type == "cuda"]
     if not cuda:
         return
-    torch.cuda.synchronize(cuda[0].device)
+    for dev in {t.device for t in cuda}:
+        torch.cuda.synchronize(dev)
     for t in cuda:
         if t.numel():
             t.reshape(-1)[:1].cpu()

@@ -265,10 +265,26 @@ def test_legacy_checkpoint_loads_in_both(tmp_path):
 
 
 def test_unported_checkpoint_kind_names_its_item(tmp_path):
+    """The ``global`` kind, once refused with its ROADMAP item, loads: the
+    reference's global tree checkpoint gives the port the same node heap,
+    which answers as the reference's."""
+    from kdtree_tpu.parallel import global_tree as jgt
+    from kdtree_tpu.parallel import mesh as jmesh
+    from kdtree_tpu_torch.parallel import global_tree as tgt
+
+    p, q = _uniform(500, 3, 71), _uniform(12, 3, 72)
     path = str(tmp_path / "g.npz")
-    np.savez(path, child_0=np.zeros(3, np.float32), kind=np.asarray("global"))
-    with pytest.raises(ValueError, match="'global'.*item 17"):
-        tckpt.load_tree(path, device="cpu")
+    jt = jgt.build_global(jnp.asarray(p), mesh=jmesh.make_mesh(2))
+    jckpt.save_tree(path, jt)
+    tt, meta = tckpt.load_tree(path, device="cpu")
+    assert isinstance(tt, tgt.GlobalKDTree) and meta == {}
+    for name in ("node_coords", "node_gid", "node_traversable"):
+        np.testing.assert_array_equal(np.asarray(getattr(jt, name)),
+                                      getattr(tt, name).numpy())
+    jd, ji = jgt.global_knn(jt, jnp.asarray(q), k=3)
+    td, ti = tgt.global_knn(tt, q, k=3)
+    np.testing.assert_array_equal(_bits(np.asarray(jd)), _bits(td.numpy()))
+    np.testing.assert_array_equal(np.asarray(ji), ti.numpy())
 
 
 def test_classic_tree_serves_through_its_view():

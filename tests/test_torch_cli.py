@@ -211,11 +211,12 @@ def test_checkpoint_corrupt_or_unported_exits_crisply(tmp_path):
     np.savez(tmp_path / "nan.npz", **arrays)
     code, _, err = _port(["query", "--tree", str(tmp_path / "nan.npz")])
     assert code == 1 and "NaN" in err and "corrupt" in err
-    # a multi-device kind (the reference writes it only on a device mesh)
-    np.savez(tmp_path / "global.npz", child_0=np.zeros((4, 3), np.float32),
-             kind=np.asarray("global"))
-    code, _, err = _port(["query", "--tree", str(tmp_path / "global.npz")])
-    assert code == 1 and "'global'" in err and "item 17" in err
+    # a multi-device kind (the reference writes it on its device mesh): the
+    # port loads it and prints the reference's bytes
+    gpath = str(tmp_path / "global.npz")
+    assert _ref(["--generator", "threefry", "--engine", "global", "--devices", "4",
+                 "build", "--n", "3000", "--out", gpath])[0] == 0
+    _both(["query", "--tree", gpath])
     code, _, err = _port(["query", "--tree", str(tmp_path / "missing.npz")])
     assert code == 1 and "cannot load tree" in err
 
@@ -250,15 +251,113 @@ def test_query_dense_file_goes_tiled(tmp_path, monkeypatch):
     assert r[0] == t[0] == 0 and r[1] == t[1] and calls == [1]
 
 
-@pytest.mark.parametrize("argv, item", [
-    (["--engine", "global", "harness", "1", "3", "100"], "item 17"),
-    (["--engine", "global-morton", "bench", "--n", "100"], "item 17"),
-    (["--engine", "global-exact", "build", "--out", "x.npz"], "item 17"),
-    (["--engine", "ensemble", "harness", "1", "3", "100"], "item 17"),
+@pytest.mark.parametrize("argv", [
+    ["--engine", "global", "harness", "1", "3", "100"],
+    ["--engine", "global-morton", "bench", "--n", "100"],
+    ["--engine", "global-exact", "build", "--n", "2000", "--out", "{tmp}/x.npz"],
+    ["--engine", "ensemble", "harness", "1", "3", "100"],
 ])
-def test_unported_engine_exits_crisply(argv, item):
-    code, out, err = _port(argv)
-    assert code == 1 and out == "" and item in err
+def test_unported_engine_exits_crisply(argv, tmp_path):
+    """The engines of ROADMAP item 17, which this test once saw exit with
+    their item, now answer: the same argv through both packages (4 shards)
+    gives the same stdout bytes (bench: the same JSON keys and problem)."""
+    argv = ["--devices", "4", *(a.format(tmp=tmp_path) for a in argv)]
+    r, t = _ref(argv), _port(argv)
+    assert r[0] == t[0] == 0, (r[2][-500:], t[2][-500:])
+    if "bench" in argv:
+        rj, tj = json.loads(r[1]), json.loads(t[1])
+        assert sorted(rj) == sorted(tj)
+        assert all(rj[key] == tj[key] for key in ("n", "dim", "k", "engine"))
+    else:
+        assert t[1] == r[1] and t[1]
+
+
+MESH_ENGINES = ("ensemble", "global", "global-morton", "global-exact")
+
+
+@pytest.mark.parametrize("engine", MESH_ENGINES)
+@pytest.mark.parametrize("generator", ["threefry", pytest.param("mt19937", marks=needs_native)])
+def test_multi_device_engine_harness(engine, generator):
+    """The four multi-device engines on 4 shards: the harness's stdout is
+    the reference's, byte for byte (the scale engines take the threefry
+    row stream under either generator, as the reference does)."""
+    _, (code, out, _) = _both(["--generator", generator, "--engine", engine, "--devices",
+                               "4", "harness", "42", "3", "20000"])
+    assert code == 0 and out.count("DISTANCE: ") == 10
+
+
+@pytest.mark.parametrize("engine", MESH_ENGINES)
+def test_multi_device_engine_bench(engine):
+    argv = ["--generator", "threefry", "--engine", engine, "--devices", "4", "bench",
+            "--n", "4096", "--k", "2"]
+    r, t = _ref(argv), _port(argv)
+    assert r[0] == t[0] == 0, t[2][-500:]
+    rj, tj = json.loads(r[1]), json.loads(t[1])
+    assert sorted(rj) == sorted(tj)
+    assert all(rj[key] == tj[key] for key in ("n", "dim", "k", "engine"))
+    # the fused phases: ensemble times build+query together
+    assert ("build+query" in tj) == (engine == "ensemble")
+
+
+@pytest.mark.parametrize("engine, extra", [
+    ("global", []), ("global-morton", []), ("global-morton", ["--sharded"]),
+    ("global-morton", ["--distribution", "clustered", "--slack", "3"]),
+    ("global-exact", ["--distribution", "clustered"]),
+])
+def test_multi_device_engine_build_then_query(tmp_path, engine, extra):
+    """``build`` on 4 shards prints the reference's line (the sharded
+    suffix included); each package's checkpoint, queried by either
+    package, prints the reference's protocol lines."""
+    paths = {}
+    for name, run in (("ref", _ref), ("port", _port)):
+        paths[name] = str(tmp_path / f"{name}.npz")
+        code, out, err = run(["--generator", "threefry", "--engine", engine, "--devices", "4",
+                              "build", "--n", "6000", *extra, "--out", paths[name]])
+        assert code == 0, err[-500:]
+        assert out == f"saved {type_name(engine)} (n=6000, dim=3) to {paths[name]}" + (
+            f" (+ per-device shard files {paths[name]}.shard*.npz)\n" if extra == ["--sharded"]
+            else "\n")
+    for path in paths.values():
+        _both(["query", "--tree", path])
+
+
+def type_name(engine):
+    return {"global": "GlobalKDTree", "global-morton": "GlobalMortonForest",
+            "global-exact": "GlobalExactTree"}[engine]
+
+
+@pytest.mark.parametrize("layout", ["one file", "shard files"])
+def test_global_morton_build_from_points(tmp_path, layout):
+    """``build --points`` with the scale engine: one file streamed block by
+    block through the exchange, or ``{i}`` shard files onto the shards as
+    they are; then ``query --queries`` through both packages."""
+    rng = np.random.default_rng(3)
+    pts = rng.normal(0, 20, (5000, 3)).astype(np.float32)
+    if layout == "one file":
+        src = str(tmp_path / "pts.npy")
+        np.save(src, pts)
+    else:
+        for i, part in enumerate(np.array_split(pts, 4)):
+            np.save(tmp_path / f"part-{i}.npy", part)
+        src = str(tmp_path / "part-{i}.npy")
+    q = str(tmp_path / "q.npy")
+    np.save(q, rng.normal(0, 20, (700, 3)).astype(np.float32))
+    outs = {}
+    for name, run in (("ref", _ref), ("port", _port)):
+        ck = str(tmp_path / f"{name}.npz")
+        code, _, err = run(["--engine", "global-morton", "--devices", "4", "build", "--points",
+                            src, "--out", ck])
+        assert code == 0, err[-500:]
+        outs[name] = str(tmp_path / f"{name}-ans.npz")
+        assert run(["query", "--tree", ck, "--queries", q, "--k", "4",
+                    "--out", outs[name]])[0] == 0
+    with np.load(outs["ref"]) as a, np.load(outs["port"]) as b:
+        np.testing.assert_array_equal(a["d2"].view(np.int32), b["d2"].view(np.int32))
+        np.testing.assert_array_equal(a["ids"], b["ids"])
+
+
+def test_distribution_needs_a_scale_engine():
+    _both(["--engine", "morton", "build", "--distribution", "clustered", "--out", "x.npz"])
 
 
 def test_default_device_without_cuda_exits(monkeypatch):

@@ -51,6 +51,12 @@ def _profile():
     return profile
 
 
+def _parallel():
+    from kdtree_tpu_torch import parallel
+
+    return parallel
+
+
 def _classic():
     from kdtree_tpu_torch.ops import build_presort
 
@@ -75,7 +81,9 @@ def test_every_module_imports_without_jax_or_the_reference():
                 "approx.search", "approx.recall", "approx.ladder", "models.tree",
                 "ops.build", "ops.build_presort", "ops.query", "ops.bucket",
                 "obs.profile", "obs.timeline", "obs.torchrt", "obs.trace",
-                "obs.costs"):
+                "obs.costs", "parallel", "parallel.mesh", "parallel.global_morton",
+                "parallel.ensemble", "parallel.global_exact", "parallel.global_tree",
+                "parallel.dsharded"):
         assert f"kdtree_tpu_torch.{sub}" in mods, sub
     code = (
         "import importlib, sys\n"
@@ -133,6 +141,14 @@ def test_public_surface_resolves_lazily():
     lambda: kdtree_tpu_torch.bucket_knn(
         kdtree_tpu_torch.build_bucket(torch.zeros(4, 3).numpy()), _Q),
     lambda: _profile().capture_for(0.0, "never-created"),
+    lambda: _parallel().make_mesh(),
+    lambda: _parallel().build_global_morton(1, 3, 64),
+    lambda: _parallel().ensemble_knn(torch.zeros(4, 3).numpy(), _Q),
+    lambda: _parallel().build_global_exact(1, 3, 64),
+    lambda: _parallel().build_global(torch.zeros(4, 3).numpy()),
+    lambda: _parallel().dsharded_knn(torch.zeros(4, 3).numpy(), _Q),
+    lambda: _parallel().ensemble_knn_gen(1, 3, 64, _Q),
+    lambda: kdtree_tpu_torch.generate_clustered(1, 3, 4),
 ])
 def test_default_device_without_cuda_raises(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
