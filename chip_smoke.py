@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--dfs-round-sweep]
     python3 chip_smoke.py --profile-stress N
     python3 chip_smoke.py --forest-only
+    python3 chip_smoke.py --fleet-only
 
 ``--dfs-round-sweep`` adds to phase 6 the DFS timed at 4, 8, 16 and 32
 steps per host look on 16,384 of the sparse lane's queries: the run that
@@ -19,7 +20,8 @@ opened off the worker; the mode fails if a batch-worker window crashes.
 It is the run that chose to open server windows on the batch worker.
 
 ``--forest-only`` runs phases 1-3 and 12 alone (no kernels record), for
-work on the multi-device engines.
+work on the multi-device engines; ``--fleet-only`` runs phases 1-3 and 13
+alone, for work on the fleet.
 
 Phases, one line each (any failure raises and exits non-zero):
 
@@ -213,6 +215,32 @@ Phases, one line each (any failure raises and exits non-zero):
              the counts are read: the scan kernel against the plain scan at
              the P=1 and P=4 forest shapes (one shard's collect batch), timed
              beside its bound.
+13. fleet  — README "Serving"'s shape as a fleet: ``partition --shards 4
+             --n 2^24`` (seed 42, threefry; its seconds and each shard's n,
+             id range, code range and box), ``morton_codes_np`` equal to
+             the device coder over the whole cloud, every shard snapshot
+             equal to a Morton view of its slice of the device order; then
+             the four snapshots in four ServeStates on the card behind
+             ``make_router`` (selective and full fan-out): requests of 1, 7,
+             64 and 1,000 rows byte-identical to the single index over the
+             same points (distances, and ids up to exact ties), with the
+             router ms, the shards contacted, overflow retries per shard
+             and scan launches per request (both kernels' launch counts
+             zeroed just before these requests and read just after; scan
+             launches > 0), the 64 rows sent to each shard directly, and
+             shard 0's scan at its 64-row serving shape against the plain
+             scan; then the user's path: four ``serve --snapshot``
+             processes and a ``--snapshot-follow`` read replica of shard 0
+             behind ``route`` (``primary|replica``): the 64-row answer equal
+             to the in-process fleet's, 16 upserts (spatially routed) and 8
+             deletes read back through the router, a ``knn=hang`` drill on
+             shard 3 answering ``partial:3/4`` inside ``--deadline-ms``,
+             ``loadgen --rates 10,20,40 --step-seconds 3`` with its capacity
+             block (knee; p50/p95/p99, goodput and fan-out per step) and the
+             router's ``kdtree_loadgen_offered_rate``; the route and loadgen
+             processes hold no CUDA context (nvidia-smi's compute apps, and
+             no /dev/nvidia* open, where every shard process has one); every
+             child drains on SIGTERM with exit 0.
 
 Every phase runs on a plan store of this run's own (a temporary
 directory). The last lines are the kernels' JSON record, the nvidia-smi line, and
@@ -223,6 +251,7 @@ package beside this script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -290,6 +319,13 @@ GTREE_N = 1 << 20  # global-tree
 DSHARD_N, DSHARD_D, DSHARD_Q = 1 << 16, 128, 1024  # dsharded_knn
 FOREST_CPU_N = 1 << 16  # 12e: the CPU-built 8-shard checkpoint
 FOREST_CPU_Q = 4096
+FLEET_N = 1 << 24  # phase 13: README "Serving"'s shape cut into 4 Morton-range shards
+FLEET_SHARDS = 4
+FLEET_ROWS = (1, 7, 64, 1000)
+FLEET_DEADLINE_MS = 3000
+FLEET_RATES = "10,20,40"  # the loadgen ladder (req/s), FLEET_STEP_S seconds a step
+FLEET_STEP_S = 3
+FLEET_READY_S = 300  # the CLI fleet's start-up budget
 
 
 def say(phase: str, msg: str) -> None:
@@ -3175,8 +3211,11 @@ def _run(argv, here, t_run) -> int:
     import kdtree_tpu_torch.kernels.scan_knn as scan_mod
 
     max_err = phase_kernel(dev)
-    if "--forest-only" in argv:
-        _phase12(dev, here, smi, t_run)
+    if "--forest-only" in argv or "--fleet-only" in argv:
+        if "--forest-only" in argv:
+            _phase12(dev, here, smi, t_run)
+        else:
+            _phase13(dev, here, smi, t_run)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
         return 0
@@ -3312,6 +3351,12 @@ def _run(argv, here, t_run) -> int:
     f_launches, f_merges, _ = _phase12(dev, here, smi, t_run)
     launches += f_launches
     merges += f_merges
+    torch.cuda.empty_cache()
+
+    # 13. the serving fleet: partition, routed shards in process, the CLI fleet
+    f_launches, f_merges = _phase13(dev, here, smi, t_run)
+    launches += f_launches
+    merges += f_merges
 
     print_record(kind, smi, launches, merges, max_err, main_rec, sparse)
     return 0
@@ -3325,6 +3370,390 @@ def _phase12(dev, here, smi, t_run):
     say("forest", f"phase 12 in {time.perf_counter() - t0:.1f} s; the whole run "
                   f"{time.perf_counter() - t_run:.1f} s [{smi}]")
     return launches, merges, recs
+
+
+# ---------------------------------------------------------------------------
+# 13. the fleet
+# ---------------------------------------------------------------------------
+
+
+def _spawn(cmd, here, log):
+    """A child process of the fleet, its stderr to ``log``."""
+    with open(log, "w") as f:
+        return subprocess.Popen(cmd, cwd=here, stdout=subprocess.DEVNULL, stderr=f)
+
+
+def _ready_port(proc, log, deadline):
+    """The port of a child's ``ready: ... on port N`` line."""
+    while True:
+        text = Path(log).read_text()
+        for line in text.splitlines():
+            if line.startswith("ready:"):
+                return int(line.rsplit(" ", 1)[1])
+        if proc.poll() is not None:
+            raise AssertionError(f"{log} exited {proc.returncode} before ready: {text[-2000:]}")
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"{log} not ready in time: {text[-2000:]}")
+        time.sleep(0.1)
+
+
+def _cuda_holders(pids):
+    """Which of ``pids`` hold a CUDA context: listed by ``nvidia-smi
+    --query-compute-apps`` (when it sees this namespace's pids) or holding
+    a /dev/nvidia* file open (a CUDA context opens the device files;
+    importing torch does not)."""
+    import os
+
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout
+    listed = {int(x) for x in out.split() if x.strip().isdigit()}
+    held = {}
+    for pid in pids:
+        fds = Path(f"/proc/{pid}/fd")
+        opened = False
+        for fd in (fds.iterdir() if fds.exists() else ()):
+            try:
+                opened = opened or os.readlink(fd).startswith("/dev/nvidia")
+            except OSError:
+                pass
+        held[pid] = (pid in listed, opened)
+    return held
+
+
+def _same_answer(routed, d2, ids, what):
+    """A routed /v1/knn body against the single index's (d2, ids): the
+    distances byte-equal (float64 sqrt of the f32 d2), the ids equal except
+    between exactly tied distances. Returns the differing tied slots."""
+    dist = np.sqrt(d2.astype(np.float64))
+    got_d = np.asarray(routed["distances"], dtype=np.float64)
+    got_i = np.asarray(routed["ids"], dtype=np.int64)
+    assert routed["degraded"] is None, f"{what}: degraded {routed['degraded']}"
+    assert got_d.shape == dist.shape and np.array_equal(got_d, dist), f"{what}: distances differ"
+    diff = got_i != ids
+    tied = np.zeros_like(diff)
+    tied[:, 1:] |= dist[:, 1:] == dist[:, :-1]
+    tied[:, :-1] |= dist[:, :-1] == dist[:, 1:]
+    assert not (diff & ~tied).any(), f"{what}: ids differ outside ties"
+    return int(diff.sum())
+
+
+def phase_fleet(dev, here, smi):
+    """Phase 13: the serving fleet (see the module docstring). Returns its
+    lines and the scan and merge launches of the in-process fleet's
+    routed requests."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import torch
+
+    from kdtree_tpu_torch import snapshot
+    from kdtree_tpu_torch.kernels import scan_knn as scan_mod
+    from kdtree_tpu_torch.obs import slo as obs_slo
+    from kdtree_tpu_torch.ops import tile_query as tqm
+    from kdtree_tpu_torch.ops.generate import generate_points_rowwise, generate_queries
+    from kdtree_tpu_torch.ops.morton import morton_codes, morton_view
+    from kdtree_tpu_torch.serve import engine as lifecycle
+    from kdtree_tpu_torch.serve import router as rt
+    from kdtree_tpu_torch.serve import server as srv
+    from kdtree_tpu_torch.serve import spatial as sp
+    from kdtree_tpu_torch.serve.engine import batch_bucket
+
+    lines = []
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-fleet-")
+    fleet_dir = os.path.join(tmp, "fleet")
+    dev_args = [] if dev.type == "cuda" else ["--device", str(dev)]
+    base = [sys.executable, "-m", "kdtree_tpu_torch"]
+    servers, routers, procs = [], [], []
+    try:
+        # 1. partition: the CLI in a subprocess, then the coder check
+        t0 = time.perf_counter()
+        out = subprocess.run(base + dev_args + [
+            "--generator", "threefry", "partition", "--seed", str(SEED), "--dim", str(DIM),
+            "--n", str(FLEET_N), "--shards", str(FLEET_SHARDS), "--k", str(K),
+            "--max-batch", str(MAX_BATCH), "--out-dir", fleet_dir],
+            cwd=here, capture_output=True, text=True, timeout=600)
+        part_s = time.perf_counter() - t0
+        assert out.returncode == 0, out.stderr[-3000:]
+        lines.append(f"partition --n {FLEET_N} --shards {FLEET_SHARDS}: {part_s:.2f} s "
+                     "(a subprocess: device init, generation, host Morton cut, 4 shard "
+                     "builds and snapshot saves)")
+        lines += [ln for ln in out.stdout.splitlines() if ln.startswith("shard ")]
+        with open(os.path.join(fleet_dir, sp.PARTITION_MANIFEST)) as f:
+            pman = json.load(f)
+        grid = sp.SpatialGrid.from_json(pman["grid"])
+        pts = generate_points_rowwise(SEED, DIM, FLEET_N, device=dev)
+        t0 = time.perf_counter()
+        dcodes = morton_codes(pts, grid.bits, lo=torch.as_tensor(grid.lo, device=dev),
+                              hi=torch.as_tensor(grid.hi, device=dev))
+        hcodes = sp.morton_codes_np(pts.cpu().numpy(), grid)
+        assert np.array_equal(dcodes.cpu().numpy(), hcodes.astype(np.int64)), \
+            "morton_codes_np differs from the device coder"
+        order = torch.sort(dcodes, stable=True).indices
+        lines.append(f"morton_codes_np == morton_codes on the card, bit for bit, over all "
+                     f"{FLEET_N} points ({time.perf_counter() - t0:.2f} s)")
+        gid_all = torch.arange(FLEET_N, dtype=torch.int32, device=dev)
+        single = morton_view(pts[order], gid=gid_all, n_real=FLEET_N)
+        shard_trees = []
+        for i, ent in enumerate(pman["entries"]):
+            s, e = ent["id_range"]
+            tree, man = snapshot.load_snapshot(os.path.join(fleet_dir, f"shard-{i:02d}"),
+                                               device=dev)
+            want = morton_view(pts[order[s:e]], gid=gid_all[s:e], n_real=e - s)
+            for name in ("node_lo", "node_hi", "bucket_pts", "bucket_gid"):
+                assert torch.equal(getattr(tree, name), getattr(want, name)), (i, name)
+            assert man["meta"]["spatial"]["code_range"] == ent["code_range"]
+            shard_trees.append((tree, man))
+        lines.append("each shard's snapshot arrays equal a Morton view of its slice of the "
+                     "device coder's stable order (global ids = Morton ranks)")
+
+        # 2. the in-process fleet: four servers on the card behind make_router
+        t0 = time.perf_counter()
+        for tree, man in shard_trees:
+            state = lifecycle.build_state(tree=tree, k=K, max_batch=MAX_BATCH,
+                                          meta={"spatial": man["meta"]["spatial"]})
+            # four servers in one process share one registry, so each SLO
+            # engine would judge the four's requests together (and page the
+            # router into ejecting shards for the others' 1,000-row
+            # batches): in process they run with no SLO specs
+            state.slo_engine = obs_slo.SloEngine(specs=[], history=state.slo_engine.history)
+            httpd = srv.make_server(state, port=0)
+            httpd.start()
+            servers.append(httpd)
+        urls = [f"http://127.0.0.1:{h.server_address[1]}" for h in servers]
+        warm_s = time.perf_counter() - t0
+        for fanout in ("selective", "full"):
+            router = rt.make_router(urls, config=rt.RouterConfig(deadline_s=120.0,
+                                                                 fanout=fanout))
+            router.start(health_loop=True)
+            routers.append(router)
+        deadline = time.perf_counter() + 120
+        while not all(ss.box() is not None and ss.code_range_known() is not None
+                      for r in routers for ss in r.shard_sets):
+            assert time.perf_counter() < deadline, "the routers never learned the boxes"
+            time.sleep(0.05)
+        lines.append(f"in-process fleet: {FLEET_SHARDS} ServeStates on {dev} warmed "
+                     f"(ladder 8..{MAX_BATCH}) in {warm_s:.2f} s, selective and full routers")
+        reqs = []
+        for i, rows in enumerate(FLEET_ROWS):
+            q = generate_queries(SEED + 300 + i, DIM, rows, device=dev)
+            d2, ids = tqm.morton_knn_tiled(single, q, k=K)
+            reqs.append((rows, q.cpu().numpy(), d2.cpu().numpy(), ids.cpu().numpy()))
+        inner = [h.state.engine for h in servers]
+        scan_mod.scan_tiles.launches = 0
+        scan_mod.merge_partials.launches = 0
+        answers = {}
+        ties = 0
+        for router, fanout in zip(routers, ("selective", "full")):
+            for rows, q, d2, ids in reqs:
+                r0 = [e._state.inner.stats.retries for e in inner]
+                l0 = scan_mod.scan_tiles.launches
+                t0 = time.perf_counter()
+                st, _, body = _http(router.server_address[1], "POST", "/v1/knn",
+                                    {"queries": q.tolist(), "k": K})
+                ms = (time.perf_counter() - t0) * 1e3
+                assert st == 200, (st, body)
+                ties += _same_answer(body, d2, ids, f"{fanout} {rows} rows")
+                answers[(fanout, rows)] = body
+                sh = body["shards"]
+                lines.append(
+                    f"{fanout} {rows} rows: router {ms:.2f} ms, contacted {sh['contacted']}/"
+                    f"{sh['total']} (fan-out {sh['contacted'] / sh['total']:.2f}, pruned "
+                    f"{sh['pruned']}), overflow retries by shard "
+                    f"{[e._state.inner.stats.retries - r for e, r in zip(inner, r0)]}, "
+                    f"{scan_mod.scan_tiles.launches - l0} scan launches; byte-identical to "
+                    "the single index")
+        launches = scan_mod.scan_tiles.launches
+        merges = scan_mod.merge_partials.launches
+        assert launches > 0, "the fleet's shards never launched the scan kernel"
+        lines.append(f"in-process fleet: scan_tiles.launches={launches}, "
+                     f"merge_partials.launches={merges} over the {2 * len(FLEET_ROWS)} routed "
+                     f"requests; {ties} id slots differ from the single index, each a tie")
+        for rows, q, _, _ in reqs:
+            if rows != 64:
+                continue
+            shard_ms = []
+            for url in urls:
+                t0 = time.perf_counter()
+                st, _, _ = _http(int(url.rsplit(":", 1)[1]), "POST", "/v1/knn",
+                                 {"queries": q.tolist(), "k": K})
+                shard_ms.append((time.perf_counter() - t0) * 1e3)
+                assert st == 200
+            lines.append(f"64 rows sent to each shard directly: "
+                         + ", ".join(f"{m:.2f}" for m in shard_ms) + " ms")
+        # one shard's scan at its serving shape, against the plain scan
+        tree0 = shard_trees[0][0]
+        q = torch.as_tensor(reqs[2][1], device=dev)
+        bucket = batch_bucket(q.shape[0], MAX_BATCH)
+        q = torch.cat([q, q[-1:].expand(bucket - q.shape[0], DIM)])
+        plan = tqm.plan_tiled(bucket, DIM, tree0.n_real, tree0.num_buckets, tree0.bucket_size,
+                              K, device=dev)
+        sq, _ = tqm._sort_queries(q, plan.bits, (-bucket) % plan.qbatch)
+        stq = sq.reshape(-1, plan.tile, DIM).contiguous()
+        c, lb = collect_inputs(tree0, stq, K, plan.seeds, plan.cmax, grow=True)
+        time_shape("fleet shard 0, serve 64 rows", tree0, stq, c, lb, K, 64, 20, 3)
+        for r in routers:
+            r.stop()
+        routers.clear()
+        for h in servers:
+            h.stop()
+        servers.clear()
+        del single, pts, order, dcodes, shard_trees
+        torch.cuda.empty_cache()
+
+        # 3. the user's path: serve x4 + a read replica of shard 0, route, loadgen
+        t0 = time.perf_counter()
+        deadline = t0 + FLEET_READY_S
+        snaps = [os.path.join(fleet_dir, f"shard-{i:02d}") for i in range(FLEET_SHARDS)]
+        for i, sdir in enumerate(snaps):
+            procs.append(("serve", _spawn(base + dev_args + [
+                "serve", "--snapshot", sdir, "--port", "0", "--k", str(K), "--debug-faults"],
+                here, os.path.join(tmp, f"serve{i}.log"))))
+        procs.append(("replica", _spawn(base + dev_args + [
+            "serve", "--snapshot", snaps[0], "--snapshot-follow", "1.0", "--port", "0",
+            "--k", str(K)], here, os.path.join(tmp, "replica.log"))))
+        logs = [os.path.join(tmp, f"serve{i}.log") for i in range(FLEET_SHARDS)] + \
+            [os.path.join(tmp, "replica.log")]
+        ports = [_ready_port(p, g, deadline) for (_, p), g in zip(procs, logs)]
+        entries = [f"http://127.0.0.1:{ports[0]}|http://127.0.0.1:{ports[-1]}"] + \
+            [f"http://127.0.0.1:{p}" for p in ports[1:FLEET_SHARDS]]
+        rlog = os.path.join(tmp, "route.log")
+        rproc = _spawn(base + ["route", *sum((["--shard", e] for e in entries), []),
+                               "--port", "0", "--deadline-ms", str(FLEET_DEADLINE_MS)],
+                       here, rlog)
+        procs.append(("route", rproc))
+        rport = _ready_port(rproc, rlog, deadline)
+        while True:
+            st, _, health = _http(rport, "GET", "/healthz")
+            if st == 200 and health.get("available") == FLEET_SHARDS and all(
+                    s.get("routable") for s in health["shards"]):
+                break
+            assert time.perf_counter() < deadline, health
+            time.sleep(0.2)
+        lines.append(f"CLI fleet: {FLEET_SHARDS} `serve --snapshot` + 1 `--snapshot-follow` "
+                     f"replica of shard 0 + `route` ready, every shard routable, in "
+                     f"{time.perf_counter() - t0:.2f} s")
+        # each request size through the router (twice: the second is timed)
+        # beside the same rows sent to each shard process directly
+        for rows, q, d2, ids in reqs:
+            for _ in range(2):
+                t0 = time.perf_counter()
+                st, _, body = _http(rport, "POST", "/v1/knn", {"queries": q.tolist(), "k": K})
+                ms = (time.perf_counter() - t0) * 1e3
+                assert st == 200, body
+            want = answers[("selective", rows)]
+            assert (body["ids"], body["distances"]) == (want["ids"], want["distances"]), \
+                f"the CLI fleet's {rows}-row answer differs from the in-process fleet's"
+            shard_ms = []
+            for port in ports[:FLEET_SHARDS]:
+                t0 = time.perf_counter()
+                st, _, _ = _http(port, "POST", "/v1/knn", {"queries": q.tolist(), "k": K})
+                shard_ms.append((time.perf_counter() - t0) * 1e3)
+                assert st == 200
+            sh = body["shards"]
+            lines.append(f"CLI fleet {rows} rows: router {ms:.2f} ms, contacted "
+                         f"{sh['contacted']}/{sh['total']}; the shards directly "
+                         + ", ".join(f"{m:.2f}" for m in shard_ms)
+                         + " ms; byte-identical to the in-process fleet's answer")
+        # writes: 16 upserts owned by shards 1-3 (shard 0 has a read replica,
+        # which serves its snapshot's epoch), then 8 deletes
+        cr = [tuple(e["code_range"]) for e in pman["entries"]]
+        rng = np.random.default_rng(SEED)
+        cand = (rng.random((512, DIM)) * 200.0 - 100.0).astype(np.float32)
+        cand = cand[sp.owner_of(cand, grid, cr) > 0][:16]
+        new_ids = list(range(FLEET_N + 1000, FLEET_N + 1016))
+        st, _, up = _http(rport, "POST", "/v1/upsert",
+                          {"ids": new_ids, "points": cand.tolist()})
+        assert st == 200 and up["applied"] == 16 and up["routing"] == "spatial", up
+        st, _, back = _http(rport, "POST", "/v1/knn", {"queries": cand.tolist(), "k": 1})
+        assert st == 200 and back["ids"] == [[i] for i in new_ids], back
+        assert back["distances"] == [[0.0]] * 16
+        st, _, de = _http(rport, "POST", "/v1/delete", {"ids": new_ids[:8]})
+        assert st == 200 and de["applied"] == 8, de
+        st, _, back = _http(rport, "POST", "/v1/knn", {"queries": cand.tolist(), "k": 1})
+        got = [r[0] for r in back["ids"]]
+        assert got[8:] == new_ids[8:] and not set(got[:8]) & set(new_ids[:8]), got
+        lines.append("16 upserts (spatial routing) and 8 deletes through the router, read "
+                     "back through it")
+        lg_out = os.path.join(tmp, "loadgen.json")
+        lgproc = _spawn(base + ["loadgen", "--target", f"http://127.0.0.1:{rport}",
+                                "--rates", FLEET_RATES, "--step-seconds", str(FLEET_STEP_S),
+                                "--seed", str(SEED), "--out", lg_out],
+                        here, os.path.join(tmp, "loadgen.log"))
+        procs.append(("loadgen", lgproc))
+        time.sleep(FLEET_STEP_S)
+        shard_pids = [p.pid for name, p in procs if name in ("serve", "replica")]
+        held = _cuda_holders(shard_pids + [rproc.pid, lgproc.pid])
+        assert lgproc.wait(timeout=300) == 0, Path(tmp, "loadgen.log").read_text()[-3000:]
+        assert all(held[p][0] or held[p][1] for p in shard_pids), \
+            f"the check sees no CUDA context even in the shards: {held}"
+        for name, pid in (("route", rproc.pid), ("loadgen", lgproc.pid)):
+            assert held[pid] == (False, False), f"{name} holds a CUDA context: {held[pid]}"
+        listed = sum(held[p][0] for p in shard_pids)
+        lines.append(f"CUDA contexts: the 5 shard processes hold one each (nvidia-smi lists "
+                     f"{listed} of them; all hold /dev/nvidia* open); route and loadgen "
+                     "hold none")
+        with open(lg_out) as f:
+            cap = json.load(f)["capacity"]
+        lines.append(f"loadgen --rates {FLEET_RATES} --step-seconds {FLEET_STEP_S}: knee "
+                     f"{cap['knee_rate']} req/s (slo {cap['slo_ms']} ms at p"
+                     f"{int(round(cap.get('slo_quantile', 0.99) * 100))})")
+        for s in cap["steps"]:
+            lines.append(f"  rate {s['rate']:g}: p50 {s['p50_ms']} p95 {s['p95_ms']} p99 "
+                         f"{s['p99_ms']} ms, goodput {s['goodput_rps']} req/s, bad "
+                         f"{s['bad_frac']}, fanout_frac {s['fanout_frac']}")
+        st, _, text = _http(rport, "GET", "/metrics")
+        rate = [ln for ln in text.splitlines() if ln.startswith("kdtree_loadgen_offered_rate ")]
+        assert rate and float(rate[0].split()[1]) == float(FLEET_RATES.split(",")[-1]), rate
+        lines.append(f"router /metrics: {rate[0]}")
+        # the fault drill, last: a hang on shard 3 (its SLO may page after it,
+        # and the router would eject the shard for the burn window)
+        st, _, _ = _http(ports[3], "POST", "/debug/faults", {"spec": "knn=hang"})
+        assert st == 200
+        spread = (np.random.default_rng(SEED + 5).random((64, DIM)) * 200.0 - 100.0)
+        t0 = time.perf_counter()
+        st, _, body = _http(rport, "POST", "/v1/knn",
+                            {"queries": spread.astype(np.float32).tolist(), "k": K})
+        drill_ms = (time.perf_counter() - t0) * 1e3
+        _http(ports[3], "POST", "/debug/faults", {"clear": True})
+        assert st == 200 and body["degraded"] == f"partial:3/{FLEET_SHARDS}", body
+        assert body["shards"]["missing"] == [3], body["shards"]
+        assert drill_ms < FLEET_DEADLINE_MS + 1000, drill_ms
+        lines.append(f"fault drill (knn=hang on shard 3): degraded "
+                     f"{body['degraded']!r} in {drill_ms:.1f} ms (--deadline-ms "
+                     f"{FLEET_DEADLINE_MS})")
+        for name, p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for (name, p), log in zip(procs, logs + [rlog]):
+            assert p.wait(timeout=120) == 0 and "drained; bye" in Path(log).read_text(), \
+                (name, Path(log).read_text()[-2000:])
+        lines.append("SIGTERM: route and every serve process drained, exit 0")
+    finally:
+        for r in routers:
+            r.stop()
+        for h in servers:
+            h.stop()
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    timed = re.compile(r"\d (ms|s)\b")
+    lines = [f"{line} [{smi}]" if timed.search(line) else line for line in lines]
+    return lines, launches, merges
+
+
+def _phase13(dev, here, smi, t_run):
+    """Phase 13 with its lines printed; returns its launch counts."""
+    t0 = time.perf_counter()
+    lines, launches, merges = phase_fleet(dev, here, smi)
+    for line in lines:
+        say("fleet", line)
+    say("fleet", f"phase 13 in {time.perf_counter() - t0:.1f} s; the whole run "
+                 f"{time.perf_counter() - t_run:.1f} s [{smi}]")
+    return launches, merges
 
 
 def print_record(kind, smi, launches, merges, max_err, main_rec, sparse):

@@ -405,6 +405,71 @@ METRIC_HELP = {
     "torch_device_memory_bytes":
         "device memory snapshot: allocated/reserved/max_allocated by the "
         "caching allocator, free/total from the driver",
+    # the fleet: the router, its connection pool and the load harness's
+    # offered-rate gauge (the reference's help strings)
+    "kdtree_router_requests_total":
+        "routed k-NN requests by outcome (ok/partial/unavailable/...)",
+    "kdtree_router_request_seconds":
+        "routed request latency (scatter to merged answer)",
+    "kdtree_router_partial_total":
+        "requests answered from a shard quorum with the partial flag",
+    "kdtree_router_shard_attempts_total":
+        "per-shard attempt outcomes (ok/http_error/shed/network/...)",
+    "kdtree_router_shard_seconds":
+        "per-shard successful-attempt latency (the hedge-delay source)",
+    "kdtree_router_retries_total":
+        "per-shard backed-off retries",
+    "kdtree_router_hedges_total":
+        "hedge attempts fired, by shard",
+    "kdtree_router_hedge_wins_total":
+        "hedge attempts that beat their primary, by shard",
+    "kdtree_router_breaker_state":
+        "per-shard circuit breaker: 0 closed, 1 open, 2 half-open",
+    "kdtree_router_breaker_transitions_total":
+        "circuit-breaker transitions, by shard and destination state",
+    "kdtree_router_shard_healthy":
+        "1 while the shard's /healthz answers 200 without SLO PAGE",
+    "kdtree_router_shards":
+        "shards this router scatters to",
+    "kdtree_router_write_requests_total":
+        "routed mutable-index writes by op and outcome",
+    "kdtree_router_federate_errors_total":
+        "per-shard /metrics federation scrape failures",
+    "kdtree_router_federated_up":
+        "1 when the shard's /metrics scrape succeeded in the last federated"
+        " exposition",
+    "kdtree_router_replicas":
+        "replicas per shard set",
+    "kdtree_router_clock_skew_ms":
+        "estimated shard wall-clock offset vs this router (RTT-midpoint "
+        "from the health probe; +ve = shard clock ahead)",
+    "kdtree_router_replica_requests_total":
+        "attempts dispatched per replica (shard x replica) \u2014 the read-"
+        "spread evidence for replica sets",
+    "kdtree_router_shards_contacted":
+        "shard sets contacted per routed knn request (mean = selective fan-"
+        "out; equals the shard count under full scatter)",
+    "kdtree_router_shards_pruned_total":
+        "shard sets skipped because their bounding-box lower bound provably"
+        " cleared the running k-th best distance",
+    "kdtree_router_pool_hits_total":
+        "shard attempts served off a pooled keep-alive connection (the "
+        "loadgen reuse-fraction numerator)",
+    "kdtree_router_pool_misses_total":
+        "shard attempts that opened a fresh connection (empty or stale "
+        "pool)",
+    "kdtree_router_pool_discards_total":
+        "pooled connections closed instead of reused, by reason "
+        "(stale/abort/error/full/undrained/shutdown)",
+    "kdtree_router_spec_wave_total":
+        "speculative wave-2 launches by outcome (needed = the exact widen "
+        "decision wanted that shard anyway; wasted = it did not)",
+    "kdtree_loadgen_offered_rate":
+        "open-loop offered rate (req/s) the load generator most recently "
+        "declared via X-Loadgen-Rate",
+    "kdtree_router_headroom_frac":
+        "fleet capacity headroom aggregated over the routable shards' "
+        "reported headroom blocks",
 }
 
 

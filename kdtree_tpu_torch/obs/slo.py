@@ -277,6 +277,41 @@ def recall_specs() -> List[SloSpec]:
     ]
 
 
+def router_specs() -> List[SloSpec]:
+    """The routing-process SLOs (``route`` arms these instead
+    of :func:`default_specs` — a router has no batches or device, it has
+    shard availability). Same burn-rate machinery, router families."""
+    return [
+        SloSpec(
+            name="router-availability",
+            objective="99.9% of routed requests answered (not 503 below "
+                      "quorum)",
+            target=0.999,
+            kind="ratio",
+            bad=('kdtree_router_requests_total{status="unavailable"}',),
+            total="kdtree_router_requests_total",
+        ),
+        SloSpec(
+            name="router-partial",
+            objective="99% of routed requests merged over ALL shards "
+                      "(not degraded to a partial quorum answer)",
+            target=0.99,
+            kind="ratio",
+            bad=('kdtree_router_requests_total{status="partial"}',),
+            total="kdtree_router_requests_total",
+        ),
+        SloSpec(
+            name="router-p99-latency",
+            objective="99% of routed requests complete within 1 s "
+                      "(scatter to merged answer)",
+            target=0.99,
+            kind="latency",
+            hist="kdtree_router_request_seconds",
+            threshold=1.0,
+        ),
+    ]
+
+
 class SloEngine:
     """Evaluates specs against a history ring, exports state gauges,
     and turns PAGE transitions into incident dumps. ``evaluate`` is

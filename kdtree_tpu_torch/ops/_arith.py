@@ -128,14 +128,32 @@ def sq_dist_to_box(q: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch
     return acc
 
 
-def xla_cpu_vector_rows(rows: int) -> int:
-    """How many leading lanes of a vmapped loop over ``rows`` lanes XLA:CPU
-    (LLVM's loop vectorizer, the trip count known) runs in vector code on
-    this x86 host; the rest run in the scalar tail. From 32 lanes on the
-    vector loop takes 8 at a time; from 16, 4 at a time; below 16 only
-    exactly 4 or 8 lanes are vectorized. Found by classifying every row of
-    the reference's classic and bucket DFS answers at 1-40, 47, 48 and
-    63-65 and 100 lanes (``tests/test_torch_classic.py``)."""
+# (dim, rows) -> vector lanes where XLA:CPU departs from the lane-count rule
+# of xla_cpu_vector_rows: its vectorizer also weighs the loop body, which
+# grows with D, and then runs a vector epilogue of 4 lanes or none. Found
+# by scripts/torch_vector_lanes.py, which runs the reference's classic and
+# bucket DFS at every lane count from 1 to 128 and every D up to
+# ROW_ROUNDED_DIM_MAX on this x86 host and marks each answer row as the
+# rounded form or the FMA chain (both engines gave the same lanes). Above
+# 128 lanes only the rule is known to hold, and not everywhere: at D = 7-8,
+# 132-252 lanes take a 4-lane epilogue too, while 1,004 lanes do not.
+_VECTOR_ROWS_BY_DIM = {
+    **{(2, r): 24 for r in range(28, 32)},
+    **{(d, r): 36 for d in (4, 5, 6, 7, 8) for r in range(36, 40)},
+    **{(d, r): 44 for d in (5, 7, 8) for r in range(44, 48)},
+    **{(d, r): r - r % 4 for d in (7, 8) for r in range(52, 129) if r % 8 >= 4},
+}
+
+
+def xla_cpu_vector_rows(rows: int, dim: int) -> int:
+    """How many leading lanes of a vmapped loop over ``rows`` lanes of
+    ``dim``-axis rows XLA:CPU (LLVM's loop vectorizer, the trip count
+    known) runs in vector code on this x86 host; the rest run in the
+    scalar tail. From 32 lanes on the vector loop takes 8 at a time; from
+    16, 4 at a time; below 16 only exactly 4 or 8 lanes are vectorized —
+    except at the (dim, rows) of ``_VECTOR_ROWS_BY_DIM``."""
+    if (dim, rows) in _VECTOR_ROWS_BY_DIM:
+        return _VECTOR_ROWS_BY_DIM[dim, rows]
     if rows >= 32:
         return rows - rows % 8
     if rows >= 16:
@@ -156,7 +174,7 @@ def sq_dist_rows(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     if q.shape[-1] > ROW_ROUNDED_DIM_MAX:
         return sq_dist(q, p)
     rows = q.shape[0]
-    body = xla_cpu_vector_rows(rows)
+    body = xla_cpu_vector_rows(rows, q.shape[-1])
     diff = q[:body] - p[:body]
     rounded = sq_sum_windows(diff * diff)
     if body == rows:

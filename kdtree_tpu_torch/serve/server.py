@@ -233,6 +233,26 @@ class JsonRequestHandler(BaseHTTPRequestHandler):
         payload["pid"] = os.getpid()
         self._send_json(200, payload)
 
+    def _note_offered_rate(self) -> None:
+        """Mirror the load generator's ``X-Loadgen-Rate`` header into the
+        ``kdtree_loadgen_offered_rate`` gauge and, when it changes, a
+        ``loadgen.rate`` flight event, so an SLO page that fires mid-run
+        names the offered rate in its incident dump. The shard server and
+        the router both call it; ordinary traffic carries no header."""
+        raw = self.headers.get("X-Loadgen-Rate")
+        if not raw:
+            return
+        try:
+            rate = float(raw)
+        except ValueError:
+            return
+        if rate != getattr(self.server, "loadgen_rate", None):
+            # benign last-writer-wins race: the gauge and the ring both
+            # want the rate the client most recently declared
+            self.server.loadgen_rate = rate
+            obs.get_registry().gauge("kdtree_loadgen_offered_rate").set(rate)
+            flight.record("loadgen.rate", rate=rate)
+
     def _read_json_object(self, max_bytes: int = MAX_BODY_BYTES):
         """Read + parse one JSON-object request body, or None with the
         4xx already written: 411 missing Content-Length, 400 negative,
@@ -428,6 +448,7 @@ class KnnRequestHandler(JsonRequestHandler):
 
     def do_POST(self) -> None:
         path = self.path.split("?", 1)[0]
+        self._note_offered_rate()
         if path == "/debug/profile":
             self._do_debug_profile()
             return
@@ -1035,6 +1056,9 @@ class KnnServer(GracefulHTTPServer):
     ) -> None:
         super().__init__(address, KnnRequestHandler)
         self.state = state
+        # the most recent X-Loadgen-Rate a client declared (None until a
+        # load-harness run shows up); see _note_offered_rate
+        self.loadgen_rate: Optional[float] = None
         # per-server fault set: defaults to the KDTREE_TPU_FAULTS env
         # spec; in-process tests pass their own
         self.faults = faults if faults is not None else from_env()

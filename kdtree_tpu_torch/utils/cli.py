@@ -36,7 +36,13 @@ Output bytes and exit codes are the reference's:
 - ``stats``: render a ``--metrics-out`` report (``--diff OLD NEW``
   compares two);
 - ``trace`` / ``costs``: fetch a live server's distributed trace (the
-  ASCII waterfall) or its cost ledger (cost per query, headroom).
+  ASCII waterfall) or its cost ledger (cost per query, headroom);
+- ``partition``: cut one point cloud into N Morton-range shard snapshots
+  (global ids are the Morton ranks; each manifest carries its region);
+- ``route``: the scatter/gather router over shard (or child router)
+  processes (``serve/router.py``);
+- ``loadgen``: the open-loop load harness against a live serve or route
+  process, with its capacity block (``loadgen/``).
 
 ``--metrics-out PATH`` (before the subcommand) writes the one-shot JSON
 telemetry report of any run on exit, failed runs included.
@@ -45,9 +51,10 @@ Everything runs on the CUDA device unless ``--device cpu`` asks for the
 CPU. ``auto`` picks an engine by the reference's crossovers
 (:func:`_resolve_engine`). The multi-device engines run on a mesh of
 ``--devices`` CUDA devices (default: all), or of that many logical shards
-with ``--device cpu`` (default 1). The reference's ``route``, ``loadgen``,
-``lint`` and ``trend`` subcommands exit with code 1 and name the ROADMAP
-item that brings them.
+with ``--device cpu`` (default 1). ``route``, ``loadgen``, ``stats``,
+``trace`` and ``costs`` are host code and resolve no device. The
+reference's ``lint`` and ``trend`` subcommands exit with code 1 and name
+the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -63,7 +70,7 @@ from kdtree_tpu_torch.ops.tile_query import dense_lowd
 
 # the reference's subcommands this port does not serve yet, by the ROADMAP
 # queue 1 item that brings them
-UNPORTED_COMMANDS = {"route": 18, "loadgen": 18, "lint": 18, "trend": 18}
+UNPORTED_COMMANDS = {"lint": 18, "trend": 18}
 
 NUM_QUERIES = 10  # the reference program's fixed query count
 HARNESS_DIM = 128
@@ -686,6 +693,86 @@ def cmd_build(args) -> None:
               f"to {snap.resolve_dir(args.save)}")
 
 
+def cmd_partition(args) -> None:
+    """Spatial partitioner: cut one point cloud into N contiguous
+    Morton-range shards, each written as a ready-to-serve snapshot whose
+    manifest carries the shard's region (grid + code range) and whose
+    global ids are the Morton ranks, so the shard's id set AND its region
+    are both contiguous. A fleet served from these shards gives the router
+    disjoint, tight bounding boxes to prune against. The cut is host numpy
+    (``serve/spatial.py``); each shard's Morton view is built on
+    ``--device``."""
+    import os
+
+    from kdtree_tpu_torch import snapshot as snap
+    from kdtree_tpu_torch.ops.morton import morton_view
+    from kdtree_tpu_torch.serve import spatial as sp
+
+    if args.shards < 2:
+        print(f"--shards must be >= 2 (got {args.shards}); one shard "
+              "needs no partition", file=sys.stderr)
+        sys.exit(1)
+    if args.points:
+        pts = _load_array(args.points, "points")
+        src_meta = {"generator": "file", "points": args.points}
+    else:
+        if args.generator != "threefry":
+            print("note: partition's seeded problem is the threefry "
+                  f"row stream; --generator {args.generator} does not "
+                  "apply", file=sys.stderr)
+        from kdtree_tpu_torch.ops.generate import generate_points_rowwise
+
+        pts = generate_points_rowwise(args.seed, args.dim, args.n,
+                                      device=args.dev).cpu().numpy()
+        src_meta = {"seed": args.seed, "generator": "threefry"}
+    try:
+        plan = sp.plan_partition(pts, args.shards, bits=args.bits)
+    except ValueError as e:
+        print(f"cannot partition: {e}", file=sys.stderr)
+        sys.exit(1)
+    base = snap.resolve_dir(args.out_dir)
+    os.makedirs(base, exist_ok=True)
+    keep = max(args.snapshot_keep or 1, 1)
+    shard_dirs = []
+    for i, ((s, e), (c0, c1), (blo, bhi)) in enumerate(
+        zip(plan["bounds"], plan["code_ranges"], plan["boxes"])
+    ):
+        rows = plan["order"][s:e]
+        # global ids ARE the Morton ranks: shard i owns ids [s, e) —
+        # contiguous ids and a contiguous code range, by construction
+        tree = morton_view(
+            torch.from_numpy(pts[rows]).to(args.dev),
+            gid=torch.arange(s, e, dtype=torch.int32, device=args.dev),
+            n_real=int(e - s),
+        )
+        sdir = os.path.join(base, f"shard-{i:02d}")
+        plan_keys = snap.plan_keys_for(tree, k=args.k, max_batch=args.max_batch)
+        snap.save_snapshot(
+            sdir, tree, epoch=0, id_offset=0,
+            plan_keys=plan_keys,
+            plan_profiles=snap.collect_plan_profiles(plan_keys),
+            meta={**src_meta, "spatial": {
+                "grid": plan["grid"].to_json(),
+                "code_range": [int(c0), int(c1)],
+                "id_range": [int(s), int(e)],
+                "shard": i,
+                "shards": int(args.shards),
+            }},
+            keep=keep,
+        )
+        shard_dirs.append(sdir)
+        box = ", ".join(f"[{float(a):g}, {float(b):g}]" for a, b in zip(blo, bhi))
+        print(f"shard {i}: n={e - s} ids [{s}, {e}) code [{c0}, {c1})  box {box}")
+    man_path = sp.write_fleet_manifest(base, plan, shard_dirs)
+    print(f"partitioned {pts.shape[0]} points into {args.shards} "
+          f"Morton-range shards under {base} ({man_path})")
+    print("serve each with: kdtree-tpu-torch serve --snapshot "
+          f"{shard_dirs[0]} --port 0 ...  (id_offset stays 0 — shard "
+          "trees answer GLOBAL morton-rank ids directly); then route "
+          "them and the router prunes by their /healthz boxes",
+          file=sys.stderr)
+
+
 def cmd_query(args) -> None:
     import zipfile
 
@@ -819,6 +906,11 @@ def cmd_serve(args) -> None:
                 "role": ("secondary" if follow_s is not None
                          else "primary" if save_dir else "static"),
             }}
+            if isinstance(man.get("meta"), dict) and "spatial" in man["meta"]:
+                # a spatially-partitioned shard (`partition`): surface the
+                # region contract (grid + owned Morton code range) on
+                # /healthz so the router learns write ownership
+                meta["spatial"] = man["meta"]["spatial"]
             seeded = snap.seed_plan_store(man)
             if seeded:
                 print(f"plan store seeded with {seeded} pre-shipped "
@@ -888,11 +980,13 @@ def cmd_serve(args) -> None:
 
         def snapshot_sink(tree_, epoch, _dir=save_dir, _off=id_offset,
                           _k=args.k, _mb=args.max_batch,
-                          _keep=max(args.snapshot_keep or 1, 1)):
+                          _keep=max(args.snapshot_keep or 1, 1),
+                          _spatial=meta.get("spatial")):
             keys = snap.plan_keys_for(tree_, _k, _mb)
             snap.save_snapshot(
                 _dir, tree_, epoch=epoch, id_offset=_off, plan_keys=keys,
                 plan_profiles=snap.collect_plan_profiles(keys), keep=_keep,
+                meta={"spatial": _spatial} if _spatial else None,
             )
     try:
         state = lifecycle.build_state(
@@ -1005,6 +1099,227 @@ def cmd_serve(args) -> None:
         follower.stop()
     httpd.stop()
     print("drained; bye", file=sys.stderr, flush=True)
+
+
+def cmd_route(args) -> None:
+    """Scatter/gather routing over per-shard serve processes: fan each
+    request out to the shards, merge per-shard top-k by (distance, id),
+    and keep the service available through shard failure — deadlines,
+    bounded retry with jittered backoff, p95 hedging, per-shard circuit
+    breakers, health ejection, and exact partial-result degradation.
+    Host code: it resolves no device."""
+    import signal
+    import threading
+
+    from kdtree_tpu_torch.obs import flight
+    from kdtree_tpu_torch.serve import faults as faults_mod
+    from kdtree_tpu_torch.serve import router as rt
+
+    urls = []
+    for chunk in args.shard or []:
+        urls.extend(u.strip() for u in chunk.split(",") if u.strip())
+    if not urls:
+        print("route needs at least one --shard http://host:port "
+              "(repeat the flag or comma-separate)", file=sys.stderr)
+        sys.exit(1)
+    # fail a typo'd KDTREE_TPU_FAULTS crisply here too: the router does
+    # not inject faults itself, but a drill operator exporting the spec
+    # into the wrong process should hear about it
+    try:
+        faults_mod.from_env()
+    except faults_mod.FaultSpecError as e:
+        print(f"bad KDTREE_TPU_FAULTS: {e}", file=sys.stderr)
+        sys.exit(1)
+    try:
+        config = rt.RouterConfig(
+            deadline_s=args.deadline_ms / 1e3,
+            retries=args.retries,
+            hedge_min_s=args.hedge_ms / 1e3,
+            quorum=args.quorum,
+            breaker_failures=args.breaker_failures,
+            breaker_reset_s=args.breaker_reset_s,
+            health_period_s=args.health_period_s,
+            fanout=args.fanout,
+            trace_frac=args.trace_frac,
+            pool=args.pool,
+            pool_max_idle=args.pool_max_idle,
+            spec_wave=args.spec_wave,
+            parent=args.parent,
+        )
+        engine = None
+        if args.slo:
+            from kdtree_tpu_torch.obs import slo as obs_slo
+
+            engine = obs_slo.SloEngine(specs=obs_slo.router_specs())
+        httpd = rt.make_router(urls, host=args.host, port=args.port,
+                               config=config, slo_engine=engine)
+    except ValueError as e:
+        print(f"cannot route: {e}", file=sys.stderr)
+        sys.exit(1)
+    port = httpd.server_address[1]
+    stop = threading.Event()
+
+    def _on_signal(signum, frame):
+        stop.set()
+
+    signal.signal(signal.SIGINT, _on_signal)
+    signal.signal(signal.SIGTERM, _on_signal)
+    if flight.install_signal_handler():
+        print("flight recorder armed: kill -USR2 this pid dumps the "
+              "recent-event ring", file=sys.stderr)
+    kind = "child router(s)" if config.parent else "shard(s)"
+    print(f"kdtree-tpu-torch route: {len(urls)} {kind}, quorum "
+          f"{httpd.quorum}, deadline {config.deadline_s * 1e3:g} ms, "
+          f"retries {config.retries}, breaker "
+          f"{config.breaker_failures}x/{config.breaker_reset_s:g}s, "
+          f"pool {'on' if config.pool else 'off'}, spec-wave "
+          f"{'on' if config.spec_wave else 'off'}",
+          file=sys.stderr)
+    httpd.start()
+    print(f"ready: routing POST /v1/knn, GET /healthz, GET /metrics on "
+          f"port {port}", file=sys.stderr, flush=True)
+    stop.wait()
+    print("shutting down: draining in-flight scatters...", file=sys.stderr)
+    httpd.stop()
+    print("drained; bye", file=sys.stderr, flush=True)
+
+
+def cmd_loadgen(args) -> None:
+    """Open-loop load harness: drive a live serve/route process with
+    seeded Poisson arrivals at a rate ladder and a query/upsert/delete
+    mix, measure latency from INTENDED send times (coordinated omission
+    cannot hide queueing), and emit a capacity block — per-step
+    quantiles, goodput, shed/degraded fractions, and the knee rate.
+    Host code: it resolves no device."""
+    import os
+
+    from kdtree_tpu_torch.loadgen import runner as lg_runner
+    from kdtree_tpu_torch.loadgen import schedule as lg_schedule
+    from kdtree_tpu_torch.obs.export import _capacity_lines
+
+    try:
+        rates = [float(x) for x in args.rates.split(",") if x.strip()]
+    except ValueError:
+        print(f"--rates must be a comma-separated number list, got "
+              f"{args.rates!r}", file=sys.stderr)
+        sys.exit(1)
+    if not rates or any(r <= 0 for r in rates):
+        print(f"--rates values must be positive, got {args.rates!r}",
+              file=sys.stderr)
+        sys.exit(1)
+    parsed = []
+    for flag, parse, raw in (("--mix", lg_schedule.parse_mix, args.mix),
+                             ("--recall-target", lg_schedule.parse_recall_mix,
+                              args.recall_target),
+                             ("--verb-mix", lg_schedule.parse_verb_mix, args.verb_mix)):
+        try:
+            parsed.append(parse(raw))
+        except ValueError as e:
+            print(f"bad {flag}: {e}", file=sys.stderr)
+            sys.exit(1)
+    mix, recall_mix, verb_mix = parsed
+    if round(args.slo_quantile, 4) not in (0.5, 0.95, 0.99):
+        # fail BEFORE the sweep runs: the knee must be judged at a
+        # quantile the steps actually report, never silently at p99
+        print(f"--slo-quantile must be 0.5, 0.95, or 0.99 (the reported "
+              f"step quantiles), got {args.slo_quantile}",
+              file=sys.stderr)
+        sys.exit(1)
+    ab_base = None
+    if args.ab_baseline:
+        # read + validate the baseline BEFORE the sweep runs
+        try:
+            with open(args.ab_baseline) as f:
+                base_rep = json.load(f)
+        except (OSError, ValueError) as e:
+            print(f"cannot read --ab-baseline {args.ab_baseline}: {e}",
+                  file=sys.stderr)
+            sys.exit(1)
+        base_cap = (base_rep or {}).get("capacity") \
+            if isinstance(base_rep, dict) else None
+        if not isinstance(base_cap, dict) or "knee_rate" not in base_cap:
+            print(f"{args.ab_baseline} is not a loadgen capacity "
+                  "report (missing capacity.knee_rate); was it written "
+                  "by loadgen --out?", file=sys.stderr)
+            sys.exit(1)
+        ab_base = base_cap
+    try:
+        facts = lg_runner.discover(args.target, retries=args.ready_retries)
+    except (RuntimeError, ValueError) as e:
+        print(f"cannot reach target: {e}", file=sys.stderr)
+        sys.exit(1)
+    dim = args.dim if args.dim is not None else facts["dim"]
+    k = min(args.k, facts["k_max"])
+    write_base = (args.write_base if args.write_base is not None
+                  else facts["write_base"])
+    try:
+        sched = lg_schedule.build_schedule(
+            rates, args.step_seconds, args.seed, dim, mix=mix,
+            regions=args.regions, zipf_s=args.zipf_s, shape=args.shape,
+            diurnal_amp=args.diurnal_amp, write_base=write_base,
+            recall_mix=recall_mix, verb_mix=verb_mix,
+        )
+    except ValueError as e:
+        print(f"cannot build schedule: {e}", file=sys.stderr)
+        sys.exit(1)
+    desc = sched.describe()
+    print(f"loadgen: target {args.target} (n={facts['n']}, dim={dim}, "
+          f"k={k}); {desc['arrivals']} arrivals over "
+          f"{sched.duration_s:g}s, mix {desc['ops']}, seed {args.seed}",
+          file=sys.stderr)
+
+    def on_step(step, rate):
+        print(f"  step {step}: offering {rate:g} req/s for "
+              f"{args.step_seconds:g}s", file=sys.stderr)
+
+    report = lg_runner.run_load(
+        args.target, sched, k=k, slo_ms=args.slo_ms,
+        slo_quantile=args.slo_quantile, max_bad_frac=args.max_bad_frac,
+        max_inflight=args.max_inflight, timeout_s=args.timeout_ms / 1e3,
+        on_step=on_step, verb_radius=args.verb_radius,
+        knee_band=args.knee_band,
+    )
+    cap = report["capacity"]
+    if args.variant:
+        cap["variant"] = args.variant
+    if ab_base is not None:
+        # the A/B block the trend knee-drop rule judges: this run is the
+        # CANDIDATE, the embedded knee is the bar it must clear
+        base_p99 = next(
+            (s.get("p99_ms") for s in ab_base.get("steps") or []
+             if isinstance(s, dict)
+             and s.get("rate") == ab_base["knee_rate"]), None)
+        cap["ab"] = {
+            "baseline_file": os.path.basename(args.ab_baseline),
+            "baseline_variant": ab_base.get("variant"),
+            "baseline_knee_rate": float(ab_base["knee_rate"]),
+            "baseline_p99_ms_at_knee": base_p99,
+            "knee_delta": round(
+                float(cap["knee_rate"]) - float(ab_base["knee_rate"]), 3),
+        }
+    if args.out:
+        tmp = f"{args.out}.tmp-{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(report, f, indent=2, sort_keys=True)
+            f.write("\n")
+        os.replace(tmp, args.out)
+        print(f"capacity report written to {args.out}", file=sys.stderr)
+    # the telemetry sidecar (--metrics-out) carries the same capacity
+    # block, so one artifact is a self-contained trend input
+    args._telemetry_extra = {"capacity": cap}
+    print("\n".join(_capacity_lines(cap)), file=sys.stderr)
+    print(json.dumps({
+        "knee_rate": cap["knee_rate"],
+        "slo_ms": cap["slo_ms"],
+        "steps": len(cap["steps"]),
+        "arrivals": desc["arrivals"],
+        "out": args.out,
+        # the capacity-headroom model's verdict (None when the target
+        # exported no cost counters)
+        "predicted_rate": (cap.get("predicted") or {}).get("predicted_rate"),
+        "predicted_within_band": (cap.get("predicted")
+                                  or {}).get("within_band"),
+    }))
 
 
 def _parse_int_list(raw: str | None, what: str):
@@ -1525,6 +1840,40 @@ def build_parser() -> argparse.ArgumentParser:
                          "engines auto-shard above 1 GiB)")
     bu.set_defaults(fn=cmd_build)
 
+    pa = sub.add_parser(
+        "partition",
+        help="spatial partitioner: cut one point cloud into N "
+             "contiguous Morton-range shard snapshots (global ids = "
+             "morton ranks; each manifest carries the shard's region) "
+             "for the router's selective fan-out (docs/SERVING.md "
+             "\"Spatial sharding & selective fan-out\")",
+    )
+    pa.add_argument("--points", default=None, metavar="FILE",
+                    help="partition user data ([N, D] .npy/.npz) "
+                         "instead of a seeded problem")
+    pa.add_argument("--seed", type=int, default=42)
+    pa.add_argument("--dim", type=int, default=3)
+    pa.add_argument("--n", type=int, default=1 << 20)
+    pa.add_argument("--shards", type=int, required=True,
+                    help="how many Morton-range shards to cut (>= 2)")
+    pa.add_argument("--out-dir", required=True, metavar="DIR",
+                    help="output directory: one serving snapshot per "
+                         "shard (shard-00/, shard-01/, ...) plus a "
+                         "PARTITION.json fleet summary (relative paths "
+                         "resolve under KDTREE_TPU_SNAPSHOT_DIR)")
+    pa.add_argument("--bits", type=int, default=None,
+                    help="Morton quantization bits per axis (default: "
+                         "the shared default_bits rule for this D)")
+    pa.add_argument("--k", type=int, default=16,
+                    help="the k the shard servers will serve at (plan "
+                         "keys/profiles in each manifest are computed "
+                         "for it)")
+    pa.add_argument("--max-batch", type=int, default=1024,
+                    help="the serve --max-batch the plan keys cover")
+    pa.add_argument("--snapshot-keep", type=int, default=1, metavar="N",
+                    help="snapshot generations each shard dir retains")
+    pa.set_defaults(fn=cmd_partition)
+
     q = sub.add_parser("query", help="load a tree and run the 10 protocol queries")
     q.add_argument("--tree", required=True)
     q.add_argument("--seed", type=int, default=None,
@@ -1640,6 +1989,201 @@ def build_parser() -> argparse.ArgumentParser:
                          "a remote wedge-this-process button, so it is "
                          "opt-in; setting KDTREE_TPU_FAULTS also arms it")
     sv.set_defaults(fn=cmd_serve)
+
+    ro = sub.add_parser(
+        "route",
+        help="fault-tolerant scatter/gather router over per-shard serve "
+             "processes: merged exact top-k, deadlines, retries, "
+             "hedging, circuit breakers, partial results "
+             "",
+    )
+    ro.add_argument("--shard", action="append", metavar="URL",
+                    help="shard serve process base url (http://host:port); "
+                         "repeat the flag or comma-separate. A shard "
+                         "entry may be a REPLICA SET — "
+                         "'primary|replica1|replica2' — reads "
+                         "load-balance across replicas, writes go to "
+                         "the first (primary) url "
+                         "(docs/SERVING.md \"Snapshots & replica "
+                         "fleets\")")
+    ro.add_argument("--host", default="127.0.0.1")
+    ro.add_argument("--port", type=int, default=8081,
+                    help="TCP port (0 = ephemeral, printed on stderr)")
+    ro.add_argument("--deadline-ms", type=float, default=2000.0,
+                    help="scatter/gather budget per request; a shard "
+                         "that cannot answer inside it goes missing, "
+                         "never blocking")
+    ro.add_argument("--retries", type=int, default=2,
+                    help="bounded per-shard retries (jittered exponential "
+                         "backoff; shard Retry-After honored)")
+    ro.add_argument("--hedge-ms", type=float, default=50.0,
+                    help="hedge-delay floor: a second attempt fires when "
+                         "a shard call outlives max(its p95, this)")
+    ro.add_argument("--quorum", type=int, default=None,
+                    help="shards that must answer for a (partial) 200 "
+                         "(default: majority)")
+    ro.add_argument("--breaker-failures", type=int, default=3,
+                    help="consecutive failures that open a shard's "
+                         "circuit breaker")
+    ro.add_argument("--breaker-reset-s", type=float, default=2.0,
+                    help="open-breaker cooldown before the half-open "
+                         "probe")
+    ro.add_argument("--health-period-s", type=float, default=1.0,
+                    help="per-shard /healthz poll period for ejection")
+    ro.add_argument("--fanout", choices=["selective", "full"],
+                    default="selective",
+                    help="selective (default) prunes shards whose "
+                         "/healthz bounding box provably cannot hold a "
+                         "top-k member (byte-identical answers, fewer "
+                         "contacts — docs/SERVING.md \"Spatial "
+                         "sharding & selective fan-out\"); full "
+                         "restores the contact-every-shard scatter "
+                         "(the A/B baseline)")
+    ro.add_argument("--trace-frac", type=float, default=0.0,
+                    help="head-sampling fraction for distributed "
+                         "tracing: deterministically pin this slice of "
+                         "BORING requests' traces (tail promotion — "
+                         "slow/error/partial/hedged — is always on; "
+                         "docs/OBSERVABILITY.md \"Distributed "
+                         "tracing\")")
+    ro.add_argument("--no-pool", dest="pool", action="store_false",
+                    help="open a fresh connection per shard attempt "
+                         "instead of pooling keep-alive connections "
+                         "(the pooled-vs-fresh A/B baseline — "
+                         "docs/SERVING.md \"Scaling the router\")")
+    ro.add_argument("--pool-max-idle", type=int, default=8,
+                    help="idle keep-alive connections kept per shard "
+                         "replica (host, port)")
+    ro.add_argument("--no-spec-wave", dest="spec_wave",
+                    action="store_false",
+                    help="disable speculative overlapped wave 2: wait "
+                         "for every wave-1 response before widening "
+                         "(answers identical either way; this is the "
+                         "latency A/B baseline)")
+    ro.add_argument("--no-slo", dest="slo", action="store_false",
+                    help="serve without the router SLO ladder: no "
+                         "burn-rate pages, no slo block on /healthz — "
+                         "so an upstream parent router never ejects "
+                         "this router for paging. For benches and "
+                         "fleets where paging is handled out-of-band; "
+                         "a PAGE is sticky for the burn window, which "
+                         "turns a transient overload into minutes of "
+                         "ejection")
+    ro.add_argument("--parent", action="store_true",
+                    help="two-level mode: --shard urls are CHILD "
+                         "ROUTERS, not serve shards — prune/scatter/"
+                         "merge recurses through them with the same "
+                         "exact-merge byte-identity "
+                         "(docs/SERVING.md \"Scaling the router\")")
+    ro.set_defaults(fn=cmd_route, pool=True, spec_wave=True, slo=True)
+
+    lg = sub.add_parser(
+        "loadgen",
+        help="open-loop production load harness: seeded Poisson "
+             "arrivals at a rate ladder with a query/upsert/delete "
+             "mix against a live serve/route process; emits a "
+             "capacity block (latency-vs-offered-load curve + knee) "
+             "the trend gate diffs",
+    )
+    lg.add_argument("--target", required=True, metavar="URL",
+                    help="base url of a live serve or route process "
+                         "(http://host:port)")
+    lg.add_argument("--rates", required=True, metavar="R1,R2,...",
+                    help="offered-rate ladder in requests/sec, one "
+                         "capacity curve point per step")
+    lg.add_argument("--step-seconds", type=float, default=10.0,
+                    help="how long each ladder step offers its rate")
+    lg.add_argument("--mix", default="query:0.9,upsert:0.08,delete:0.02",
+                    help="op mix weights (normalized); deletes target "
+                         "ids upserted earlier in the schedule")
+    lg.add_argument("--seed", type=int, default=42,
+                    help="schedule seed: same seed = identical arrival "
+                         "times, ops, and payloads")
+    lg.add_argument("--recall-target", default=None, metavar="MIX",
+                    help="recall dial for the QUERY share of the mix: "
+                         "a single target ('0.99'), or a weighted mix "
+                         "('exact:0.5,0.99:0.3,0.9:0.2') so capacity "
+                         "curves are driven per serving gear; each "
+                         "step records the gear distribution it was "
+                         "answered at (default: all exact)")
+    lg.add_argument("--verb-mix", default=None, metavar="MIX",
+                    help="read-verb mix for the QUERY share of the "
+                         "schedule ('knn:0.7,radius:0.2,count:0.1'; "
+                         "verbs: knn/radius/range/count, weights "
+                         "normalized): each query arrival draws its "
+                         "verb seeded and response-blind, per-step "
+                         "rows and the capacity block gain per-verb "
+                         "latency/goodput columns and knees, and "
+                         "trend treats runs at differing mixes as "
+                         "incommensurable (default: pure knn, "
+                         "schedule byte-identical to pre-verb "
+                         "loadgen)")
+    lg.add_argument("--verb-radius", type=float, default=0.1,
+                    help="search radius (and range half-width) non-knn "
+                         "verbs carry, in the unit-cube query space — "
+                         "pins verb selectivity so runs at the same "
+                         "mix measure the same work")
+    lg.add_argument("--k", type=int, default=4,
+                    help="neighbors per query (clamped to the target's "
+                         "k_max)")
+    lg.add_argument("--shape", choices=["steps", "diurnal"],
+                    default="steps",
+                    help="steps = flat rate per rung; diurnal = "
+                         "sinusoidally modulated within each rung "
+                         "(Lewis-Shedler thinning, still seeded)")
+    lg.add_argument("--diurnal-amp", type=float, default=0.3,
+                    help="diurnal modulation amplitude in [0, 1)")
+    lg.add_argument("--regions", type=int, default=64,
+                    help="spatial regions the Zipf query skew draws "
+                         "over")
+    lg.add_argument("--zipf-s", type=float, default=1.1,
+                    help="Zipf exponent of the region skew (higher = "
+                         "hotter hot spots)")
+    lg.add_argument("--slo-ms", type=float, default=250.0,
+                    help="latency SLO bound the knee is judged against "
+                         "(matches the serving request-p99 SLO)")
+    lg.add_argument("--slo-quantile", type=float, default=0.99,
+                    help="which intended-latency quantile must meet "
+                         "--slo-ms (0.5/0.95/0.99)")
+    lg.add_argument("--max-bad-frac", type=float, default=0.05,
+                    help="max (shed+error+timeout)/sent fraction a "
+                         "step may have and still count toward the "
+                         "knee")
+    lg.add_argument("--max-inflight", type=int, default=64,
+                    help="client worker pool size; arrivals beyond it "
+                         "queue client-side but latency is measured "
+                         "from INTENDED send time either way")
+    lg.add_argument("--timeout-ms", type=float, default=10000.0,
+                    help="per-request client timeout")
+    lg.add_argument("--dim", type=int, default=None,
+                    help="query dimensionality (default: discovered "
+                         "from the target's /healthz)")
+    lg.add_argument("--write-base", type=int, default=None,
+                    help="first id upserts mint (default: past the "
+                         "target's served id range, from /healthz)")
+    lg.add_argument("--ready-retries", type=int, default=60,
+                    help="how many times to poll /healthz for "
+                         "readiness before giving up")
+    lg.add_argument("--out", default="loadgen_report.json",
+                    metavar="FILE",
+                    help="standalone capacity report artifact (a "
+                         "trend input); '' disables")
+    lg.add_argument("--variant", default=None,
+                    help="label for this arm of an A/B (e.g. 'pooled', "
+                         "'fresh', 'hier'); recorded in the capacity "
+                         "block")
+    lg.add_argument("--ab-baseline", default=None, metavar="FILE",
+                    help="a previous loadgen report to A/B against: "
+                         "embeds its knee in this report's "
+                         "capacity.ab block, and the trend knee-drop "
+                         "rule fails any run whose knee is not "
+                         "strictly better than its baseline")
+    lg.add_argument("--knee-band", type=float, default=0.5,
+                    help="relative band the cost ledger's predicted "
+                         "sustainable rate must land within of the "
+                         "measured knee (the capacity.predicted "
+                         "within_band verdict)")
+    lg.set_defaults(fn=cmd_loadgen)
 
     tu = sub.add_parser(
         "tune",
@@ -1800,7 +2344,25 @@ def main(argv=None) -> None:
         # host-only paths: no device, no telemetry framing
         args.fn(args)
         return
-    from kdtree_tpu_torch import obs, resolve_device
+    from kdtree_tpu_torch import obs
+
+    if args.cmd in ("route", "loadgen"):
+        # host code: no device is resolved, so these never open a CUDA
+        # context; a --metrics-out report carries the registry and spans
+        # but not the runtime's facts (reading those would open one)
+        if args.metrics_out:
+            obs.configure(metrics_out=args.metrics_out, install_runtime=False)
+        try:
+            args.fn(args)
+        finally:
+            if args.metrics_out:
+                try:
+                    obs.finalize(extra=getattr(args, "_telemetry_extra", None))
+                except OSError as e:
+                    print(f"cannot write telemetry report {args.metrics_out}: "
+                          f"{e}", file=sys.stderr)
+        return
+    from kdtree_tpu_torch import resolve_device
     from kdtree_tpu_torch.ops.morton import BuildCapacityError
 
     try:

@@ -111,12 +111,18 @@ def test_bucket_knn_equals_reference(d):
     _knn_pair(_uniform(9, d, 8), q, 16, cap=4)  # k > n
 
 
-@pytest.mark.parametrize("rows", [5, 8, 13, 21, 36])
-def test_bucket_knn_lane_forms(rows):
+LANE_GRID = [pytest.param(rows, 3, id=str(rows)) for rows in (5, 8, 13, 21, 36)] + \
+    [pytest.param(rows, d, id=f"d{d}-{rows}")
+     for d in (3, 4, 5, 8) for rows in (32, 36, 37, 44, 63, 64) if (rows, d) != (36, 3)]
+
+
+@pytest.mark.parametrize("rows,d", LANE_GRID)
+def test_bucket_knn_lane_forms(rows, d):
     """Batch sizes on both sides of ``_arith.xla_cpu_vector_rows``'s
-    bounds: internal points' distances take the vector or the tail form
-    by lane, bucket points' the FMA chain."""
-    _knn_pair(_uniform(3000, 3, 40), _uniform(rows, 3, 41 + rows), 16, cap=8)
+    bounds, and at D = 3, 4, 5 and 8 the lane counts where the vector
+    lanes depend on D: internal points' distances take the vector or the
+    tail form by lane, bucket points' the FMA chain."""
+    _knn_pair(_uniform(3000, d, 40), _uniform(rows, d, 41 + rows), 16, cap=8)
 
 
 def test_bucket_knn_chunked_and_whole_tree_bucket():

@@ -163,13 +163,23 @@ def test_knn_equals_reference(d):
     _knn_pair(small, q, 16)  # k > n
 
 
-@pytest.mark.parametrize("rows", [1, 4, 5, 8, 13, 16, 19, 20, 23, 36, 37])
-def test_knn_lane_forms(rows):
+LANE_GRID = [pytest.param(rows, 3, id=str(rows))
+             for rows in (1, 4, 5, 8, 13, 16, 19, 20, 23, 36, 37)] + \
+    [pytest.param(rows, d, id=f"d{d}-{rows}")
+     for d in (3, 4, 5, 8) for rows in (32, 36, 37, 44, 63, 64)
+     if (rows, d) not in ((36, 3), (37, 3))]
+
+
+@pytest.mark.parametrize("rows,d", LANE_GRID)
+def test_knn_lane_forms(rows, d):
     """The batch sizes on both sides of each bound of
-    ``_arith.xla_cpu_vector_rows``: the vector rows round each square, the
-    scalar tail fuses them, and the answers equal the reference's."""
-    p = _uniform(3000, 3, 11)
-    q = _uniform(rows, 3, 12 + rows)
+    ``_arith.xla_cpu_vector_rows``, and at D = 3, 4, 5 and 8 the lane counts
+    where XLA:CPU's vector lanes depend on D (a vector epilogue of 4 lanes
+    at 36-39 lanes from D = 4, at 44-47 from D = 5, at 60-63 from D = 7):
+    the vector rows round each square, the scalar tail fuses them, and the
+    answers equal the reference's."""
+    p = _uniform(3000, d, 11)
+    q = _uniform(rows, d, 12 + rows)
     _knn_pair(p, q, 16)
 
 
@@ -418,8 +428,12 @@ def test_engine_counters_equal_reference(monkeypatch):
 def test_row_forms_of_the_arithmetic():
     """``sq_dist_rows`` rounds each square in the vectorized lanes and
     fuses them in the scalar tail, up to 8 axes; above, it is sq_dist."""
-    assert [_arith.xla_cpu_vector_rows(r) for r in (1, 3, 4, 8, 12, 16, 19, 20, 31, 32, 39)] \
+    assert [_arith.xla_cpu_vector_rows(r, 3) for r in (1, 3, 4, 8, 12, 16, 19, 20, 31, 32, 39)] \
         == [0, 0, 4, 8, 0, 16, 16, 20, 28, 32, 32]
+    # the lanes that depend on D (the classified exceptions to the rule)
+    assert [_arith.xla_cpu_vector_rows(r, d) for r, d in (
+        (31, 2), (31, 3), (37, 3), (37, 4), (44, 4), (44, 5), (44, 6), (63, 5), (63, 8),
+        (127, 7), (128, 8))] == [24, 28, 32, 36, 40, 44, 40, 56, 60, 124, 128]
     rng = np.random.default_rng(5)
     q = torch.from_numpy(rng.uniform(-100, 100, (19, 3)).astype(np.float32))
     p = torch.from_numpy(rng.uniform(-100, 100, (19, 3)).astype(np.float32))

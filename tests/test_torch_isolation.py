@@ -83,7 +83,8 @@ def test_every_module_imports_without_jax_or_the_reference():
                 "obs.profile", "obs.timeline", "obs.torchrt", "obs.trace",
                 "obs.costs", "parallel", "parallel.mesh", "parallel.global_morton",
                 "parallel.ensemble", "parallel.global_exact", "parallel.global_tree",
-                "parallel.dsharded"):
+                "parallel.dsharded", "serve.spatial", "serve.pool", "serve.router",
+                "loadgen", "loadgen.schedule", "loadgen.runner"):
         assert f"kdtree_tpu_torch.{sub}" in mods, sub
     code = (
         "import importlib, sys\n"
@@ -96,6 +97,37 @@ def test_every_module_imports_without_jax_or_the_reference():
     )
     out = _run(code)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_fleet_modules_stand_alone_and_stay_off_the_device():
+    """In a fresh process: the router, the pool, the partitioner's
+    geometry and the load harness route a request over a CPU shard
+    without importing jax or the reference and without initializing
+    CUDA (their processes must hold no CUDA context)."""
+    code = (
+        "import json, sys, urllib.request\n"
+        "import numpy as np, torch\n"
+        "from kdtree_tpu_torch.serve import engine, server, router, spatial, pool\n"
+        "from kdtree_tpu_torch.loadgen import runner, schedule\n"
+        "st = engine.build_state(points=np.zeros((64, 3), np.float32), k=2, max_batch=8,"
+        " device='cpu')\n"
+        "shard = server.make_server(st, port=0); shard.start(warmup_buckets=[8])\n"
+        "url = f'http://127.0.0.1:{shard.server_address[1]}'\n"
+        "rt = router.make_router([url]); rt.start(health_loop=False)\n"
+        "req = urllib.request.Request(f'http://127.0.0.1:{rt.server_address[1]}/v1/knn',"
+        " data=json.dumps({'queries': [[0.0, 0.0, 0.0]]}).encode())\n"
+        "body = json.loads(urllib.request.urlopen(req, timeout=60).read())\n"
+        "assert body['ids'] == [[0, 1]], body\n"
+        "assert runner.discover(url, retries=3)['n'] == 64\n"
+        "rt.stop(); shard.stop()\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'kdtree_tpu' or m.startswith('kdtree_tpu.'))\n"
+        "assert not bad, bad\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "print('FLEET OK')\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0 and "FLEET OK" in out.stdout, out.stdout + out.stderr
 
 
 def test_public_surface_resolves_lazily():
