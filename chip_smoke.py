@@ -34,7 +34,13 @@ Phases, one line each (any failure raises and exits non-zero):
              cloud, a tie-heavy lattice, two row chunks per bucket, 4-byte
              copies (B % 4 != 0), k > 32, D > 8, D = 40 (window sums) and
              D = 1,100 (two levels of windows), each at 1 block per tile,
-             the planned count, and forced to 2 and 7;
+             the planned count, and forced to 2 and 7; then the merge alone
+             on seeded partial buffers: S = 1,024 at TQ = 8, k = 64 at
+             S = 256, a tie lattice whose survivors overflow the kernel's
+             shared capacity (the survivor count printed), slabs (a lattice
+             at k = 1,100, above the capacity) and rows with no full chunk,
+             each also held against the step-for-step mirror
+             ``merge_select``;
 4. main    — 2^24 x 3-D points (seed 42) -> Morton build (B=256) ->
              ServeEngine(k=16) with its warmup ladder 8..1024 -> served
              requests of 1, 7, 64, 1000 and 1024 rows and one brute-force
@@ -203,8 +209,8 @@ Phases, one line each (any failure raises and exits non-zero):
              launches per shard; (d) ensemble_knn's dense route (2^20
              queries over 2^24 points, equal to the single tree's) and
              fused route (10 queries), global-exact at 2^22 (tiled; its
-             DFS lane at 2^20, cut so the classic DFS's launches per step
-             stay near 15 s), the global tree at 2^20 (node for node build_jit's),
+             DFS lane at 2^18, cut so the classic DFS's launches per step
+             stay near 5 s), the global tree at 2^20 (node for node build_jit's),
              dsharded_knn at 2^16 x 128-D with 1,024 queries (equal to its
              column-block oracle; within 1e-5 relative of float64), each on
              four shards; (e) the CLI: ``--engine global-morton --devices 1
@@ -300,6 +306,14 @@ CLI_DENSE_Q = 1 << 16
 GOLDEN_SEEDS = (7, 42)
 SPLITS = (1, None, 2, 7)  # blocks per tile in phase 3: one, the planned count, forced
 MERGE_ERR = [0.0]  # the merge kernel's largest difference from the plain merge
+MERGE_CASES = (  # phase 3's merge-only cases: name, T, S, TQ, k, full share, spread
+    ("S=1024 at TQ=8 (the 7-row serve shape)", 1, 1024, 8, 16, 0.05, 0.05),
+    ("k=64 at S=256", 1, 256, 8, 64, 0.1, 0.1),
+    ("tie lattice past the shared capacity", 1, 512, 2, 16, 1.0, None),
+    ("tie lattice at k=1100, above the capacity (slabs)", 1, 2, 8, 1100, 1.0, None),
+    ("no full chunk (w = +inf), rows with fewer than k finite", 2, 2, 8, 32, 0.0, 0.0),
+)
+MERGE_GRAPH_LAUNCHES = 20  # merge launches per captured CUDA graph in time_shape
 SERVE_CLIENTS = 8  # phase 7's concurrent HTTP clients
 SERVE_DELTA_ROWS = 256  # phase 7's epoch-rebuild backlog
 SERVE_NEW = 164  # new ids phase 7 upserts: 64 beside queries, 100 to cross the backlog
@@ -337,7 +351,7 @@ FOREST_N = 1 << 24  # phase 12c: four shards on one card
 FOREST_Q = 1 << 20
 FOREST_SHARDS = 4
 EXACT_N = 1 << 22  # phase 12d: global-exact (build and tiled lane)
-EXACT_DFS_N = 1 << 20  # its DFS lane: the classic DFS's launches per step cost ~75 s at 2^22
+EXACT_DFS_N = 1 << 18  # its DFS lane: launches per step cost ~75 s at 2^22, ~21 s at 2^20
 GTREE_N = 1 << 20  # global-tree
 DSHARD_N, DSHARD_D, DSHARD_Q = 1 << 16, 128, 1024  # dsharded_knn
 FOREST_CPU_N = 1 << 16  # 12e: the CPU-built 8-shard checkpoint
@@ -475,6 +489,67 @@ def kernel_run(tree, tq, cand, lb, k, splits, visited=None):
     return kd, ki, S
 
 
+def synthetic_partials(rng, T, S, TQ, k, full, spread, dev):
+    """Seeded partial buffers pd f32[T, S, TQ, k], pi i32[T, S, TQ, k] as
+    the scan kernel leaves them: each chunk's buffer ascending, a ``full``
+    share of the chunks holding k entries and the rest 0..k-1, unfilled
+    slots (+inf, -1); chunk s's d2 uniform in [s spread, s spread + 10), as
+    chunks later in the lb order lie farther, or on the lattice {0, 1, 2,
+    3} when ``spread`` is None."""
+    import torch
+
+    n = np.where(rng.random((T, S, TQ)) < full, k, rng.integers(0, k, (T, S, TQ)))
+    if spread is None:
+        v = rng.integers(0, 4, (T, S, TQ, k)).astype(np.float32)
+    else:
+        v = (rng.random((T, S, TQ, k)) * 10
+             + np.arange(S)[:, None, None] * spread).astype(np.float32)
+    filled = np.arange(k) < n[..., None]
+    d = np.where(filled, np.sort(v, -1), np.inf).astype(np.float32)
+    i = np.where(filled, rng.integers(0, 1 << 30, (T, S, TQ, k)), -1).astype(np.int32)
+    return torch.from_numpy(d).to(dev), torch.from_numpy(i).to(dev)
+
+
+def merge_only(dev):
+    """The merge kernel alone on ``MERGE_CASES``, bit for bit against the
+    plain merge and the mirror at the kernel's capacity (its launches
+    count, but phase 3 runs before the counts are zeroed). Returns the
+    lines to print."""
+    import torch
+
+    from kdtree_tpu_torch.kernels.scan_knn import merge_capacity, merge_partials
+    from kdtree_tpu_torch.ops import tile_query as tqm
+
+    rng = np.random.default_rng(SEED)
+    lines = []
+    for name, T, S, TQ, k, full, spread in MERGE_CASES:
+        pd, pi = synthetic_partials(rng, T, S, TQ, k, full, spread, dev)
+        kd, ki = merge_partials(pd, pi)
+        md, mi = tqm.merge_partials(pd, pi)
+        used = merge_capacity(S)
+        # the mirror's many small steps run on the host copy
+        sd, si, surv, over = tqm.merge_select(pd.cpu(), pi.cpu(), used)
+        torch.cuda.synchronize()
+        assert torch.equal(kd, md) and torch.equal(ki, mi), f"merge kernel != plain: {name}"
+        assert torch.equal(sd, md.cpu()) and torch.equal(si, mi.cpu()), f"mirror != plain: {name}"
+        fin = torch.isfinite(md)
+        if fin.any():
+            MERGE_ERR[0] = max(MERGE_ERR[0], float((kd[fin] - md[fin]).abs().max()))
+        rows_over = int((surv > used).sum())
+        if spread is None:
+            assert rows_over > 0, f"{name}: the survivors never passed the capacity"
+        if k > used:
+            assert bool((over >= 2).all()), f"{name}: a row was answered in one slab"
+        if full == 0.0:
+            assert not torch.isfinite(md).all(), f"{name}: no row came out short of k"
+        lines.append(f"merge only, {name} (T={T} S={S} TQ={TQ} k={k}): bit-equal to the plain "
+                     f"merge and the mirror; survivors per row {int(surv.min())}-"
+                     f"{int(surv.max())} against a capacity of {used} keys, {rows_over} of "
+                     f"{T * TQ} rows past it, {int(over.sum())} radix-select slabs; pads "
+                     f"{int((~fin).sum())}")
+    return lines
+
+
 def collect_inputs(tree, tq, kk, seeds, cap, grow=False):
     """The collect pass's inputs for tiles tq, bounded by a plain seed pass.
     ``grow`` doubles the cap until the frontier holds every candidate, as
@@ -576,6 +651,8 @@ def phase_kernel(dev):
                           f"B={tree.bucket_size}, early exits in {exits} tiles)")
             if name == "clustered" and S == 1:
                 assert exits > 0, "the clustered case never took the early exit"
+    for line in merge_only(dev):
+        say("kernel", line)
     return max_err
 
 
@@ -648,6 +725,36 @@ def sweep_splits(tree, tq, cand, lb, kk, planned, want, reps):
     return out
 
 
+def topk_merge(pd, pi):
+    """The merge as one library call: ``torch.topk(largest=False)`` over the
+    same [T, TQ, S k] view as the plain merge, and a gather of the ids (the
+    same k distances; ties may take other ids). Timed, never called by the
+    port."""
+    import torch
+
+    T, S, TQ, k = pd.shape
+    dd = pd.permute(0, 2, 1, 3).reshape(T, TQ, S * k)
+    ii = pi.permute(0, 2, 1, 3).reshape(T, TQ, S * k)
+    v, idx = torch.topk(dd, k, dim=-1, largest=False, sorted=True)
+    return v, torch.gather(ii, -1, idx)
+
+
+def graph_ms(fn, launches, reps):
+    """Device ms of one ``fn()``: ``launches`` calls captured in one CUDA
+    graph, replayed ``reps`` times (no host work between the launches)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(launches):
+            fn()
+    ms = cuda_ms(g.replay, reps) / launches
+    del g
+    return ms
+
+
 def time_shape(name, tree, tq, cand, lb, kk, plain_v, reps, plain_reps=0, sweep=False):
     """Kernel(s) vs plain version on one collect-pass batch, bit for bit,
     then timed (CUDA events), beside the input-defined bound; ``sweep``
@@ -670,8 +777,24 @@ def time_shape(name, tree, tq, cand, lb, kk, plain_v, reps, plain_reps=0, sweep=
         parts = scan_partials(tree, tq, cand, lb, kk)
         rec["merge_ms"] = cuda_ms(lambda: merge_partials(*parts), reps)
         rec["merge_plain_ms"] = cuda_ms(lambda: tqm.merge_partials(*parts), reps)
-        # the merge reads every partial buffer once and writes the answer
-        rec["merge_bound_ms"] = (parts[0].numel() * 8 + T * tq.shape[1] * kk * 8) \
+        rec["merge_topk_ms"] = cuda_ms(lambda: topk_merge(*parts), reps)
+        rec["merge_graph_ms"] = graph_ms(lambda: merge_partials(*parts), MERGE_GRAPH_LAUNCHES,
+                                         reps)
+        rec["merge_topk_graph_ms"] = graph_ms(lambda: topk_merge(*parts), MERGE_GRAPH_LAUNCHES,
+                                              reps)
+        tv, _ = topk_merge(*parts)
+        assert torch.equal(tv, kd), f"torch.topk's distances differ from the merge at {name}"
+        keys, hi, surv = tqm.merge_survivors(parts[0])
+        rec["merge_survivors_max"] = int(surv.max())
+        # what this data needs: each chunk's k-th word, the other survivors'
+        # d2 (a surviving k-th is one of those words), the winners' ids and
+        # the answer written
+        kth_surv = int((keys[..., -1] <= hi[:, None]).sum())
+        words = keys.shape[0] * keys.shape[1] + int(surv.sum()) - kth_surv \
+            + int(torch.isfinite(kd).sum()) + 2 * kd.numel()
+        rec["merge_bound_ms"] = words * 4 / HBM_BYTES_PER_S * 1e3
+        # every partial buffer read once and the answer written
+        rec["merge_bound_all_bytes_ms"] = (parts[0].numel() * 8 + kd.numel() * 8) \
             / HBM_BYTES_PER_S * 1e3
     if plain_reps:
         rec["plain_ms"] = cuda_ms(lambda: tqm._scan_tiles(tree, tq, cand, lb, kk, plain_v, T),
@@ -685,6 +808,14 @@ def time_shape(name, tree, tq, cand, lb, kk, plain_v, reps, plain_reps=0, sweep=
                   f"reads needed); tile-level bound {rec['tile_bound_ms']:.4f} ms "
                   f"({rec['tile_bound_by']}, {rec['tile_need']} buckets)"
                   + (f", plain {rec['plain_ms']:.2f} ms" if plain_reps else ""))
+    if S > 1:
+        say("kernel", f"{name}: merge {rec['merge_ms']:.4f} ms ({rec['merge_graph_ms']:.4f} "
+                      f"a launch in a CUDA graph), torch.topk + gather {rec['merge_topk_ms']:.4f} "
+                      f"ms ({rec['merge_topk_graph_ms']:.4f} in a graph), plain stable sort "
+                      f"{rec['merge_plain_ms']:.4f} ms, bound {rec['merge_bound_ms']:.6f} ms "
+                      f"(bytes the data needs; {rec['merge_bound_all_bytes_ms']:.4f} with every "
+                      f"partial buffer read once), up to {rec['merge_survivors_max']} survivors "
+                      f"a row")
     if sweep:
         rec["sweep"] = sweep_splits(tree, tq, cand, lb, kk, S, (pd, pi), 5)
         say("kernel", f"{name}: ms by blocks per tile (planned {S}): "
@@ -4138,7 +4269,8 @@ def print_record(kind, smi, launches, merges, max_err, main_rec, sparse):
         "plain_ms": sparse["merge_plain_ms"],
         "bound_ms": sparse["merge_bound_ms"],
         "bound_by": "bytes",
-        "library_ms": None,
+        "library_ms": sparse["merge_topk_ms"],
+        "bound_all_bytes_ms": sparse["merge_bound_all_bytes_ms"],
     }]}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

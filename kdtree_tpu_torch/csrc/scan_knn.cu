@@ -27,14 +27,15 @@
 //    contiguous range of the tile's candidate list into a partial top-k
 //    per query. scan_knn_merge_kernel then keeps, per query, the k
 //    smallest partial entries by (d2, chunk), which is (d2, position): the
-//    sequential walk's answer. The chunks of a tile share a per-query
-//    bound q_worst[t, q] (float bits, lowered with atomicMin): once chunk s'
-//    holds k entries <= w for query q, no point with d2 > w can enter q's
-//    answer, whatever its position. A chunk therefore skips a bucket for q
-//    when its bound is >= q's own k-th or > q_worst (strictly: an equal
-//    point in an earlier chunk would win the tie), and stops when that
-//    holds for every query at the next lb. The answer does not depend on
-//    timing; how far each chunk gets does.
+//    sequential walk's answer, through a threshold from the chunks' k-th
+//    entries and a block-parallel select (the merge's own note below). The
+//    chunks of a tile share a per-query bound q_worst[t, q] (float bits,
+//    lowered with atomicMin): once chunk s' holds k entries <= w for query
+//    q, no point with d2 > w can enter q's answer, whatever its position.
+//    A chunk therefore skips a bucket for q when its bound is >= q's own
+//    k-th or > q_worst (strictly: an equal point in an earlier chunk would
+//    win the tie), and stops when that holds for every query at the next
+//    lb. The answer does not depend on timing; how far each chunk gets does.
 // 2. Staged buckets. A ring of kStages stages in shared memory, each one
 //    bucket (or a row chunk of one, when B * (D + 1) * 4 exceeds the stage
 //    budget). One thread issues each stage as two 1-D bulk copies
@@ -588,125 +589,255 @@ __global__ void __launch_bounds__(kMaxThreads) scan_knn_kernel(const ScanArgs a)
   if (a.visited != nullptr && tid == 0 && nvis > 0) atomicAdd(a.visited + t, nvis);
 }
 
-// One warp per (tile, query): the k smallest of the S partial buffers by
-// (d2, chunk). Lane l folds chunks l, l + 32, ... in order with the strict
-// insert (so an earlier chunk keeps a tie), then the warp pops the
-// smallest (d2, chunk) head k times. KB == 0 (k > 32): lane 0 folds every
-// chunk into the output row.
-constexpr int kMergeWarps = 4;
+// ---- the merge: one block per (tile, query) row ----
+//
+// The k smallest entries of the row's S partial buffers by (d2, chunk, rank
+// in chunk), which is the order of one walk over the whole list. Each entry
+// is one 64-bit key, (float bits of d2) << 32 | (s k + e): d2 >= 0 (or +inf),
+// so its bits order as unsigned ints, the position part breaks ties as the
+// stable sort does, and the keys of a row are distinct. Within a chunk the
+// keys ascend (its buffer is ascending), so a walk that passes a bound stops.
+//
+// 1. Threshold. w = the least k-th entry over the chunks. The chunk that holds
+//    it has k entries <= w, so the row's k-th smallest d2 is <= w and no entry
+//    with d2 > w can be in the answer; an entry equal to w can (the position
+//    breaks the tie), so it is kept. If no chunk is full, w = +inf and the
+//    candidates are the finite entries; an unfilled slot of a partial buffer
+//    is (+inf, -1), and the answer's unfilled slots are (+inf, -1) too.
+// 2. Survivors. The block's threads walk the chunks (chunk s by thread
+//    s mod blockDim), each ascending until its key passes the bound, and
+//    append the keys to shared memory through a block counter, one atomic
+//    per warp and step. Chunks that stopped early on the shared bound hold
+//    +inf beyond their first entries, so few keys survive.
+// 3. Select. The rank of each survivor among the others (a thread a key,
+//    when they are no more than the threads), else a bitonic sort of them
+//    in shared memory; ranks below k are the answer. The ids are read back
+//    from the winners' positions.
+// 4. Exact overflow. When more keys survive than shared memory holds (cap),
+//    a radix select over the keys, 8 bits a pass from the top, each pass a
+//    walk bounded by the digits fixed so far, finds the key of rank
+//    min(k, cap); the keys up to it are collected and sorted. For k > cap
+//    the answer is taken in slabs of cap keys, each above the last.
+//
+// What bounds it: the loads. Pass 1 reads one word of every chunk (S
+// scattered words a row), pass 2 a chunk's entries up to the bound, mostly
+// one. The bound counts what the data needs: the S k-th words, the
+// survivors' d2, the winners' ids and the answer, over the device memory
+// rate; reading every partial buffer once would be far more.
+// The blocks are one per row, of the chunks' count in threads (a power of
+// two, 32..1,024), halved while the rows' threads would not all fit on the
+// card at once: the 7-row serve shape (8 rows, S = 1,024) runs 8 blocks of
+// 1,024 threads, the 1,000-row one (1,024 rows, S = 512) 1,024 blocks of
+// 256.
+constexpr int kMergeMaxThreads = 1024;
+constexpr unsigned kInfU = 0x7f800000u;
 
-template <int KB>
-__global__ void __launch_bounds__(kMergeWarps * 32)
-    scan_knn_merge_kernel(const float* __restrict__ pd, const int* __restrict__ pi,
-                          float* __restrict__ out_d, int* __restrict__ out_i, long long rows,
-                          int S, int TQ, int k) {
-  const long long row = static_cast<long long>(blockIdx.x) * kMergeWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;  // the whole warp
-  const long long t = row / TQ;
-  const long long q = row - t * TQ;
-  float* od = out_d + row * k;
-  int* oi = out_i + row * k;
-  if (KB == 0) {
-    if (lane != 0) return;
-    for (int j = 0; j < k; ++j) {
-      od[j] = INFINITY;
-      oi[j] = -1;
+struct MergeSmem {
+  unsigned long long* keys;  // [cap rounded up to a power of two]
+  unsigned* hist;            // [256]
+  unsigned* word;            // [4]: w bits, counter, digit, rank
+};
+
+__device__ __forceinline__ unsigned long long merge_key(float v, unsigned pos) {
+  return (static_cast<unsigned long long>(__float_as_uint(v)) << 32) | pos;
+}
+
+// The walk over the row's entries: chunk s by thread s mod blockDim, each
+// chunk ascending until its key passes hi. The lanes of a warp step
+// together, so f(key, ok) is called by the whole warp at each step, ok for
+// a lane whose entry lies in [lo, hi]; a warp stops when all its chunks
+// have. Every thread calls it.
+template <typename F>
+__device__ __forceinline__ void merge_walk(const float* rd, long long cstride, int S, int k,
+                                           unsigned long long lo, unsigned long long hi, F f) {
+  for (int s0 = 0; s0 < S; s0 += blockDim.x) {
+    const int s = s0 + threadIdx.x;
+    const float* c = rd + s * cstride;  // read only while s < S
+    const unsigned base = static_cast<unsigned>(s) * static_cast<unsigned>(k);
+    bool alive = s < S;
+    for (int e = 0; e < k; ++e) {
+      unsigned long long key = 0;
+      if (alive) {
+        key = merge_key(c[e], base + static_cast<unsigned>(e));
+        alive = key <= hi;
+      }
+      if (!__any_sync(kFull, alive)) break;
+      f(key, alive && key >= lo);
     }
-    float kth = INFINITY;
-    for (int s = 0; s < S; ++s) {
-      const long long src = ((t * S + s) * TQ + q) * k;
-      for (int e = 0; e < k; ++e) {
-        const float v = pd[src + e];
-        if (!(v < kth)) break;
-        insert_mem(od, oi, kth, k, v, pi[src + e]);
+  }
+}
+
+// The keys with lo <= key <= hi into sm.keys (the first cap of them), one
+// counter atomic per warp and step; returns how many there are. Every
+// thread calls it.
+__device__ __forceinline__ unsigned merge_collect(const MergeSmem& sm, const float* rd,
+                                                  long long cstride, int S, int k, int cap,
+                                                  unsigned long long lo, unsigned long long hi) {
+  const unsigned lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) sm.word[1] = 0;
+  __syncthreads();
+  merge_walk(rd, cstride, S, k, lo, hi, [&](unsigned long long key, bool ok) {
+    const unsigned m = __ballot_sync(kFull, ok);
+    if (m == 0) return;
+    const int lead = __ffs(m) - 1;
+    unsigned i = 0;
+    if (lane == static_cast<unsigned>(lead)) i = atomicAdd(&sm.word[1], __popc(m));
+    i = __shfl_sync(kFull, i, lead) + __popc(m & ((1u << lane) - 1));
+    if (ok && i < static_cast<unsigned>(cap)) sm.keys[i] = key;
+  });
+  __syncthreads();
+  return sm.word[1];
+}
+
+// The key of rank r (1-based) among the keys in [lo, hi] (r <= their count).
+__device__ unsigned long long merge_radix_select(const MergeSmem& sm, const float* rd,
+                                                 long long cstride, int S, int k,
+                                                 unsigned long long lo, unsigned long long hi,
+                                                 unsigned r) {
+  const int tid = threadIdx.x;
+  unsigned long long prefix = 0;
+  for (int shift = 56; shift >= 0; shift -= 8) {
+    // the keys whose bits above shift + 8 equal the prefix's
+    const unsigned long long below = shift == 56 ? ~0ull : (1ull << (shift + 8)) - 1;
+    const unsigned long long plo = max(lo, prefix & ~below);
+    const unsigned long long phi = min(hi, prefix | below);
+    for (int i = tid; i < 256; i += blockDim.x) sm.hist[i] = 0;
+    __syncthreads();
+    merge_walk(rd, cstride, S, k, plo, phi, [&](unsigned long long key, bool ok) {
+      if (ok) atomicAdd(&sm.hist[(key >> shift) & 255u], 1u);
+    });
+    __syncthreads();
+    if (tid < 32) {  // warp 0: the digit where the running count reaches r
+      unsigned part[8];
+      unsigned sum = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        part[j] = sm.hist[tid * 8 + j];
+        sum += part[j];
+      }
+      unsigned incl = sum;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const unsigned o = __shfl_up_sync(kFull, incl, off);
+        if (tid >= off) incl += o;
+      }
+      const unsigned hit = __ballot_sync(kFull, incl >= r);
+      if (tid == __ffs(hit) - 1) {
+        unsigned cum = incl - sum;
+        int j = 0;
+        while (j < 7 && cum + part[j] < r) cum += part[j++];
+        sm.word[2] = static_cast<unsigned>(tid * 8 + j);
+        sm.word[3] = r - cum;
       }
     }
-    return;
+    __syncthreads();
+    prefix |= static_cast<unsigned long long>(sm.word[2]) << shift;
+    r = sm.word[3];
   }
-  // top-aligned buffers as in insert_reg, the entries' chunks in bs
-  constexpr int NB = KB > 0 ? KB : 1;
-  float bd[NB];
-  int bi[NB];
-  int bs[NB];
-#pragma unroll
-  for (int j = 0; j < NB; ++j) {
-    bd[j] = j < NB - k ? -INFINITY : INFINITY;
-    bi[j] = -1;
-    bs[j] = 0x7fffffff;
-  }
-  float kth = INFINITY;
-  for (int s = lane; s < S; s += 32) {
-    const long long src = ((t * S + s) * TQ + q) * k;
-    for (int e = 0; e < k; ++e) {
-      const float v = pd[src + e];
-      if (!(v < kth)) break;
-      const int g = pi[src + e];
-      bool placed = false;
-#pragma unroll
-      for (int j = NB - 1; j > 0; --j) {
-        if (!placed) {
-          if (bd[j - 1] > v) {
-            bd[j] = bd[j - 1];
-            bi[j] = bi[j - 1];
-            bs[j] = bs[j - 1];
-          } else {
-            bd[j] = v;
-            bi[j] = g;
-            bs[j] = s;
-            placed = true;
-          }
+  return prefix;
+}
+
+// Ascending bitonic sort of sm.keys[0, n), padded to a power of two.
+__device__ __forceinline__ void merge_sort(const MergeSmem& sm, unsigned n) {
+  unsigned P = 1;
+  while (P < n) P <<= 1;
+  for (unsigned i = n + threadIdx.x; i < P; i += blockDim.x) sm.keys[i] = ~0ull;
+  __syncthreads();
+  for (unsigned size = 2; size <= P; size <<= 1) {
+    for (unsigned stride = size >> 1; stride > 0; stride >>= 1) {
+      for (unsigned i = threadIdx.x; i < P / 2; i += blockDim.x) {
+        const unsigned a = 2 * i - (i & (stride - 1));
+        const unsigned b = a + stride;
+        const unsigned long long x = sm.keys[a];
+        const unsigned long long y = sm.keys[b];
+        if ((x > y) == ((a & size) == 0)) {
+          sm.keys[a] = y;
+          sm.keys[b] = x;
         }
       }
-      if (!placed) {
-        bd[0] = v;
-        bi[0] = g;
-        bs[0] = s;
-      }
-      kth = bd[NB - 1];
+      __syncthreads();
     }
   }
-  // bring the k entries down to slots 0..k-1 (constant indices only)
-  for (int r = k; r < NB; ++r) {
-#pragma unroll
-    for (int j = 0; j + 1 < NB; ++j) {
-      bd[j] = bd[j + 1];
-      bi[j] = bi[j + 1];
-      bs[j] = bs[j + 1];
+}
+
+__global__ void __launch_bounds__(kMergeMaxThreads)
+    scan_knn_merge_kernel(const float* __restrict__ pd, const int* __restrict__ pi,
+                          float* __restrict__ out_d, int* __restrict__ out_i, int S, int TQ,
+                          int k, int cap) {
+  extern __shared__ __align__(16) unsigned char merge_smem[];
+  __shared__ unsigned hist[256];
+  __shared__ unsigned word[4];
+  MergeSmem sm;
+  sm.keys = reinterpret_cast<unsigned long long*>(merge_smem);
+  sm.hist = hist;
+  sm.word = word;
+
+  const int tid = threadIdx.x;
+  const long long row = blockIdx.x;
+  const long long t = row / TQ;
+  const long long q = row - t * TQ;
+  const long long cstride = static_cast<long long>(TQ) * k;  // chunk s+1 minus chunk s
+  const float* rd = pd + (t * S * TQ + q) * k;
+  const int* ri = pi + (t * S * TQ + q) * k;
+  float* od = out_d + row * k;
+  int* oi = out_i + row * k;
+
+  // 1. the threshold w: the least k-th entry
+  if (tid == 0) word[0] = kInfU;
+  __syncthreads();
+  unsigned m = kInfU;
+  for (int s = tid; s < S; s += blockDim.x) m = min(m, __float_as_uint(rd[s * cstride + k - 1]));
+  m = __reduce_min_sync(kFull, m);
+  if ((tid & 31) == 0) atomicMin(&word[0], m);
+  __syncthreads();
+  const unsigned wb = word[0];
+  const unsigned long long hi = wb < kInfU ? (static_cast<unsigned long long>(wb) << 32) | 0xffffffffull
+                                           : (static_cast<unsigned long long>(kInfU) << 32) - 1;
+
+  // 2-4. survivors, select; slabs of at most cap keys while k > cap
+  int done = 0;
+  unsigned long long lo = 0;
+  while (done < k) {
+    unsigned n = merge_collect(sm, rd, cstride, S, k, cap, lo, hi);
+    const bool over = n > static_cast<unsigned>(cap);
+    unsigned long long top = hi;
+    if (over) {
+      const unsigned want = static_cast<unsigned>(min(k - done, cap));
+      top = merge_radix_select(sm, rd, cstride, S, k, lo, hi, want);
+      n = merge_collect(sm, rd, cstride, S, k, cap, lo, top);  // exactly want keys
     }
-    bd[NB - 1] = INFINITY;
-    bi[NB - 1] = -1;
-    bs[NB - 1] = 0x7fffffff;
+    if (n == 0) break;
+    const unsigned take = min(n, static_cast<unsigned>(k - done));
+    // slot j of the slab gets the key of rank j: the d2 from its bits, the
+    // id read back from its position
+    auto put = [&](unsigned j, unsigned long long key) {
+      const unsigned pos = static_cast<unsigned>(key);
+      const unsigned s = pos / static_cast<unsigned>(k);
+      const unsigned e = pos - s * static_cast<unsigned>(k);
+      od[done + j] = __uint_as_float(static_cast<unsigned>(key >> 32));
+      oi[done + j] = ri[s * cstride + e];
+    };
+    if (n <= blockDim.x) {
+      // a key a thread: its rank is the count of smaller keys (the keys
+      // are distinct), read as one broadcast per key, with no barrier
+      if (static_cast<unsigned>(tid) < n) {
+        const unsigned long long key = sm.keys[tid];
+        unsigned r = 0;
+        for (unsigned j = 0; j < n; ++j) r += sm.keys[j] < key;
+        if (r < take) put(r, key);
+      }
+    } else {
+      merge_sort(sm, n);
+      for (unsigned j = tid; j < take; j += blockDim.x) put(j, sm.keys[j]);
+    }
+    done += static_cast<int>(take);
+    __syncthreads();  // the keys are read before the next slab rewrites them
+    if (!over) break;  // every candidate was taken, or k reached
+    lo = top + 1;
   }
-  for (int e = 0; e < k; ++e) {
-    // the warp's smallest head by (d2, chunk); d2 >= 0, so its bits order
-    // as unsigned ints, and +inf heads carry chunk 0x7fffffff
-    uint32_t hd = __float_as_uint(bd[0]);
-    uint32_t hs = static_cast<uint32_t>(bs[0]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const uint32_t od2 = __shfl_xor_sync(kFull, hd, off);
-      const uint32_t os = __shfl_xor_sync(kFull, hs, off);
-      if (od2 < hd || (od2 == hd && os < hs)) {
-        hd = od2;
-        hs = os;
-      }
-    }
-    const bool mine = __float_as_uint(bd[0]) == hd && static_cast<uint32_t>(bs[0]) == hs;
-    const uint32_t who = __ballot_sync(kFull, mine);
-    if (mine && lane == __ffs(who) - 1) {
-      od[e] = bd[0];
-      oi[e] = bi[0];
-#pragma unroll
-      for (int j = 0; j + 1 < NB; ++j) {
-        bd[j] = bd[j + 1];
-        bi[j] = bi[j + 1];
-        bs[j] = bs[j + 1];
-      }
-      bd[NB - 1] = INFINITY;
-      bi[NB - 1] = -1;
-      bs[NB - 1] = 0x7fffffff;
-    }
+  for (int j = done + tid; j < k; j += blockDim.x) {
+    od[j] = INFINITY;
+    oi[j] = -1;
   }
 }
 
@@ -736,6 +867,14 @@ int launch_scan_dc(const ScanArgs& a, dim3 grid, int threads, size_t smem,
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+// The threads of a merge block before the card's limit halves them: the
+// chunks, rounded up to a power of two, 32..1,024.
+int merge_threads(int S) {
+  int threads = 32;
+  while (threads < S && threads < kMergeMaxThreads) threads <<= 1;
+  return threads;
+}
 
 }  // namespace
 
@@ -792,33 +931,40 @@ extern "C" int scan_knn_launch(const void* tq, const void* cand, const void* lb,
   return launch_scan_dc<0>(a, grid, threads, smem, st);
 }
 
+// The merge's shared capacity in keys for S chunks: 4 a thread of the
+// unhalved block, at least 1,024. More survivors take the radix select,
+// and k above it the slabs.
+extern "C" int scan_knn_merge_capacity(int S) { return max(1024, 4 * merge_threads(S)); }
+
 // pd f32[T, S, TQ, k], pi i32[T, S, TQ, k] ascending partials ->
-// out_d f32[T, TQ, k], out_i i32[T, TQ, k]. Returns the launch's CUDA error.
+// out_d f32[T, TQ, k], out_i i32[T, TQ, k]. S k <= 2^32 (the keys' position
+// part), T TQ < 2^31 (one block per row). Returns the launch's CUDA error.
 extern "C" int scan_knn_merge_launch(const void* pd, const void* pi, void* out_d, void* out_i,
                                      int T, int S, int TQ, int k, void* stream) {
   const long long rows = static_cast<long long>(T) * TQ;
   if (rows <= 0) return 0;
-  const dim3 grid(static_cast<unsigned>((rows + kMergeWarps - 1) / kMergeWarps));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* d = static_cast<const float*>(pd);
-  const int* i = static_cast<const int*>(pi);
-  float* o = static_cast<float*>(out_d);
-  int* oi = static_cast<int*>(out_i);
-  const int th = kMergeWarps * 32;
-  if (k <= 1) {
-    scan_knn_merge_kernel<1><<<grid, th, 0, st>>>(d, i, o, oi, rows, S, TQ, k);
-  } else if (k <= 2) {
-    scan_knn_merge_kernel<2><<<grid, th, 0, st>>>(d, i, o, oi, rows, S, TQ, k);
-  } else if (k <= 4) {
-    scan_knn_merge_kernel<4><<<grid, th, 0, st>>>(d, i, o, oi, rows, S, TQ, k);
-  } else if (k <= 8) {
-    scan_knn_merge_kernel<8><<<grid, th, 0, st>>>(d, i, o, oi, rows, S, TQ, k);
-  } else if (k <= 16) {
-    scan_knn_merge_kernel<16><<<grid, th, 0, st>>>(d, i, o, oi, rows, S, TQ, k);
-  } else if (k <= 32) {
-    scan_knn_merge_kernel<32><<<grid, th, 0, st>>>(d, i, o, oi, rows, S, TQ, k);
-  } else {
-    scan_knn_merge_kernel<0><<<grid, th, 0, st>>>(d, i, o, oi, rows, S, TQ, k);
+  // halved while the grid's threads exceed what the card holds at once
+  int threads = merge_threads(S);
+  const int cap = scan_knn_merge_capacity(S);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxThreadsPerMultiProcessor, dev);
   }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  while (threads > 32 && rows * threads > static_cast<long long>(sms) * per_sm) threads >>= 1;
+  size_t keys = 1;
+  while (keys < static_cast<size_t>(cap)) keys <<= 1;
+  const size_t smem = keys * sizeof(unsigned long long);
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(scan_knn_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  scan_knn_merge_kernel<<<static_cast<unsigned>(rows), threads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pd), static_cast<const int*>(pi), static_cast<float*>(out_d),
+      static_cast<int*>(out_i), S, TQ, k, cap);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,9 +9,9 @@ version, because that is where the tensor lies. The scan kernel replaces
 the TPU kernel ``kdtree_tpu/pallas/scan_knn.py::_scan_kernel``; it splits
 each tile's candidate list over ``S`` blocks, and :func:`merge_partials`
 (the merge kernel, plain version
-:func:`kdtree_tpu_torch.ops.tile_query.merge_partials`) joins their partial
-buffers. Both agree with their plain versions bit for bit on distances and
-ids.
+:func:`kdtree_tpu_torch.ops.tile_query.merge_partials`, step-for-step
+mirror ``tile_query.merge_select``) joins their partial buffers. Both
+agree with their plain versions bit for bit on distances and ids.
 
 ``scan_tiles.launches`` and ``merge_partials.launches`` count kernel
 launches (plain integers), so a run can show that its main path went
@@ -43,6 +43,8 @@ _INF_BITS = 0x7F800000
 
 _SCAN_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _MERGE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_MAX_MERGE_POSITIONS = 1 << 32  # the merge key's position part: s k + e
+_MAX_MERGE_ROWS = (1 << 31) - 1  # one block per row, the grid's x extent
 
 
 def _check(name, x, dtype, shape, device):
@@ -78,12 +80,25 @@ def _lib(name_fn: str, argtypes):
     return fn
 
 
+def merge_capacity(S: int) -> int:
+    """The merge kernel's shared capacity in keys at S chunks, as its
+    launcher computes it (``scan_knn_merge_capacity``; builds the kernel).
+    More survivors than this take the exact radix-select path, and k above
+    it the slabs."""
+    return int(_lib("scan_knn_merge_capacity", [ctypes.c_int])(S))
+
+
+@functools.lru_cache(maxsize=None)
+def _merge_fn():
+    return _lib("scan_knn_merge_launch", _MERGE_ARGTYPES)
+
+
 def merge_partials(pd: torch.Tensor, pi: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Join per-chunk partial buffers pd f32[T, S, TQ, k], pi i32[T, S, TQ, k]
     into (d2 f32[T, TQ, k], gid i32[T, TQ, k]), the k smallest by (d2,
-    chunk). CUDA tensors launch the merge kernel; CPU tensors run the plain
-    version."""
+    chunk, rank in chunk). CUDA tensors launch the merge kernel; CPU
+    tensors run the plain version."""
     dev = pd.device
     if dev.type == "cpu":
         return tile_query.merge_partials(pd, pi)
@@ -92,12 +107,18 @@ def merge_partials(pd: torch.Tensor, pi: torch.Tensor
     T, S, TQ, k = pd.shape
     _check("pd", pd, torch.float32, (T, S, TQ, k), dev)
     _check("pi", pi, torch.int32, (T, S, TQ, k), dev)
+    if S < 1 or k < 1:
+        raise ValueError(f"the merge takes S >= 1 chunks of k >= 1 entries, got S={S}, k={k}")
+    if S * k > _MAX_MERGE_POSITIONS:
+        raise ValueError(f"S * k = {S * k} entries a row overflow the merge key's "
+                         f"32-bit position")
+    if T * TQ > _MAX_MERGE_ROWS:
+        raise ValueError(f"{T * TQ} rows exceed the merge grid's {_MAX_MERGE_ROWS}")
     out_d = torch.empty((T, TQ, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((T, TQ, k), dtype=torch.int32, device=dev)
-    fn = _lib("scan_knn_merge_launch", _MERGE_ARGTYPES)
     with torch.cuda.device(dev):  # the launch goes to the current device
-        err = fn(pd.data_ptr(), pi.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-                 T, S, TQ, k, torch.cuda.current_stream(dev).cuda_stream)
+        err = _merge_fn()(pd.data_ptr(), pi.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+                          T, S, TQ, k, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"scan_knn merge kernel launch failed with CUDA error {err}")
     if T * TQ > 0:  # the launcher launches nothing for no rows

@@ -218,6 +218,92 @@ def merge_partials(d, i):
             torch.gather(ii, -1, order[..., :k]).contiguous())
 
 
+_INF_BITS = 0x7F800000
+
+
+def _merge_walk(keys, lo: int, hi: int):
+    """The merge kernel's walk over one row's keys [S, k]: each chunk
+    ascending until its key passes ``hi``; the walked keys >= ``lo``."""
+    walked = (keys <= hi).to(torch.int8).cumprod(1).bool()
+    return keys[walked & (keys >= lo)]
+
+
+def _merge_radix_select(keys, lo: int, hi: int, r: int) -> int:
+    """The key of rank ``r`` (1-based) among the row's walked keys in [lo,
+    hi], 8 bits a pass from the top, each pass's walk bounded by the digits
+    fixed so far, as the kernel's radix select."""
+    prefix = 0
+    for shift in range(56, -1, -8):
+        below = (1 << (shift + 8)) - 1
+        cand = _merge_walk(keys, max(lo, prefix & ~below), min(hi, prefix | below))
+        hist = torch.bincount(((cand >> shift) & 255), minlength=256).tolist()
+        cum, digit = 0, 0
+        while cum + hist[digit] < r:
+            cum += hist[digit]
+            digit += 1
+        prefix |= digit << shift
+        r -= cum
+    return prefix
+
+
+def merge_survivors(d):
+    """Per row of the merge, the keys up to its threshold: d f32[T, S, TQ,
+    k] -> (keys i64[T * TQ, S, k] = (float bits of d2) << 32 | (s k + e),
+    hi i64[T * TQ], the bound a walked key may not pass, survivors
+    i64[T * TQ], how many keys the first walk finds)."""
+    T, S, TQ, k = d.shape
+    bits = d.permute(0, 2, 1, 3).reshape(T * TQ, S, k).contiguous().view(torch.int32).long()
+    pos = torch.arange(S * k, dtype=torch.int64, device=d.device).view(S, k)
+    keys = (bits << 32) | pos
+    w = bits[..., k - 1].amin(1)
+    hi = torch.where(w < _INF_BITS, (w << 32) | 0xFFFFFFFF,
+                     torch.full_like(w, (_INF_BITS << 32) - 1))
+    walked = (keys <= hi[:, None, None]).to(torch.int8).cumprod(2).bool()
+    return keys, hi, walked.sum((1, 2))
+
+
+def merge_select(d, i, cap: int):
+    """A step-for-step mirror of the merge kernel
+    (``csrc/scan_knn.cu::scan_knn_merge_kernel``), for the tests: per row,
+    the threshold (the least k-th entry over the chunks), the walk of the
+    survivors, their sort, the exact overflow path (a radix select when more
+    than ``cap`` keys survive) and the slabs (k > cap), the (+inf, -1) pads.
+    d f32[T, S, TQ, k], i i32[T, S, TQ, k] as :func:`merge_partials`, whose
+    answer it equals bit for bit. Returns (d2 f32[T, TQ, k], gid i32[T, TQ,
+    k], survivors i64[T, TQ], slabs that overflowed i64[T, TQ])."""
+    T, S, TQ, k = d.shape
+    if cap < 1:
+        raise ValueError(f"cap must be >= 1, got {cap}")
+    keys, his, survivors = merge_survivors(d)
+    ii = i.permute(0, 2, 1, 3).reshape(T * TQ, S * k)
+    out_d = torch.full((T * TQ, k), float("inf"), device=d.device)
+    out_i = torch.full((T * TQ, k), -1, dtype=torch.int32, device=d.device)
+    overflows = torch.zeros(T * TQ, dtype=torch.int64)
+    for row in range(T * TQ):
+        rk, hi = keys[row], int(his[row])
+        done, lo = 0, 0
+        while done < k:
+            cand = _merge_walk(rk, lo, hi)
+            over = cand.numel() > cap
+            top = hi
+            if over:
+                overflows[row] += 1
+                top = _merge_radix_select(rk, lo, hi, min(k - done, cap))
+                cand = _merge_walk(rk, lo, top)
+            if cand.numel() == 0:
+                break
+            srt = torch.sort(cand).values[:k - done]
+            take = srt.numel()
+            out_d[row, done:done + take] = (srt >> 32).to(torch.int32).view(torch.float32)
+            out_i[row, done:done + take] = ii[row, srt & 0xFFFFFFFF]
+            done += take
+            if not over:
+                break
+            lo = top + 1
+    return (out_d.view(T, TQ, k), out_i.view(T, TQ, k), survivors.view(T, TQ),
+            overflows.view(T, TQ))
+
+
 def _sort_queries(queries, bits: int, qpad: int):
     """Hilbert-sort the (padded) query set once; padding duplicates the
     last query. Returns (sorted queries, order)."""

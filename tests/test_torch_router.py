@@ -17,7 +17,10 @@ router over the reference's shards on the same seeded points:
 
 Faults are counted specs or hangs released on clear, never sleeps;
 deadlines are seconds, far above a CPU answer's milliseconds, and no
-test asserts a latency."""
+test asserts a latency. The health period, and with it the probe's
+timeout, is 2 s: a shard on a loaded CPU answers /healthz within it,
+where a 0.1-0.2 s probe can time out and eject a healthy shard. A test
+that asserts a health state probes until that state holds."""
 
 from __future__ import annotations
 
@@ -31,11 +34,13 @@ import numpy as np
 import pytest
 import torch
 
+from kdtree_tpu.obs import slo as jslo
 from kdtree_tpu.serve import faults as jfaults
 from kdtree_tpu.serve import lifecycle as jlife
 from kdtree_tpu.serve import router as jrt
 from kdtree_tpu.serve import server as jsrv
 from kdtree_tpu_torch import obs as tobs
+from kdtree_tpu_torch.obs import slo as tslo
 from kdtree_tpu_torch.serve import engine as tlife
 from kdtree_tpu_torch.serve import faults as tfaults
 from kdtree_tpu_torch.serve import router as trt
@@ -53,6 +58,8 @@ N_SHARDS = 3
 SP_CENTERS = np.array([[-60.0, -60.0, -60.0], [60.0, 60.0, 60.0],
                        [-60.0, 60.0, 0.0], [60.0, -60.0, 0.0]], dtype=np.float32)
 SP_SHARDS = 4
+HEALTH_PERIOD_S = 2.0  # the probe's timeout too: max(min(period, 2.0), 0.1)
+PROBE_DEADLINE_S = 60.0
 
 
 def _oracle(points, queries, k, gid=None):
@@ -71,10 +78,19 @@ def _oracle(points, queries, k, gid=None):
 
 def _start(pkg, fset=None, **kw):
     if pkg == "port":
-        httpd = tsrv.make_server(tlife.build_state(device="cpu", **kw), port=0, faults=fset)
+        state = tlife.build_state(device="cpu", **kw)
     else:
-        httpd = jsrv.make_server(jlife.build_state(install_listeners=False, **kw), port=0,
-                                 faults=fset)
+        state = jlife.build_state(install_listeners=False, **kw)
+    # shards in one process share one metrics registry, so each one's SLO
+    # engine would judge every shard's requests (a loaded CPU's latencies
+    # included) and page them all at once, which a health probe reads as
+    # an ejection ({"ejected": "slo PAGE"} on every shard under 6 test
+    # workers): in process they run with no SLO specs, as chip_smoke.py
+    # phase 13's shards do
+    slo = tslo if pkg == "port" else jslo
+    state.slo_engine = slo.SloEngine(specs=[], history=state.slo_engine.history)
+    make = tsrv.make_server if pkg == "port" else jsrv.make_server
+    httpd = make(state, port=0, faults=fset)
     httpd.start(warmup_buckets=[8])
     return httpd
 
@@ -129,7 +145,7 @@ def jfleet(points):
 @contextlib.contextmanager
 def router_for(rt, urls, health_loop=False, **cfg):
     config = dict(deadline_s=30.0, retries=2, backoff_base_s=0.01, hedge_min_s=0.05,
-                  breaker_failures=2, breaker_reset_s=0.3, health_period_s=0.2)
+                  breaker_failures=2, breaker_reset_s=0.3, health_period_s=HEALTH_PERIOD_S)
     config.update(cfg)
     router = rt.make_router(urls, config=rt.RouterConfig(**config))
     router.start(health_loop=health_loop)
@@ -137,6 +153,28 @@ def router_for(rt, urls, health_loop=False, **cfg):
         yield router
     finally:
         router.stop()
+
+
+def _probe_until(router, routable, shards=None):
+    """Probe ``shards`` (indices; default all) by hand until each one's
+    routable state is ``routable``: a probe that a loaded CPU answers
+    late reads as unhealthy, and the next one sees the shard as it is."""
+    idx = range(len(router.shards)) if shards is None else shards
+    deadline = time.monotonic() + PROBE_DEADLINE_S
+    while True:
+        for i in idx:
+            router._probe_health(router.shards[i])
+        if all(router.shards[i].healthy is routable for i in idx):
+            return
+        assert time.monotonic() < deadline, [router.shards[i].health_detail for i in idx]
+
+
+def _health(router):
+    """Each replica's routable state and its last probe's detail, for a
+    failure's message."""
+    return [(r.index, r.replica, r.healthy, r.breaker.state,
+             {k: v for k, v in r.health_detail.items() if k in ("ejected", "slo", "ready")})
+            for r in router.shards]
 
 
 def _post(router, payload, path="/v1/knn", headers=None, timeout=120.0):
@@ -346,14 +384,14 @@ def test_breaker_opens_then_recovers_half_open_to_closed(tfleet, points):
 
 def test_healthz_ejects_and_federation_labels_shards(tfleet):
     with router_for(trt, tfleet.urls) as router:
-        for shard in router.shards:
-            router._probe_health(shard)
+        _probe_until(router, True)
         status, body = _get(router, "/healthz")
         assert status == 200 and body["available"] == N_SHARDS and body["quorum"] == 2
         assert "box" in body["shards"][0]["detail"]
         tfleet.faults[1].set_spec("healthz=error:503")
         try:
-            router._probe_health(router.shards[1])
+            _probe_until(router, False, [1])
+            assert router.shards[1].health_detail == {"ejected": "healthz 503"}
             status, body = _get(router, "/healthz")
             assert status == 200 and body["available"] == N_SHARDS - 1
             assert body["shards"][1]["routable"] is False
@@ -361,9 +399,14 @@ def test_healthz_ejects_and_federation_labels_shards(tfleet):
             assert status == 200 and out["degraded"] == f"partial:2/{N_SHARDS}"
         finally:
             tfleet.clear()
-        router._probe_health(router.shards[1])
-        status, text = _get(router, "/metrics?federate=1")
-        lines = text.splitlines()
+        _probe_until(router, True, [1])
+        deadline = time.monotonic() + PROBE_DEADLINE_S
+        while True:  # a shard's scrape that times out reads as down
+            status, text = _get(router, "/metrics?federate=1")
+            lines = text.splitlines()
+            if all(f'kdtree_router_federated_up{{shard="{i}"}} 1' in lines
+                   for i in range(N_SHARDS)) or time.monotonic() > deadline:
+                break
         for i in range(N_SHARDS):
             assert any(ln.startswith(f'kdtree_serve_ready{{shard="{i}"}}') for ln in lines)
             assert f'kdtree_router_federated_up{{shard="{i}"}} 1' in lines
@@ -425,7 +468,8 @@ def test_replica_sets_spread_fail_over_and_write_to_the_primary(points):
                         health_loop=True) as router:
             for _ in range(6):
                 status, out = _post(router, {"queries": q.tolist(), "k": K})
-                assert status == 200 and out["ids"] == ids and out["distances"] == dist
+                assert status == 200, (out, _health(router))
+                assert out["ids"] == ids and out["distances"] == dist
             for j in range(3):
                 assert _counter('kdtree_router_replica_requests_total'
                                 f'{{replica="{j}",shard="0"}}') > 0
@@ -440,7 +484,7 @@ def test_replica_sets_spread_fail_over_and_write_to_the_primary(points):
                 time.sleep(0.05)
             status, out = _post(router, {"ids": [SHARD_N + 777], "points": [[0.5] * DIM]},
                                 path="/v1/upsert")
-            assert status == 200 and out["applied"] == 1
+            assert status == 200 and out["applied"] == 1, (out, _health(router))
         deltas = [h.state.engine.stats()["delta_rows"] for h in servers]
         assert deltas[0] == 1 and deltas[1:] == [0, 0]
     finally:
@@ -460,8 +504,7 @@ def test_write_passthrough_partitions_by_id_range(points):
                    for i in range(2)]
         try:
             with router_for(rt, [_url(h) for h in servers], retries=1) as router:
-                for shard in router.shards:
-                    router._probe_health(shard)
+                _probe_until(router, True)
                 ids = [5, SHARD_N + 7, 10 * SHARD_N]
                 pts = [[300.0, 300.0, 300.0], [310.0, 310.0, 310.0], [320.0, 320.0, 320.0]]
                 seen = [_post(router, {"ids": ids, "points": pts}, path="/v1/upsert"),
@@ -535,8 +578,7 @@ def spatial_fleet():
 
 @contextlib.contextmanager
 def spatial_router(fleet_urls, **cfg):
-    with router_for(trt, fleet_urls, health_loop=True, retries=1, health_period_s=0.1,
-                    **cfg) as router:
+    with router_for(trt, fleet_urls, health_loop=True, retries=1, **cfg) as router:
         deadline = time.monotonic() + 30.0
         while not all(ss.box() is not None for ss in router.shard_sets):
             assert time.monotonic() < deadline, "fleet topology never learned"
@@ -559,7 +601,7 @@ def test_spatial_selective_prunes_byte_identical_and_routes_writes(spatial_fleet
             dist, ids = fleet.oracle(q, K)
             for router in (sel, full):
                 status, out = _post(router, {"queries": q.tolist(), "k": K})
-                assert status == 200 and out["degraded"] is None
+                assert status == 200 and out["degraded"] is None, (out, _health(router))
                 assert out["ids"] == ids and out["distances"] == dist
             assert out["shards"]["contacted"] == SP_SHARDS  # the full router's
             status, out = _post(sel, {"queries": q.tolist(), "k": K})
@@ -574,7 +616,7 @@ def test_spatial_selective_prunes_byte_identical_and_routes_writes(spatial_fleet
         owner = int(tsp.owner_of(p, fleet.plan["grid"], fleet.plan["code_ranges"])[0])
         wid = 90_000
         status, out = _post(sel, {"ids": [wid], "points": p.tolist()}, path="/v1/upsert")
-        assert status == 200 and out["routing"] == "spatial", out
+        assert status == 200 and out["routing"] == "spatial", (out, _health(sel))
         assert out["shards"][str(owner)]["applied"] == 1
         fleet.cloud[wid] = p[0]
         status, out = _post(sel, {"queries": p.tolist(), "k": 1})
@@ -593,7 +635,8 @@ def test_two_level_parent_byte_identical_and_refuses_writes(spatial_fleet):
     with spatial_router(fleet.urls[:half]) as c0, spatial_router(fleet.urls[half:]) as c1, \
             spatial_router([_url(c0), _url(c1)], parent=True) as parent:
         status, out = _post(parent, {"queries": q.tolist(), "k": K})
-        assert status == 200 and out["degraded"] is None
+        assert status == 200 and out["degraded"] is None, \
+            (out, _health(parent), _health(c0), _health(c1))
         assert out["ids"] == ids and out["distances"] == dist
         assert out["shards"]["total"] == 2
         status, health = _get(parent, "/healthz")
