@@ -19,9 +19,10 @@ then by the batch worker (``MicroBatcher.capture_for``, what ``POST
 opened off the worker; the mode fails if a batch-worker window crashes.
 It is the run that chose to open server windows on the batch worker.
 
-``--forest-only`` runs phases 1-3 and 12 alone (no kernels record), for
-work on the multi-device engines; ``--fleet-only`` runs phases 1-3 and 13
-alone, for work on the fleet.
+``--forest-only`` runs phases 1-3b and 12 alone
+(no kernels record), for work on the multi-device engines;
+``--fleet-only`` runs phases 1-3b and 13 alone,
+for work on the fleet.
 
 Phases, one line each (any failure raises and exits non-zero):
 
@@ -41,16 +42,39 @@ Phases, one line each (any failure raises and exits non-zero):
              at k = 1,100, above the capacity) and rows with no full chunk,
              each also held against the step-for-step mirror
              ``merge_select``;
+3b. pair   — ``pair_d2`` (the exact oracle's distance block, a kernel for
+             an XLA program of the reference; every oracle check below
+             runs it) against its plain PyTorch version on the card,
+             bit-equal to ``sq_dist`` at D = 1, 2, 3, 8, 32 and 47, each at
+             37 x 300 and 5 x 100 rows and at the main path's shape (1,000
+             fallback rows, 256 of phase 9's oracle at D = 47, against a
+             point tile of ``bruteforce.knn``'s size, the last 256-point
+             block partial), there timed through the wrapper, a launch in a
+             CUDA graph, the plain version and the library's two ways
+             (``_matmul_d2``, ``torch.cdist`` squared) beside its bound;
 4. main    — 2^24 x 3-D points (seed 42) -> Morton build (B=256) ->
              ServeEngine(k=16) with its warmup ladder 8..1024 -> served
              requests of 1, 7, 64, 1000 and 1024 rows and one brute-force
              fallback batch, each checked against the brute-force oracle ->
              one morton_knn_tiled run of 2^20 queries, checked on a sample.
-             Both kernels' launch counts are zeroed just before this phase
-             and must be > 0 after it. Then the served 7-, 64- and 1000-row
+             Both kernels' launch counts and pair_d2's are zeroed just
+             before this phase and must be > 0 after it (pair_d2: the
+             fallback batch). Then the served 7-, 64- and 1000-row
              requests once more, each in a capture window of the package's
              profiler: device time by kernel and the card's idle share, from
              kdtree_tpu_torch.obs.timeline (as every device-time sum below);
+4b. fold   — the verbs' fold kernels (kernels for the reference's XLA
+             programs) against their plain PyTorch versions on phase 4's
+             tree: the last fold pass of ``radius_search`` (r = 1.5) and
+             ``range_search`` (cubes of side 3) at 1, 64 and 1,000 of
+             phase 8's query rows, counts bit-equal and the canonical rows
+             bit-equal in the ids form, counts in the count form, and at
+             1,000 rows once with m below the largest count, that plain
+             fold's device time split into gather, d2, test and sort (a
+             capture window); each timed (the wrapper, a launch in a CUDA
+             graph, the plain fold) beside its bound. Phase 9a makes the
+             same checks (no graph, no split) on its D = 47 tree, with
+             phase 9's queries shrunk toward the centre (r = 290, side 162);
 5. shapes  — on the 2^24 tree, the kernels against the plain version and
              timed (CUDA events) at the tiled run's collect shape and at the
              final collect dispatch of the 8-, 64- and 1024-row serve
@@ -119,7 +143,9 @@ Phases, one line each (any failure raises and exits non-zero):
              request (the oracle in its handler thread), every answer equal
              to verbs/oracle.py on the card; HTTP ms and engine ms by verb and
              rows, overflow retries, and the frontier/fold split of a
-             1000-row radius batch under torch.profiler. Scan-kernel
+             1000-row radius batch under torch.profiler. The fold kernels'
+             and pair_d2's launch counts are zeroed just before these verb
+             requests and read just after them; each must be > 0. Scan-kernel
              launches are counted from the end of the secondary's warmup to
              its stop and over its k-NN requests alone; both must be > 0.
              Then ``build --save`` at 2^20 points in process and ``python -m
@@ -131,7 +157,8 @@ Phases, one line each (any failure raises and exits non-zero):
              kernel against the plain scan bit for bit at its final collect
              dispatch and a query sample against the exact brute-force
              oracle (the largest difference joins the scan kernel's
-             max_abs_err); (b) the recall harness on phase 4's tree:
+             max_abs_err), and at D = 47 phase 4b's fold checks; (b) the
+             recall harness on phase 4's tree:
              sweep_recall over 65,536 queries at k=16 and every cap of
              default_caps, recall monotone, the full cap byte-identical to
              the exact run, the kernel against the plain scan at one
@@ -279,6 +306,7 @@ package beside this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -654,6 +682,262 @@ def phase_kernel(dev):
     for line in merge_only(dev):
         say("kernel", line)
     return max_err
+
+
+PAIR_DIMS = (1, 2, 3, 8, 32, 47)  # phase 3b: 47 is phase 9's oracle at D = 47
+PAIR_Q = 1000  # phase 4's fallback batch (phase 9's oracle takes WIDE_SAMPLE rows)
+PAIR_RAGGED = ((37, 300), (5, 100))  # (Q, T): a partial query block and point block
+PAIR_GRAPH_LAUNCHES = 10
+FOLD_GRAPH_LAUNCHES = 10
+WIDE_VERB_SCALE = 0.1  # phase 9a's fold queries at D = 47: phase 9's, shrunk toward the centre
+WIDE_VERB_R = 290.0  # their radius: ~35 hits a query at 2^19 points
+WIDE_VERB_SIDE = 162.0  # their cubes: ~25 hits
+FOLD_RECS = {}  # kernel name -> its record at the main path's shape (3b, 4b)
+FOLD_LAUNCHES = {"verb_radius_fold": 0, "verb_range_fold": 0, "pair_d2": 0}  # main-path runs
+
+
+def event_ms(fn):
+    """``fn()`` once between two CUDA events: (its result, device ms)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def pair_shape(d):
+    """(Q, T) of one ``pair_d2`` call on the main path at D = d: phase 4's
+    fallback batch (phase 9's oracle sample above 32 axes) against a point
+    tile of ``bruteforce.knn``'s own size, whose last 256-point block is
+    partial."""
+    from kdtree_tpu_torch.ops.bruteforce import _TILE_ELEMS, REFINE_SLACK
+
+    q = WIDE_SAMPLE if d > 32 else PAIR_Q
+    return q, max(_TILE_ELEMS // (q * d), K + REFINE_SLACK, 1)
+
+
+def pair_only(dev):
+    """Phase 3b: the ``pair_d2`` kernel against its plain version
+    (``sq_dist`` over the broadcast rows) bit for bit at every D of
+    ``PAIR_DIMS``, at the main path's shape (:func:`pair_shape`) and the
+    ragged ones of ``PAIR_RAGGED``; at the main path's shape timed through
+    the wrapper, a launch in a CUDA graph (D <= 32), the plain version and
+    the library's two ways (``_matmul_d2``: cuBLAS, TF32 off;
+    ``torch.cdist`` squared), beside the input-defined bound. Returns the
+    lines to print."""
+    import torch
+
+    from kdtree_tpu_torch.kernels.pair_d2 import pair_d2, pair_d2_plain
+    from kdtree_tpu_torch.ops.bruteforce import _matmul_d2
+
+    rng = np.random.default_rng(SEED + 3)
+
+    def rows(n, d):
+        return torch.from_numpy(rng.uniform(-100, 100, (n, d)).astype(np.float32)).to(dev)
+
+    lines = []
+    for d in PAIR_DIMS:
+        for nq, nt in PAIR_RAGGED:
+            q, p = rows(nq, d), rows(nt, d)
+            p[:2] = q[:2]  # zero distances
+            assert torch.equal(pair_d2(q, p), pair_d2_plain(q, p)), \
+                f"pair_d2 != sq_dist at D={d}, {nq} x {nt}"
+        Q, T = pair_shape(d)
+        q, p = rows(Q, d), rows(T, d)
+        p[:8] = q[:8]
+        got = pair_d2(q, p)
+        want, plain_ms = event_ms(lambda: pair_d2_plain(q, p))
+        assert torch.equal(got, want), f"pair_d2 != sq_dist at D={d}, {Q} x {T}"
+        del got, want
+        bound_ms, bound_by, _, _ = _roofline((Q * d + T * d + Q * T) * 4, Q * T * 3 * d)
+        rec = {"ms": cuda_ms(lambda: pair_d2(q, p), 20), "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": 0.0,
+               "matmul_ms": cuda_ms(lambda: _matmul_d2(q, p), 20),
+               "library_ms": cuda_ms(lambda: torch.cdist(q, p).square_(), 20)}
+        rec["graph_ms"] = (graph_ms(lambda: pair_d2(q, p), PAIR_GRAPH_LAUNCHES, 5)
+                           if d <= 32 else None)
+        if d == DIM:
+            FOLD_RECS["pair_d2"] = rec
+        lines.append(
+            f"pair_d2 D={d}: bit-equal to sq_dist at "
+            + ", ".join(f"{nq} x {nt}" for nq, nt in PAIR_RAGGED)
+            + f" and the main path's {Q} x {T} ({T % 256} points in the last block); there "
+            f"{rec['ms']:.4f} ms"
+            + (f" ({rec['graph_ms']:.4f} a launch in a CUDA graph)" if d <= 32 else "")
+            + f", plain {rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.4f} ms ({bound_by}); "
+            f"library: _matmul_d2 {rec['matmul_ms']:.4f} ms, torch.cdist squared "
+            f"{rec['library_ms']:.4f} ms")
+        del q, p
+    return lines
+
+
+@contextlib.contextmanager
+def fold_calls():
+    """Keep the arguments of every fold call ``verbs/device.py`` makes
+    (the wrappers themselves run as ever, so their launches count)."""
+    import types
+
+    from kdtree_tpu_torch.kernels import verb_fold as vf
+    from kdtree_tpu_torch.verbs import device as vd
+
+    seen = {"radius": [], "range": []}
+
+    def spy(kind, fn):
+        def call(*args):
+            seen[kind].append(args)
+            return fn(*args)
+        return call
+
+    vd.verb_fold = types.SimpleNamespace(radius_fold=spy("radius", vf.radius_fold),
+                                         range_fold=spy("range", vf.range_fold))
+    try:
+        yield seen
+    finally:
+        vd.verb_fold = vf
+
+
+def fold_bound(verb, tree, a, cand, m):
+    """The least time the card needs for one fold, from its inputs: every
+    (query, point) test of each tile's real candidate buckets, 3 D flops
+    (a subtract and an FMA an axis) for a radius pair and 2 D compares for a
+    box; each (tile, candidate bucket) read once, B x (D + 1) words and its
+    cand entry, the queries read and the counts and buffers written once."""
+    T, TQ, D = a.shape
+    B = tree.bucket_size
+    real = int((cand >= 0).sum())
+    tests = real * TQ * B
+    q_bytes = T * TQ * ((D + 1) if verb == "radius" else 2 * D) * 4
+    out_bytes = T * TQ * 4 + T * TQ * m * (8 if verb == "radius" else 4)
+    bound_ms, bound_by, _, _ = _roofline(real * (B * (D + 1) * 4 + 4) + q_bytes + out_bytes,
+                                         tests * (3 if verb == "radius" else 2) * D)
+    return bound_ms, bound_by, tests
+
+
+def _rows_equal(verb, kern, plain, m):
+    """The fold's contract on one call: counts bit-equal; where a count is
+    <= m, the canonical rows (d2 and ids) bit-equal. Returns (rows
+    compared, rows past m, largest |d2| difference)."""
+    import torch
+
+    from kdtree_tpu_torch.verbs import device as vd
+
+    assert torch.equal(kern[0], plain[0]), f"{verb} fold counts differ from the plain fold"
+    counts = plain[0].reshape(-1).cpu().numpy()
+    ok = counts <= m
+    if m == 0:
+        return 0, int((~ok).sum()), 0.0
+    n = counts.size
+    if verb == "radius":
+        kd, ki = vd.canonical_radius_rows(kern[1].reshape(n, -1).cpu().numpy(),
+                                          kern[2].reshape(n, -1).cpu().numpy())
+        pd, pi = vd.canonical_radius_rows(plain[1].reshape(n, -1).cpu().numpy(),
+                                          plain[2].reshape(n, -1).cpu().numpy())
+        assert np.array_equal(kd[ok], pd[ok]) and np.array_equal(ki[ok], pi[ok]), \
+            f"{verb} fold rows differ from the plain fold"
+        fin = np.isfinite(pd[ok])
+        err = float(np.abs(kd[ok][fin] - pd[ok][fin]).max()) if fin.any() else 0.0
+    else:
+        ki = vd.canonical_range_rows(kern[1].reshape(n, -1).cpu().numpy())
+        pi = vd.canonical_range_rows(plain[1].reshape(n, -1).cpu().numpy())
+        assert np.array_equal(ki[ok], pi[ok]), f"{verb} fold rows differ from the plain fold"
+        err = 0.0
+    return int(ok.sum()), int((~ok).sum()), err
+
+
+def fold_case(what, tree, verb, call, graph, split=False):
+    """One verb call's last fold (its final pass, after any retry): the
+    kernel against the plain fold in the ids form, the count form and, with
+    ``split``, at m below the largest count; both timed beside the bound.
+    ``split`` also takes the plain fold's device time by range
+    (``verbs.fold.gather`` / ``.d2`` / ``.test`` / ``.sort``) from a
+    capture of that last comparison's plain run. Returns (lines, record)."""
+    import torch
+
+    from kdtree_tpu_torch.kernels import verb_fold as vf
+
+    kern_fn = vf.radius_fold if verb == "radius" else vf.range_fold
+    plain_fn = vf._radius_fold_plain if verb == "radius" else vf._range_fold_plain
+    with fold_calls() as seen:
+        res = call()
+    t_, a, b, cand, m = seen[verb][-1]
+    T, TQ, D = a.shape
+    lines = []
+    kern = kern_fn(t_, a, b, cand, m)
+    plain, plain_ms = event_ms(lambda: plain_fn(t_, a, b, cand, m))
+    n_ok, n_over, err = _rows_equal(verb, kern, plain, m)
+    assert n_over == 0, f"{what}: the verb's last fold left a count above m={m}"
+    hits = int(plain[0].sum())
+    assert hits == int(res.counts.sum()), f"{what}: the verb's counts differ from its fold's"
+    kc = kern_fn(t_, a, b, cand, 0)
+    pc, plain_count_ms = event_ms(lambda: plain_fn(t_, a, b, cand, 0))
+    _rows_equal(verb, kc, pc, 0)
+    assert torch.equal(kc[0], kern[0]), f"{what}: the count form's counts differ"
+    assert kc[-1].shape[-1] == 0, f"{what}: the count form has a buffer"
+    rec = {"ms": cuda_ms(lambda: kern_fn(t_, a, b, cand, m), 20), "plain_ms": plain_ms,
+           "count_ms": cuda_ms(lambda: kern_fn(t_, a, b, cand, 0), 20),
+           "plain_count_ms": plain_count_ms, "max_abs_err": err}
+    rec["graph_ms"] = (graph_ms(lambda: kern_fn(t_, a, b, cand, m), FOLD_GRAPH_LAUNCHES, 5)
+                       if graph else None)
+    rec["bound_ms"], rec["bound_by"], tests = fold_bound(verb, t_, a, cand, m)
+    C = cand.shape[1]
+    lines.append(
+        f"{what}: T={T} TQ={TQ} D={D} C={C} m={m}, {hits} hits, {tests} (query, point) tests: "
+        f"counts bit-equal, canonical rows bit-equal ({n_ok} rows); count form counts "
+        f"bit-equal; kernel {rec['ms']:.4f} ms"
+        + (f" ({rec['graph_ms']:.4f} a launch in a CUDA graph)" if graph else "")
+        + f", count form {rec['count_ms']:.4f} ms; plain {rec['plain_ms']:.2f} ms, count form "
+        f"{rec['plain_count_ms']:.2f} ms; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    if split:
+        counts = plain[0]
+        small = max(1, int(counts.max()) // 2)
+        ks = kern_fn(t_, a, b, cand, small)
+        ps, rep = captured(lambda: plain_fn(t_, a, b, cand, small), t_.device)
+        n_ok, n_over, _ = _rows_equal(verb, ks, ps, small)
+        assert n_over > 0, f"{what}: m={small} is not below the largest count"
+        lines.append(f"{what} at m={small}, below the largest count {int(counts.max())}: counts "
+                     f"bit-equal, rows bit-equal where count <= m ({n_ok} rows; {n_over} past m)")
+        ranges = rep["device"]["ranges"]
+        names = ("gather", "d2", "test", "sort") if verb == "radius" else ("gather", "test", "sort")
+        part = {k: ranges.get(f"verbs.fold.{k}", {}).get("busy_us", 0.0) / 1e3 for k in names}
+        whole = rep["device"]["busy_us"] / 1e3
+        assert min(part.values()) > 0 and sum(part.values()) <= whole * 1.02, \
+            f"{what}: the plain fold's ranges do not split its device time: {part}, {whole}"
+        lines.append(f"{what}, that plain fold at m={small} in a capture window: device "
+                     f"{whole:.3f} ms: " + ", ".join(f"{k} {v:.3f} ms" for k, v in part.items())
+                     + " (obs.timeline ranges verbs.fold." + " / .".join(names) + ")")
+    return lines, rec
+
+
+def phase_fold(tree, vq, r, side, smi, main):
+    """The verbs' fold kernels against the plain folds on the card, at the
+    shapes ``radius_search`` / ``range_search`` give them on ``tree`` for
+    the first 1, 64 and 1,000 rows of the host queries ``vq`` (radius
+    ``r``, cubes of side ``side``): phase 4b on phase 4's tree and phase
+    8's queries (``main``: its 1,000-row records go to the kernels line,
+    with the m-below case and the plain folds' split), phase 9a on the
+    D = 47 tree. Prints its lines."""
+    from kdtree_tpu_torch.verbs import device as vd
+
+    t0 = time.perf_counter()
+    half = np.float32(side / 2)
+    tag = f"2^{tree.n_real.bit_length() - 1} x {tree.dim}-D"
+    for rows in VERB_ROWS:
+        q = vq[:rows]
+        top = main and rows == max(VERB_ROWS)
+        for verb, call in (("radius", lambda: vd.radius_search(tree, q, r)),
+                           ("range", lambda: vd.range_search(tree, q - half, q + half))):
+            lines, rec = fold_case(f"{verb} fold, {rows} rows, {tag}", tree, verb, call,
+                                   graph=main, split=top)
+            for line in lines:
+                say("fold", f"{line} [{smi}]")
+            if top:
+                FOLD_RECS[f"verb_{verb}_fold"] = rec
+    say("fold", f"the folds on the {tag} tree in {time.perf_counter() - t0:.1f} s")
 
 
 def _roofline(nbytes, flops):
@@ -1700,7 +1984,9 @@ def phase_snapshot(dev, points, tree, here, smi, build_s):
 
     import torch
 
+    import kdtree_tpu_torch.kernels.pair_d2 as pair_mod
     import kdtree_tpu_torch.kernels.scan_knn as scan_mod
+    import kdtree_tpu_torch.kernels.verb_fold as fold_mod
     from kdtree_tpu_torch import snapshot as snap
     from kdtree_tpu_torch.obs import flight
     from kdtree_tpu_torch.ops.generate import generate_points_rowwise, generate_queries
@@ -1896,6 +2182,8 @@ def phase_snapshot(dev, points, tree, here, smi, build_s):
                                 ids=res.ids[:rows])
 
         http_ms, eng_ms, retries = {}, {}, {}
+        fold_mod.radius_fold.launches = fold_mod.range_fold.launches = 0
+        pair_mod.pair_d2.launches = 0
         for rows in VERB_ROWS:
             q = vq[:rows]
             lo, hi = q - half, q + half
@@ -1932,6 +2220,12 @@ def phase_snapshot(dev, points, tree, here, smi, build_s):
         big_ms = (time.perf_counter() - t) * 1e3
         assert st == 200, (st, resp)
         _check_verb("oversized radius", resp, rad_all, "radius", degraded="oversized")
+        verb_launches = (fold_mod.radius_fold.launches, fold_mod.range_fold.launches,
+                         pair_mod.pair_d2.launches)
+        FOLD_LAUNCHES["verb_radius_fold"], FOLD_LAUNCHES["verb_range_fold"] = verb_launches[:2]
+        FOLD_LAUNCHES["pair_d2"] += verb_launches[2]
+        if on_card:
+            assert min(verb_launches) > 0, f"a verb kernel never launched: {verb_launches}"
         verbs_seen = sorted({v for v, _ in http_ms}, key=[
             "radius", "range", "count (radius)", "count (box)"].index)
         lines.append("verbs over HTTP on the secondary, every answer equal to verbs/oracle.py "
@@ -1943,7 +2237,9 @@ def phase_snapshot(dev, points, tree, here, smi, build_s):
                          for v in verbs_seen)
                      + f"; one {MAX_BATCH + 1}-row radius request (the oracle in its handler "
                      f"thread): {big_ms:.2f} ms, exact; the checks' radius and range oracles "
-                     f"over {MAX_BATCH + 1} rows: {oracle_s:.2f} s")
+                     f"over {MAX_BATCH + 1} rows: {oracle_s:.2f} s; over these requests "
+                     f"radius_fold.launches={verb_launches[0]}, range_fold.launches="
+                     f"{verb_launches[1]}, pair_d2.launches={verb_launches[2]}")
 
         # the snapshot-served path alone: the secondary's k-NN requests
         before = scan_mod.scan_tiles.launches
@@ -2081,6 +2377,9 @@ def phase_wide(dev, smi):
         ties = check_answer(pts, qs[sample], d2[sample], ids[sample], K, f"D={d} tiled sample",
                             want=(od, oi))
         max_err = max(max_err, float((d2[sample] - od).abs().max()))
+        if d == WIDE_DIMS[0]:
+            vq = (qs[:max(VERB_ROWS)] * WIDE_VERB_SCALE).cpu().numpy()
+            phase_fold(tree, vq, WIDE_VERB_R, WIDE_VERB_SIDE, smi, main=False)
         say("recall",
             f"D={d}: 2^{WIDE_N.bit_length() - 1} points built in {build_s:.3f} s; "
             f"morton_knn_tiled {WIDE_Q} queries "
@@ -3392,6 +3691,11 @@ def _run_phases(argv, here, t_run, keep) -> int:
     import kdtree_tpu_torch.kernels.scan_knn as scan_mod
 
     max_err = phase_kernel(dev)
+
+    # 3b. the oracle's distance block (every oracle check below runs it)
+    # against its plain version
+    for line in pair_only(dev):
+        say("fold", f"{line} [{smi}]")
     if "--forest-only" in argv or "--fleet-only" in argv:
         if "--forest-only" in argv:
             _phase12(dev, here, smi, t_run)
@@ -3412,8 +3716,11 @@ def _run_phases(argv, here, t_run, keep) -> int:
     torch.cuda.synchronize()
     say("main", f"generated {N_POINTS} x {DIM} points in {time.perf_counter() - t0:.3f} s")
 
+    import kdtree_tpu_torch.kernels.pair_d2 as pair_mod
+
     scan_mod.scan_tiles.launches = 0
     scan_mod.merge_partials.launches = 0
+    pair_mod.pair_d2.launches = 0
     t0 = time.perf_counter()
     tree = build_morton(points, bucket_cap=BUCKET)
     torch.cuda.synchronize()
@@ -3451,13 +3758,16 @@ def _run_phases(argv, here, t_run, keep) -> int:
     tiled_s = time.perf_counter() - t0
     launches = scan_mod.scan_tiles.launches
     merges = scan_mod.merge_partials.launches
+    FOLD_LAUNCHES["pair_d2"] = pair_mod.pair_d2.launches
     say("main", f"tiled {TILED_QUERIES} queries k={K}: {tiled_s:.3f} s "
                 f"({TILED_QUERIES / tiled_s:.0f} q/s), {stats.batches} batches, "
                 f"{stats.retries} overflow retries, {launches - before} scan kernel "
                 f"launches; over the main path scan_tiles.launches={launches}, "
-                f"merge_partials.launches={merges}")
+                f"merge_partials.launches={merges}, pair_d2.launches="
+                f"{FOLD_LAUNCHES['pair_d2']} (the fallback batch)")
     assert launches > 0, "the main path never launched the scan kernel"
     assert merges > 0, "the main path never launched the merge kernel"
+    assert FOLD_LAUNCHES["pair_d2"] > 0, "the fallback batch never launched pair_d2"
 
     # checks against the brute-force oracle (outside the counted window)
     for q, d2, ids, rows, bucket, ms, source in served:
@@ -3473,6 +3783,11 @@ def _run_phases(argv, here, t_run, keep) -> int:
     say("main", f"tiled run: {SAMPLE}-query sample exact vs oracle ({ties} tied slots)")
     for line in serve_profile(engine, served, dev):
         say("main", line)
+
+    # 4b. the verbs' folds against their plain versions, on phase 4's tree
+    # and phase 8's queries (phase 8 drives the verbs themselves)
+    vq = generate_queries(SEED + 950, DIM, MAX_BATCH + 1, device=dev).cpu().numpy()
+    phase_fold(tree, vq, VERB_R, VERB_SIDE, smi, main=True)
 
     # 5. the kernels at the main path's shapes. The forced engine bypasses
     # the plan store, so the shape is the density heuristic's whatever the
@@ -4272,6 +4587,19 @@ def print_record(kind, smi, launches, merges, max_err, main_rec, sparse):
         "library_ms": sparse["merge_topk_ms"],
         "bound_all_bytes_ms": sparse["merge_bound_all_bytes_ms"],
     }]}
+    for name, source, replaces in (
+            ("verb_radius_fold", "kdtree_tpu_torch/csrc/verb_fold.cu",
+             "kdtree_tpu/verbs/device.py:172"),
+            ("verb_range_fold", "kdtree_tpu_torch/csrc/verb_fold.cu",
+             "kdtree_tpu/verbs/device.py:219"),
+            ("pair_d2", "kdtree_tpu_torch/csrc/pair_d2.cu", "kdtree_tpu/ops/bruteforce.py:44")):
+        rec = FOLD_RECS[name]
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": FOLD_LAUNCHES[name], "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms"),
+            "graph_ms": rec["graph_ms"]})
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

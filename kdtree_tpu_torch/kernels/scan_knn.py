@@ -73,6 +73,17 @@ def plan_splits(T: int, C: int, sms: int) -> int:
     return max(1, min(-(-C // _CHUNK), _MAX_SPLITS))
 
 
+def blocks_per_tile(dev, T: int, C: int, splits: int | None = None) -> int:
+    """How many blocks walk each tile's C candidate positions: ``splits``
+    or :func:`plan_splits`'s count for the card, cut so that every block
+    gets a non-empty contiguous range of ceil(C / S) positions."""
+    if splits is None:
+        splits = plan_splits(T, C, _sm_count(dev.index if dev.index is not None
+                                             else torch.cuda.current_device()))
+    S = max(1, min(splits, C, _MAX_SPLITS))
+    return -(-C // -(-C // S)) if C > 0 else 1
+
+
 def _lib(name_fn: str, argtypes):
     fn = getattr(_build.load("scan_knn"), name_fn)
     fn.argtypes = argtypes
@@ -155,12 +166,7 @@ def scan_partials(tree, tq, cand, cand_lb, k: int,
     if visited is not None:
         _check("visited", visited, torch.int32, (T,), dev)
         visited.zero_()
-    if splits is None:
-        splits = plan_splits(T, C, _sm_count(dev.index if dev.index is not None
-                                             else torch.cuda.current_device()))
-    # every block gets a non-empty contiguous range of ceil(C / S) positions
-    S = max(1, min(splits, C, _MAX_SPLITS))
-    S = -(-C // -(-C // S)) if C > 0 else 1
+    S = blocks_per_tile(dev, T, C, splits)
     out_d = torch.empty((T, S, TQ, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((T, S, TQ, k), dtype=torch.int32, device=dev)
     q_worst = (torch.full((T, TQ), _INF_BITS, dtype=torch.int32, device=dev)

@@ -4,7 +4,8 @@ The port of ``kdtree_tpu/ops/bruteforce.py``:
 
 - ``method='exact'`` (default for D <= 32): direct ``(q - p)^2`` sums,
   accumulated axis by axis exactly like the JAX oracle
-  (:func:`kdtree_tpu_torch.ops._arith.sq_dist`);
+  (:func:`kdtree_tpu_torch.ops._arith.sq_dist`; on the card the
+  ``pair_d2`` kernel, :mod:`kdtree_tpu_torch.kernels.pair_d2`);
 - ``method='matmul'`` (default for D > 32): the ``|q|^2 + |p|^2 - 2 q.p``
   product as a COARSE ranking (float32 matmul, TF32 off — the analog of
   ``Precision.HIGHEST``), then exact rescoring of the k + REFINE_SLACK best
@@ -28,6 +29,7 @@ from typing import Tuple
 import torch
 
 from kdtree_tpu_torch import obs
+from kdtree_tpu_torch.kernels.pair_d2 import pair_d2
 from kdtree_tpu_torch.ops._arith import sq_dist, sq_sum_windows
 
 EXACT_DIM_MAX = 32
@@ -53,8 +55,10 @@ def _smallest(keys: torch.Tensor, k: int) -> torch.Tensor:
 def block_d2_exact(queries: torch.Tensor, ptile: torch.Tensor) -> torch.Tensor:
     """[Q, T] squared distances by direct subtraction, accumulated axis by
     axis in the arithmetic of the JAX package's jitted ``_block_d2_exact``
-    (:func:`~kdtree_tpu_torch.ops._arith.sq_dist`)."""
-    return sq_dist(queries[:, None, :], ptile[None, :, :])
+    (:func:`~kdtree_tpu_torch.ops._arith.sq_dist`): the ``pair_d2`` kernel
+    on the card, its plain version on the CPU
+    (:mod:`kdtree_tpu_torch.kernels.pair_d2`)."""
+    return pair_d2(queries.contiguous(), ptile.contiguous())
 
 
 def _matmul_d2(queries: torch.Tensor, ptile: torch.Tensor) -> torch.Tensor:

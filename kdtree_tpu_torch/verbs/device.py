@@ -16,15 +16,17 @@ frontier unchanged — only the *bound* and the *fold* differ per verb:
   the m smallest contained ids.
 - **count**: either traversal with the id fold stripped.
 
-The folds are plain torch ops, as they are XLA programs in the reference.
-Each pass runs its frontier inside the profiler range ``verbs.frontier``
-and its fold inside ``verbs.fold``, so a trace splits a batch's device
-time between the two.
+The folds, XLA programs in the reference, are hand-written CUDA kernels on
+the card (:mod:`kdtree_tpu_torch.kernels.verb_fold`, ``csrc/verb_fold.cu``)
+whose plain versions, ``_radius_fold_plain`` and ``_range_fold_plain`` of
+the same module (named here too), run on the CPU. Each pass runs its frontier
+inside the profiler range ``verbs.frontier`` and its fold inside
+``verbs.fold``, so a trace splits a batch's device time between the two.
 Membership is decided by ``d2 <= r^2``, so d2 is computed in the
 reference's arithmetic (:func:`~kdtree_tpu_torch.ops._arith.sq_dist`: the
 FMA chain XLA:CPU compiles ``jnp.sum(diff * diff, -1)`` to, or its window
-sum of rounded squares above 32 axes): a one-ulp difference would change
-the hit set, not only a distance.
+sum of rounded squares above 32 axes; the kernel's ``csrc/d2.cuh``): a
+one-ulp difference would change the hit set, not only a distance.
 
 Exactness contract: identical to k-NN. Candidate overflow (more buckets
 pass the bound than the frontier cap holds) and hit overflow (more hits
@@ -50,7 +52,9 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from kdtree_tpu_torch.ops._arith import sq_dist
+from kdtree_tpu_torch.kernels import verb_fold
+from kdtree_tpu_torch.kernels.verb_fold import (  # noqa: F401 (the plain folds, named here)
+    ID_INF, _radius_fold_plain, _range_fold_plain)
 from kdtree_tpu_torch.ops.morton import MortonTree, default_bits
 from kdtree_tpu_torch.ops.tile_query import _frontier, _sort_queries
 from kdtree_tpu_torch.serve.engine import _pow2_ceil
@@ -60,14 +64,11 @@ DEFAULT_TILE = 64  # queries per tile: verbs carry per-query bounds, so
 # box) tight; pow2 like the k-NN tiles
 DEFAULT_CAP = 64  # candidate buckets per tile (doubles on frontier overflow)
 DEFAULT_HITS = 128  # per-query hit-buffer lanes (doubles on hit overflow)
-_SCAN_V = 4  # fewest buckets folded per chunk
-_FOLD_ELEMS = 1 << 22  # (query, point) lanes per fold step: wider chunks
-# when the tiles are few, so a small batch is not a long host loop
 _MAX_Q = 1 << 15  # queries per device program; larger sets stream in slices
 
-# the int32 "no hit" sentinel for the range fold: real gids are < 2^31
-# (guarded at build), so the sentinel always sorts last
-_ID_INF = np.int32(2**31 - 1)
+# the int32 "no hit" sentinel: real gids are < 2^31 (guarded at build),
+# so the sentinel always sorts last
+_ID_INF = np.int32(ID_INF)
 
 
 class VerbResult(NamedTuple):
@@ -140,29 +141,6 @@ def trim_result(res: VerbResult) -> VerbResult:
                       res.ids[:, :m], res.truncated, res.retries)
 
 
-def _chunked(cand, v: int):
-    """Pad the candidate list to a multiple of ``v`` (with -1) and expose
-    it as scan chunks [C//v, T, v]."""
-    T, C = cand.shape
-    cpad = (-C) % v
-    if cpad:
-        cand = torch.cat([cand, torch.full((T, cpad), -1, dtype=cand.dtype,
-                                           device=cand.device)], dim=1)
-        C += cpad
-    return cand.reshape(T, C // v, v).transpose(0, 1)
-
-
-def _gather_chunk(tree: MortonTree, cb):
-    """One chunk's flattened bucket points + masked gids:
-    cb i32[T, v] -> (pts f32[T, v*B, D], gids i32[T, v*B])."""
-    B = tree.bucket_size
-    sel = cb.long().clamp_min(0)
-    pts = tree.bucket_pts[sel]  # [T, v, B, D]
-    gids = torch.where((cb >= 0)[:, :, None], tree.bucket_gid[sel], -1)
-    T, v = cb.shape
-    return pts.reshape(T, v * B, -1), gids.reshape(T, v * B)
-
-
 def _host_rows(x) -> np.ndarray:
     """A writable host f32 copy of caller rows (array or tensor)."""
     if isinstance(x, torch.Tensor):
@@ -194,12 +172,6 @@ def _live_candidates(cand, overflow, cut):
     return bool(ovf), int(ncand), bool(trunc)
 
 
-def _chunk_width(tree: MortonTree, T: int, TQ: int, ncand: int) -> int:
-    per_bucket = max(T * TQ * tree.bucket_size, 1)
-    v = max(_SCAN_V, _pow2_ceil(max(_FOLD_ELEMS // per_bucket, 1)))
-    return max(1, min(v, ncand))
-
-
 def _radius_tiles(tree: MortonTree, tq, r2, cap: int, m: int,
                   visit_cap: Optional[int], count_only: bool,
                   skip_fold_on_overflow: bool):
@@ -207,8 +179,10 @@ def _radius_tiles(tree: MortonTree, tq, r2, cap: int, m: int,
     padding row, never hits). Returns (counts i32[T, TQ], best_d
     f32[T, TQ, m], best_i i32[T, TQ, m], frontier overflow, truncated);
     the fold is skipped (counts None) when the frontier overflowed and
-    the caller will retry."""
-    T, TQ, D = tq.shape
+    the caller will retry. The fold is
+    :func:`kdtree_tpu_torch.kernels.verb_fold.radius_fold`: the kernel on
+    the card, the plain version on the CPU. Its rows hold every hit of a
+    query whose count is <= m, in no set order (the slice orders them)."""
     box_lo = tq.amin(dim=1)
     box_hi = tq.amax(dim=1)
     bound = r2.amax(dim=1)  # covers every query the tile holds
@@ -218,31 +192,10 @@ def _radius_tiles(tree: MortonTree, tq, r2, cap: int, m: int,
         ovf, ncand, trunc = _live_candidates(cand, overflow, cut)
     if ovf and skip_fold_on_overflow:
         return None, None, None, True, trunc
-    dev = tq.device
-    counts = torch.zeros((T, TQ), dtype=torch.int32, device=dev)
-    width = 0 if count_only else m
-    best_d = torch.full((T, TQ, width), float("inf"), device=dev)
-    best_i = torch.full((T, TQ, width), -1, dtype=torch.int32, device=dev)
     with record_function("verbs.fold"):
-        if ncand:
-            v = _chunk_width(tree, T, TQ, ncand)
-            for cb in _chunked(cand[:, :ncand], v):
-                pts, gids = _gather_chunk(tree, cb)
-                # [T, TQ, v*B]
-                d2 = sq_dist(tq[:, :, None, :], pts[:, None, :, :])
-                hit = (gids[:, None, :] >= 0) & (d2 <= r2[:, :, None])
-                counts += hit.sum(dim=-1, dtype=torch.int32)
-                if not count_only:
-                    key = torch.where(hit, d2, float("inf"))
-                    all_d = torch.cat([best_d, key], dim=-1)
-                    all_i = torch.cat(
-                        [best_i, gids[:, None, :].expand(key.shape)], dim=-1)
-                    # the m smallest by (d2, lane): lax.top_k(-all_d, m)'s
-                    # order
-                    srt, order = torch.sort(all_d, dim=-1, stable=True)
-                    best_d = srt[..., :m]
-                    best_i = torch.gather(all_i, -1, order[..., :m])
-        best_i = torch.where(torch.isfinite(best_d), best_i, -1)
+        counts, best_d, best_i = verb_fold.radius_fold(
+            tree, tq.contiguous(), r2.contiguous(), cand[:, :ncand].contiguous(),
+            0 if count_only else m)
     return counts, best_d, best_i, ovf, trunc
 
 
@@ -252,9 +205,11 @@ def _range_tiles(tree: MortonTree, qlo, qhi, cap: int, m: int,
     """Box containment over tiles: qlo/qhi f32[T, TQ, D] per-query boxes
     (padding rows carry the empty box lo=+inf/hi=-inf). The tile box is
     the UNION of its query boxes; bound 0 keeps exactly the nodes not
-    disjoint from it. Returns (counts, best_i i32[T, TQ, m] ascending,
-    frontier overflow, truncated)."""
-    T, TQ, D = qlo.shape
+    disjoint from it. Returns (counts, best_i i32[T, TQ, m], frontier
+    overflow, truncated); the fold is
+    :func:`kdtree_tpu_torch.kernels.verb_fold.range_fold`, whose rows hold
+    every hit of a query whose count is <= m, in no set order."""
+    T = qlo.shape[0]
     box_lo = qlo.amin(dim=1)
     box_hi = qhi.amax(dim=1)
     bound = torch.zeros(T, dtype=torch.float32, device=qlo.device)
@@ -264,32 +219,10 @@ def _range_tiles(tree: MortonTree, qlo, qhi, cap: int, m: int,
         ovf, ncand, trunc = _live_candidates(cand, overflow, cut)
     if ovf and skip_fold_on_overflow:
         return None, None, True, trunc
-    dev = qlo.device
-    counts = torch.zeros((T, TQ), dtype=torch.int32, device=dev)
-    width = 0 if count_only else m
-    best_i = torch.full((T, TQ, width), int(_ID_INF), dtype=torch.int32,
-                        device=dev)
     with record_function("verbs.fold"):
-        if ncand:
-            v = _chunk_width(tree, T, TQ, ncand)
-            for cb in _chunked(cand[:, :ncand], v):
-                pts, gids = _gather_chunk(tree, cb)
-                hit = (gids[:, None, :] >= 0).expand(T, TQ, pts.shape[1])
-                # per-axis containment, one axis at a time (no [T, TQ, W, D]
-                # intermediate)
-                for d in range(D):
-                    pd = pts[:, None, :, d]
-                    hit = (hit & (pd >= qlo[:, :, d:d + 1])
-                           & (pd <= qhi[:, :, d:d + 1]))
-                counts += hit.sum(dim=-1, dtype=torch.int32)
-                if not count_only:
-                    key = torch.where(hit, gids[:, None, :].expand(hit.shape),
-                                      int(_ID_INF))
-                    # the m SMALLEST ids, ascending (lax.top_k(-ids) in the
-                    # reference)
-                    all_i = torch.cat([best_i, key], dim=-1)
-                    best_i = torch.sort(all_i, dim=-1).values[..., :m]
-        best_i = torch.where(best_i == int(_ID_INF), -1, best_i)
+        counts, best_i = verb_fold.range_fold(
+            tree, qlo.contiguous(), qhi.contiguous(), cand[:, :ncand].contiguous(),
+            0 if count_only else m)
     return counts, best_i, ovf, trunc
 
 
