@@ -64,7 +64,13 @@ Phases, one line each (any failure raises and exits non-zero):
              profiler: device time by kernel and the card's idle share, from
              kdtree_tpu_torch.obs.timeline (as every device-time sum below);
 4b. fold   — the verbs' fold kernels (kernels for the reference's XLA
-             programs) against their plain PyTorch versions on phase 4's
+             programs) against their plain PyTorch versions. First the
+             adversarial check: integer-grid trees of 2^16 - 700 points at
+             D = 3, 8 and 47 (duplicates, -0.0, points on the leaf faces,
+             two empty leaves), radius rows whose r2 is the exact d2 of a
+             point, range boxes with faces on points, infinite, inverted
+             and padding rows, every bucket a candidate; at m above the
+             largest count, m = 0 and m below it. Then on phase 4's
              tree: the last fold pass of ``radius_search`` (r = 1.5) and
              ``range_search`` (cubes of side 3) at 1, 64 and 1,000 of
              phase 8's query rows, counts bit-equal and the canonical rows
@@ -72,9 +78,13 @@ Phases, one line each (any failure raises and exits non-zero):
              1,000 rows once with m below the largest count, that plain
              fold's device time split into gather, d2, test and sort (a
              capture window); each timed (the wrapper, a launch in a CUDA
-             graph, the plain fold) beside its bound. Phase 9a makes the
-             same checks (no graph, no split) on its D = 47 tree, with
-             phase 9's queries shrunk toward the centre (r = 290, side 162);
+             graph, the plain fold) beside its bound (what the inputs
+             need: the box tests, then the point tests of the pairs
+             ``leaf_pass_plain`` passes), the all-pairs bound (every
+             point of every candidate) and ``kept_frac``. Phase 9a makes the
+             same checks (a graph at 1,000 rows, no split) on its D = 47
+             tree, with phase 9's queries shrunk toward the centre (r = 290,
+             side 162);
 5. shapes  — on the 2^24 tree, the kernels against the plain version and
              timed (CUDA events) at the tiled run's collect shape and at the
              final collect dispatch of the 8-, 64- and 1024-row serve
@@ -801,21 +811,45 @@ def fold_calls():
         vd.verb_fold = vf
 
 
-def fold_bound(verb, tree, a, cand, m):
-    """The least time the card needs for one fold, from its inputs: every
-    (query, point) test of each tile's real candidate buckets, 3 D flops
-    (a subtract and an FMA an axis) for a radius pair and 2 D compares for a
-    box; each (tile, candidate bucket) read once, B x (D + 1) words and its
-    cand entry, the queries read and the counts and buffers written once."""
+def fold_bound(verb, tree, a, b, cand, m):
+    """The least time the card needs for one fold, from what its inputs
+    need: the box test of every (query, real candidate), 3 D flops a radius
+    pair (a gap and an FMA an axis) and 2 D compares a box, then the point
+    tests of the (query, bucket) pairs that ``leaf_pass_plain`` passes, x
+    that bucket's real points (3 D flops or 2 D compares each); against the
+    candidate ids, each distinct leaf box once, each distinct bucket some
+    query passes once (B x (D + 1) words), the queries read and the counts
+    and buffers written once. Beside it the all-pairs figure (every real
+    (query, point) test, each (tile, candidate bucket) read once: the most
+    these inputs could need) and ``kept_frac``, the passing pairs over all
+    (query, real candidate) pairs. Returns a dict."""
+    import torch
+
+    from kdtree_tpu_torch.kernels.verb_fold import leaf_pass_plain
+
     T, TQ, D = a.shape
     B = tree.bucket_size
-    real = int((cand >= 0).sum())
-    tests = real * TQ * B
+    per_op = 3 if verb == "radius" else 2
+    real_c = cand >= 0
+    real = int(real_c.sum())
+    sel = cand.long().clamp_min(0)
+    npts = (tree.bucket_gid >= 0).sum(dim=1)[sel] * real_c  # real points a candidate
+    passed = leaf_pass_plain(tree, verb, a, b, cand)  # [T, TQ, C]
+    tests = int((passed.sum(dim=1) * npts).sum())
+    leaves = int(torch.unique(cand[real_c]).numel())
+    buckets = int(torch.unique(cand[passed.any(dim=1)]).numel())
     q_bytes = T * TQ * ((D + 1) if verb == "radius" else 2 * D) * 4
     out_bytes = T * TQ * 4 + T * TQ * m * (8 if verb == "radius" else 4)
-    bound_ms, bound_by, _, _ = _roofline(real * (B * (D + 1) * 4 + 4) + q_bytes + out_bytes,
-                                         tests * (3 if verb == "radius" else 2) * D)
-    return bound_ms, bound_by, tests
+    rec = {}
+    rec["bound_ms"], rec["bound_by"], _, _ = _roofline(
+        cand.numel() * 4 + leaves * 2 * D * 4 + buckets * B * (D + 1) * 4 + q_bytes + out_bytes,
+        (real * TQ + tests) * per_op * D)
+    all_tests = real * TQ * B
+    rec["all_pairs_bound_ms"], rec["all_pairs_bound_by"], _, _ = _roofline(
+        real * (B * (D + 1) * 4 + 4) + q_bytes + out_bytes, all_tests * per_op * D)
+    rec["kept_frac"] = int(passed.sum()) / max(real * TQ, 1)
+    rec["tests"], rec["all_tests"] = tests, all_tests
+    return rec
 
 
 def _rows_equal(verb, kern, plain, m):
@@ -849,13 +883,15 @@ def _rows_equal(verb, kern, plain, m):
     return int(ok.sum()), int((~ok).sum()), err
 
 
-def fold_case(what, tree, verb, call, graph, split=False):
+def fold_case(what, tree, verb, call, graph, split=False, chunks=()):
     """One verb call's last fold (its final pass, after any retry): the
     kernel against the plain fold in the ids form, the count form and, with
     ``split``, at m below the largest count; both timed beside the bound.
     ``split`` also takes the plain fold's device time by range
     (``verbs.fold.gather`` / ``.d2`` / ``.test`` / ``.sort``) from a
-    capture of that last comparison's plain run. Returns (lines, record)."""
+    capture of that last comparison's plain run. ``chunks`` times the
+    kernel again at each of those candidate positions a block (the sweep
+    behind ``verb_fold._WIDE_CHUNK``). Returns (lines, record)."""
     import torch
 
     from kdtree_tpu_torch.kernels import verb_fold as vf
@@ -883,15 +919,28 @@ def fold_case(what, tree, verb, call, graph, split=False):
            "plain_count_ms": plain_count_ms, "max_abs_err": err}
     rec["graph_ms"] = (graph_ms(lambda: kern_fn(t_, a, b, cand, m), FOLD_GRAPH_LAUNCHES, 5)
                        if graph else None)
-    rec["bound_ms"], rec["bound_by"], tests = fold_bound(verb, t_, a, cand, m)
+    rec.update(fold_bound(verb, t_, a, b, cand, m))
     C = cand.shape[1]
     lines.append(
-        f"{what}: T={T} TQ={TQ} D={D} C={C} m={m}, {hits} hits, {tests} (query, point) tests: "
+        f"{what}: T={T} TQ={TQ} D={D} C={C} m={m}, {hits} hits, {rec['tests']} (query, point) "
+        f"tests after the cull, {rec['all_tests']} without (kept_frac {rec['kept_frac']:.6f}): "
         f"counts bit-equal, canonical rows bit-equal ({n_ok} rows); count form counts "
         f"bit-equal; kernel {rec['ms']:.4f} ms"
         + (f" ({rec['graph_ms']:.4f} a launch in a CUDA graph)" if graph else "")
         + f", count form {rec['count_ms']:.4f} ms; plain {rec['plain_ms']:.2f} ms, count form "
-        f"{rec['plain_count_ms']:.2f} ms; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        f"{rec['plain_count_ms']:.2f} ms; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+        f"all-pairs bound {rec['all_pairs_bound_ms']:.4f} ms ({rec['all_pairs_bound_by']})")
+    if chunks:
+        blocks = vf._blocks
+        ms = []
+        try:
+            for c in chunks:
+                vf._blocks = lambda dev, T, C, D, c=c: vf.blocks_per_tile(dev, T, C, -(-C // c))
+                ms.append(cuda_ms(lambda: kern_fn(t_, a, b, cand, m), 20))
+        finally:
+            vf._blocks = blocks
+        lines.append(f"{what}, the kernel by candidate positions a block: " + ", ".join(
+            f"{c} {t:.4f} ms" for c, t in zip(chunks, ms)))
     if split:
         counts = plain[0]
         small = max(1, int(counts.max()) // 2)
@@ -932,12 +981,112 @@ def phase_fold(tree, vq, r, side, smi, main):
         for verb, call in (("radius", lambda: vd.radius_search(tree, q, r)),
                            ("range", lambda: vd.range_search(tree, q - half, q + half))):
             lines, rec = fold_case(f"{verb} fold, {rows} rows, {tag}", tree, verb, call,
-                                   graph=main, split=top)
+                                   graph=main or rows == max(VERB_ROWS), split=top,
+                                   chunks=(8, 64) if not main and rows == max(VERB_ROWS) else ())
             for line in lines:
                 say("fold", f"{line} [{smi}]")
             if top:
                 FOLD_RECS[f"verb_{verb}_fold"] = rec
     say("fold", f"the folds on the {tag} tree in {time.perf_counter() - t0:.1f} s")
+
+
+ADV_N = (1 << 16) - 700  # the adversarial trees: 254 buckets of 256, padded to 256 (2 empty leaves)
+ADV_DIMS = (3, 8, 47)
+ADV_SHAPES = ((16, 64), (1, 1), (3, 37))  # (tiles, queries a tile)
+
+
+def adversarial_inputs(d, dev, seed):
+    """Phase 4b's adversarial fold inputs at D = d. The tree: ``ADV_N``
+    integer grid points (a third of them copies of others, every zero of
+    every fifth point -0.0; the leaf boxes' faces lie on points), B = 256,
+    two empty leaves. For each shape of ``ADV_SHAPES``: radius rows centred
+    on points, each r2 the exact squared distance (the fold's arithmetic)
+    to its k-th nearest point, k in 1..64, so hits land at d2 == r2 and on
+    the leaf boxes' bounds, one row at r2 = 0, one centred with -0.0 for
+    each zero, the last rows padding (r2 = -1); range boxes with faces on
+    point coordinates, one of zero width with -0.0 faces, a slab infinite
+    on axis 0, one inverted on the last axis, one with every upper face
+    +inf, the last rows padding (lo = +inf, hi = -inf); the candidates every
+    bucket, empty leaves included, in a shuffled order with -1 entries.
+    Returns (tree, [(tq, r2, lo, hi, cand)])."""
+    import torch
+
+    from kdtree_tpu_torch.ops._arith import sq_dist
+    from kdtree_tpu_torch.ops.morton import build_morton
+
+    rng = np.random.default_rng(seed)
+    span = 8 if d == 3 else 3
+    pts = rng.integers(-span, span, (ADV_N, d)).astype(np.float32)
+    pts[1::3] = pts[rng.integers(0, ADV_N, pts[1::3].shape[0])]
+    fifth = pts[::5]
+    fifth[fifth == 0] = -0.0
+    points = torch.from_numpy(pts).to(dev)
+    tree = build_morton(points, bucket_cap=BUCKET)
+    assert bool((tree.node_lo[-tree.num_buckets:, 0] > tree.node_hi[-tree.num_buckets:, 0]).any())
+    cases = []
+    for T, TQ in ADV_SHAPES:
+        rows = T * TQ
+        c = pts[rng.integers(0, ADV_N, rows)].copy()
+        c[min(1, rows - 1)][c[min(1, rows - 1)] == 0] = -0.0
+        q = torch.from_numpy(c).to(dev)
+        k = torch.as_tensor(rng.integers(1, 65, rows), device=dev)
+        r2 = torch.empty(rows, dtype=torch.float32, device=dev)
+        for s in range(0, rows, 16):  # [16, N, D] of differences at a time
+            d2 = sq_dist(q[s:s + 16, None, :], points[None, :, :])
+            r2[s:s + 16] = torch.sort(d2, dim=1).values.gather(1, k[s:s + 16, None] - 1)[:, 0]
+        if rows > 2:
+            r2[0] = 0.0
+            r2[-min(3, rows - 2):] = -1.0
+        half = rng.integers(0, 3, (rows, d)) if d < 47 else rng.integers(2, 4, (rows, d))
+        lo, hi = (c - half).astype(np.float32), (c + half).astype(np.float32)
+        if rows > 6:
+            lo[0], hi[0] = c[1], c[1]  # zero width, -0.0 faces
+            lo[1, 0], hi[1, 0] = -np.inf, np.inf
+            lo[2, -1], hi[2, -1] = hi[2, -1] + 1, lo[2, -1]
+            hi[3] = np.inf
+            lo[-2:], hi[-2:] = np.inf, -np.inf
+        order = rng.permutation(tree.num_buckets).astype(np.int32)
+        cand = np.stack([np.insert(rng.permutation(order), rng.integers(0, order.size, 8), -1)
+                         for _ in range(T)]).astype(np.int32)
+        cases.append((q.reshape(T, TQ, d), r2.reshape(T, TQ),
+                      torch.from_numpy(lo).to(dev).reshape(T, TQ, d),
+                      torch.from_numpy(hi).to(dev).reshape(T, TQ, d),
+                      torch.from_numpy(cand).to(dev)))
+    return tree, cases
+
+
+def adversarial_folds(dev):
+    """Phase 4b's adversarial check: at every D of ``ADV_DIMS`` and shape of
+    ``ADV_SHAPES`` (:func:`adversarial_inputs`), both fold kernels against
+    their plain folds under :func:`_rows_equal`'s rules, at m above the
+    largest count, m = 0 and m below the largest count. Returns its lines."""
+    from kdtree_tpu_torch.kernels import verb_fold as vf
+
+    lines = []
+    for d in ADV_DIMS:
+        t0 = time.perf_counter()
+        tree, cases = adversarial_inputs(d, dev, SEED + 14 + d)
+        parts = []
+        for tq, r2, lo, hi, cand in cases:
+            T, TQ, _ = tq.shape
+            for verb, kern_fn, plain_fn, qa, qb in (
+                    ("radius", vf.radius_fold, vf._radius_fold_plain, tq, r2),
+                    ("range", vf.range_fold, vf._range_fold_plain, lo, hi)):
+                top = int(plain_fn(tree, qa, qb, cand, 0)[0].max())
+                kept = vf.leaf_pass_plain(tree, verb, qa, qb, cand)
+                frac = int(kept.sum()) / max(int((cand >= 0).sum()) * TQ, 1)
+                small = max(1, top // 2)
+                for m in (1 << max(top - 1, 0).bit_length(), 0, small):
+                    _, n_over, _ = _rows_equal(verb, kern_fn(tree, qa, qb, cand, m),
+                                               plain_fn(tree, qa, qb, cand, m), m)
+                    assert m != small or top < 2 or n_over > 0, \
+                        f"adversarial {verb} D={d}: m={m} is not below the largest count {top}"
+                parts.append(f"{verb} {T}x{TQ} (largest count {top}, kept_frac {frac:.4f})")
+        lines.append(f"adversarial folds D={d} ({tree}, C={cases[0][4].shape[1]}): both kernels "
+                     f"== the plain folds (counts bit-equal, canonical rows bit-equal where "
+                     f"count <= m) at m above the largest count, m = 0 and m below it: "
+                     + ", ".join(parts) + f"; {time.perf_counter() - t0:.1f} s")
+    return lines
 
 
 def _roofline(nbytes, flops):
@@ -3786,6 +3935,8 @@ def _run_phases(argv, here, t_run, keep) -> int:
 
     # 4b. the verbs' folds against their plain versions, on phase 4's tree
     # and phase 8's queries (phase 8 drives the verbs themselves)
+    for line in adversarial_folds(dev):
+        say("fold", line)
     vq = generate_queries(SEED + 950, DIM, MAX_BATCH + 1, device=dev).cpu().numpy()
     phase_fold(tree, vq, VERB_R, VERB_SIDE, smi, main=True)
 
@@ -4599,7 +4750,9 @@ def print_record(kind, smi, launches, merges, max_err, main_rec, sparse):
             "launches": FOLD_LAUNCHES[name], "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms"),
-            "graph_ms": rec["graph_ms"]})
+            "graph_ms": rec["graph_ms"],
+            **({"all_pairs_bound_ms": rec["all_pairs_bound_ms"], "kept_frac": rec["kept_frac"]}
+               if "kept_frac" in rec else {})})
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -18,9 +18,14 @@ query with more hits holds some m of them, and the verbs' retry loop reruns it
 with a buffer sized to its count. ``m = 0`` is the count form: the buffers
 come back with width 0 and nothing is allocated for them.
 
-``radius_fold.launches`` and ``range_fold.launches`` count kernel launches
-(plain integers), so a run can show that its main path went through the
-kernels.
+The kernels cull before they fold: a (query, bucket) pair whose leaf box
+cannot hold a hit (:func:`leaf_pass_plain`, the same test in plain PyTorch)
+never has its points read. The plain versions fold every point of every
+candidate, as the reference does; the cull changes no result.
+
+``radius_fold.launches`` and ``range_fold.launches`` count wrapper calls that
+launched the kernel (plain integers), so a run can show that its main path
+went through the kernels.
 """
 
 from __future__ import annotations
@@ -34,16 +39,28 @@ from torch.profiler import record_function
 
 from kdtree_tpu_torch.kernels import _build
 from kdtree_tpu_torch.kernels.scan_knn import _check, blocks_per_tile
-from kdtree_tpu_torch.ops._arith import sq_dist
+from kdtree_tpu_torch.ops._arith import sq_dist, sq_dist_to_box
 
 MAX_TILE = 256  # queries per tile: the kernel's shared counters
 ID_INF = 2**31 - 1  # the plain range fold's "no hit" id: real gids are < 2^31
 _SCAN_V = 4  # fewest buckets the plain folds take per chunk
 _FOLD_ELEMS = 1 << 22  # (query, point) lanes per plain fold step: wider
 # chunks when the tiles are few, so a small batch is not a long host loop
-_MAX_STAGE_ROW_BYTES = 48 * 1024  # two staged rows of D + 1 words in 96 KB
-_RADIUS_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-_RANGE_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_MAX_STAGE_ROW_BYTES = 48 * 1024  # a staged row of D + 1 words fits a 48 KB stage
+# Candidate positions a block at D != 3. At D = 3 the cull drops almost every
+# pair and a block's time is its box tests, so the folds split a tile as the
+# scan does; at wide D most pairs survive and each position is a bucket of
+# FP32 work, so short chunks spread it evenly over the SMs (chip_smoke.py
+# phase 9a times both at 1,000 rows of its 2^19 x 47-D tree).
+_WIDE_CHUNK = 8
+_RADIUS_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_RANGE_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+
+def _blocks(dev, T: int, C: int, D: int) -> int:
+    """Blocks a tile: the scan kernel's split at D = 3, one per
+    ``_WIDE_CHUNK`` positions at other D."""
+    return blocks_per_tile(dev, T, C, None if D == 3 else -(-C // _WIDE_CHUNK))
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,6 +85,8 @@ def _check_inputs(tree, name, tiles, cand, m: int):
     nb, B = tree.bucket_gid.shape
     _check("bucket_pts", tree.bucket_pts, torch.float32, (nb, B, D), dev)
     _check("bucket_gid", tree.bucket_gid, torch.int32, (nb, B), dev)
+    _check("node_lo", tree.node_lo, torch.float32, (2 * nb - 1, D), dev)
+    _check("node_hi", tree.node_hi, torch.float32, (2 * nb - 1, D), dev)
     if m < 0:
         raise ValueError(f"m must be >= 0, got {m}")
     if not 1 <= TQ <= MAX_TILE:
@@ -185,6 +204,35 @@ def _range_fold_plain(tree, qlo, qhi, cand, m: int):
     return counts, torch.where(best_i == ID_INF, -1, best_i)
 
 
+def leaf_pass_plain(tree, verb: str, qa, qb, cand) -> torch.Tensor:
+    """The kernels' cull in plain PyTorch: bool[T, TQ, C], whether query q
+    of tile t may hit a point of candidate ``cand[t, c]``. The leaf of bucket
+    b is heap slot ``num_buckets - 1 + b``, whose box covers the bucket's
+    real points only. ``verb`` "radius" (qa = tq, qb = r2): the leaf box's
+    squared distance in the scan's skip arithmetic
+    (:func:`~kdtree_tpu_torch.ops._arith.sq_dist_to_box`) is <= r2; rounding
+    is monotone, so it is never above a point's d2 and no hit is culled.
+    "range" (qa = lo, qb = hi): the query box is not inverted and meets the
+    leaf box on every axis (each compare written as not-disjoint, so a NaN
+    face never culls). A -1 candidate and an empty leaf (+inf / -inf box)
+    never pass, nor does a padding row (r2 < 0, the empty box)."""
+    T, _, D = qa.shape
+    sel = cand.long().clamp_min(0) + (tree.num_buckets - 1)
+    out = []
+    for t in range(T):  # one tile at a time: [TQ, C, D] at most
+        lo, hi = tree.node_lo[sel[t]], tree.node_hi[sel[t]]  # [C, D]
+        real = (cand[t] >= 0) & ~(lo[:, 0] > hi[:, 0])
+        if verb == "radius":
+            bnd = sq_dist_to_box(qa[t][:, None, :], lo[None], hi[None])  # [TQ, C]
+            ok = bnd <= qb[t][:, None]
+        else:
+            ql, qh = qa[t][:, None, :], qb[t][:, None, :]
+            ok = (~(lo[None] > qh) & ~(hi[None] < ql) & ~(ql > qh)).all(dim=-1)
+        out.append(ok & real[None, :])
+    return torch.stack(out) if out else torch.zeros(
+        (0, qa.shape[1], cand.shape[1]), dtype=torch.bool, device=qa.device)
+
+
 def radius_fold(tree, tq, r2, cand, m: int
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Radius fold over tiles: tq f32[T, TQ, D], r2 f32[T, TQ] (negative =
@@ -206,12 +254,13 @@ def radius_fold(tree, tq, r2, cand, m: int
     best_i = torch.full((T, TQ, m), -1, dtype=torch.int32, device=dev)
     if T == 0 or C == 0:
         return counts, best_d, best_i
-    S = blocks_per_tile(dev, T, C)
+    S = _blocks(dev, T, C, D)
     with torch.cuda.device(dev):  # the launch goes to the current device
         err = fn(tq.data_ptr(), r2.data_ptr(), cand.data_ptr(), tree.bucket_pts.data_ptr(),
-                 tree.bucket_gid.data_ptr(), counts.data_ptr(),
-                 best_d.data_ptr() if m else None, best_i.data_ptr() if m else None,
-                 T, TQ, D, C, B, m, S, torch.cuda.current_stream(dev).cuda_stream)
+                 tree.bucket_gid.data_ptr(), tree.node_lo.data_ptr(), tree.node_hi.data_ptr(),
+                 counts.data_ptr(), best_d.data_ptr() if m else None,
+                 best_i.data_ptr() if m else None, T, TQ, D, C, B, tree.num_buckets, m, S,
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"verb_radius_fold kernel launch failed with CUDA error {err}")
     radius_fold.launches += 1
@@ -236,12 +285,12 @@ def range_fold(tree, qlo, qhi, cand, m: int) -> Tuple[torch.Tensor, torch.Tensor
     best_i = torch.full((T, TQ, m), -1, dtype=torch.int32, device=dev)
     if T == 0 or C == 0:
         return counts, best_i
-    S = blocks_per_tile(dev, T, C)
+    S = _blocks(dev, T, C, D)
     with torch.cuda.device(dev):  # the launch goes to the current device
         err = fn(qlo.data_ptr(), qhi.data_ptr(), cand.data_ptr(), tree.bucket_pts.data_ptr(),
-                 tree.bucket_gid.data_ptr(), counts.data_ptr(),
-                 best_i.data_ptr() if m else None,
-                 T, TQ, D, C, B, m, S, torch.cuda.current_stream(dev).cuda_stream)
+                 tree.bucket_gid.data_ptr(), tree.node_lo.data_ptr(), tree.node_hi.data_ptr(),
+                 counts.data_ptr(), best_i.data_ptr() if m else None, T, TQ, D, C, B,
+                 tree.num_buckets, m, S, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"verb_range_fold kernel launch failed with CUDA error {err}")
     range_fold.launches += 1

@@ -318,7 +318,8 @@ def test_kernel_wrappers_raise_on_cuda_tensors_without_a_build(tmp_path):
         "def c(x):\n"
         "    return x.as_subclass(Cuda)\n"
         "tree = types.SimpleNamespace(bucket_pts=c(torch.zeros(4, 8, 3)),"
-        " bucket_gid=c(torch.zeros(4, 8, dtype=torch.int32)), bucket_size=8)\n"
+        " bucket_gid=c(torch.zeros(4, 8, dtype=torch.int32)), bucket_size=8,"
+        " num_buckets=4, node_lo=c(torch.zeros(7, 3)), node_hi=c(torch.zeros(7, 3)))\n"
         "tq = c(torch.zeros(2, 4, 3))\n"
         "cand = c(torch.zeros(2, 3, dtype=torch.int32))\n"
         "calls = [lambda: v.radius_fold(tree, tq, c(torch.ones(2, 4)), cand, 8),\n"

@@ -9,7 +9,8 @@ buckets' gid -1 slots, boxes with infinite faces, the count form, a
 ``visit_cap`` cut and m below the largest count. ``block_d2_exact`` (the
 ``pair_d2`` kernel's plain version here) equals the reference's jitted
 ``_block_d2_exact`` bit for bit, and the wrappers' checks refuse a wrong
-dtype, shape or device."""
+dtype, shape or device, the tree's leaf boxes (which the kernels' cull
+reads) included."""
 
 import functools
 
@@ -187,6 +188,15 @@ def _fold_args():
     return tt, torch.from_numpy(tq), torch.from_numpy(r2), cand
 
 
+def _tree_with(tt, **arrays):
+    """``tt`` with some of its arrays replaced."""
+    from kdtree_tpu_torch.ops.morton import MortonTree
+
+    fields = {k: getattr(tt, k) for k in ("node_lo", "node_hi", "bucket_pts", "bucket_gid")}
+    fields.update(arrays)
+    return MortonTree(**fields, n_real=tt.n_real, num_levels=tt.num_levels)
+
+
 _META = torch.device("meta")
 FOLD_BAD = [
     ("tq float64", lambda tt, tq, r2, cand: (tt, tq.double(), r2, cand, 8), "tq must be"),
@@ -202,6 +212,18 @@ FOLD_BAD = [
         tt, tq.repeat(1, 17, 1), r2.repeat(1, 17), cand, 8), "1..256 queries per tile"),
     ("tq on meta", lambda tt, tq, r2, cand: (tt, tq.to(_META), r2.to(_META), cand.to(_META), 8),
      "bucket_pts is on cpu, expected meta"),
+    ("node_lo float64", lambda tt, tq, r2, cand: (
+        _tree_with(tt, node_lo=tt.node_lo.double()), tq, r2, cand, 8), "node_lo must be"),
+    ("node_hi float64", lambda tt, tq, r2, cand: (
+        _tree_with(tt, node_hi=tt.node_hi.double()), tq, r2, cand, 8), "node_hi must be"),
+    ("node_lo shape", lambda tt, tq, r2, cand: (
+        _tree_with(tt, node_lo=tt.node_lo[1:]), tq, r2, cand, 8), "node_lo must have shape"),
+    ("node_hi shape", lambda tt, tq, r2, cand: (
+        _tree_with(tt, node_hi=tt.node_hi[:, :2]), tq, r2, cand, 8), "node_hi must have shape"),
+    ("node_lo device", lambda tt, tq, r2, cand: (
+        _tree_with(tt, node_lo=tt.node_lo.to(_META)), tq, r2, cand, 8), "node_lo is on meta"),
+    ("node_hi device", lambda tt, tq, r2, cand: (
+        _tree_with(tt, node_hi=tt.node_hi.to(_META)), tq, r2, cand, 8), "node_hi is on meta"),
 ]
 
 
