@@ -57,11 +57,12 @@ Phases, one line each (any failure raises and exits non-zero):
              requests of 1, 7, 64, 1000 and 1024 rows and one brute-force
              fallback batch, each checked against the brute-force oracle ->
              one morton_knn_tiled run of 2^20 queries, checked on a sample.
-             Both kernels' launch counts and pair_d2's are zeroed just
-             before this phase and must be > 0 after it (pair_d2: the
-             fallback batch). Then the served 7-, 64- and 1000-row
-             requests once more, each in a capture window of the package's
-             profiler: device time by kernel and the card's idle share, from
+             Both kernels' launch counts, pair_d2's and the frontier's are
+             zeroed just before this phase and must be > 0 after it
+             (pair_d2: the fallback batch). Then the served 7-, 64- and
+             1000-row requests once more, each in a capture window of the
+             package's profiler: device time by kernel (the scan, merge and
+             frontier kernels) and the card's idle share, from
              kdtree_tpu_torch.obs.timeline (as every device-time sum below);
 4b. fold   — the verbs' fold kernels (kernels for the reference's XLA
              programs) against their plain PyTorch versions. First the
@@ -85,13 +86,36 @@ Phases, one line each (any failure raises and exits non-zero):
              same checks (a graph at 1,000 rows, no split) on its D = 47
              tree, with phase 9's queries shrunk toward the centre (r = 290,
              side 162);
+4c. frontier — the frontier kernel (a kernel for the reference's XLA
+             program ``_frontier``) against ``_frontier`` run on the card,
+             bucket ids, lower bounds and overflow flags bit for bit. First
+             the adversarial check on phase 4b's integer-grid tree at D = 3
+             (lower bounds tied at every level): radius tiles, range union
+             boxes, a box infinite on axis 0, one infinite on every axis
+             (NaN gaps against the empty leaves), an all-padding tile and a
+             point box, at caps 1, 3, 6, 64 and 256, bound +inf, 0 and the
+             rows' r2, the shared sort at its default, 2 and 64 keys (small
+             caps on the radix path). Then on phase 4's tree the main tiled
+             batch's seed (cap 8) and collect (the plan's cmax) descents,
+             every descent of the 7-, 64- and 1000-row served batches, every
+             pass of ``radius_search`` and ``range_search`` at 1, 64 and
+             1,000 of phase 8's rows (the retry ladder from cap 64), and
+             the 1,000-row radius at the cap ceiling (pow2ceil of the
+             buckets); the last of each timed (the wrapper, a launch in a
+             CUDA graph, the plain version) beside its bound (one lower
+             bound per node the descent evaluates, 6 D flops, against each
+             distinct node box, the tiles' boxes and bounds and the outputs;
+             no selection counted). Phase 9a makes the same checks on its
+             D = 47 tree, phase 12 at a P = 4 shard;
 5. shapes  — on the 2^24 tree, the kernels against the plain version and
              timed (CUDA events) at the tiled run's collect shape and at the
              final collect dispatch of the 8-, 64- and 1024-row serve
              batches, each beside the bound its inputs define (per
              query, and the coarser tile-level count); at the serve
              shapes also swept over blocks per tile, each count checked
-             bit for bit;
+             bit for bit; one tiled batch by stage (the frontier kernel,
+             the plain frontier beside it) and in a capture window (its
+             device launches, the frontier kernel's two);
 6. cli     — the DFS engine and the one-shot CLI, with both kernels' launch
              counts zeroed just before and read just after: the headline
              (generate_problem + build_morton + morton_knn, 10 queries, k=1,
@@ -153,9 +177,10 @@ Phases, one line each (any failure raises and exits non-zero):
              request (the oracle in its handler thread), every answer equal
              to verbs/oracle.py on the card; HTTP ms and engine ms by verb and
              rows, overflow retries, and the frontier/fold split of a
-             1000-row radius batch under torch.profiler. The fold kernels'
-             and pair_d2's launch counts are zeroed just before these verb
-             requests and read just after them; each must be > 0. Scan-kernel
+             1000-row radius batch under torch.profiler. The fold kernels',
+             pair_d2's and the frontier's launch counts are zeroed just
+             before these verb requests and read just after them; each must
+             be > 0. Scan-kernel
              launches are counted from the end of the secondary's warmup to
              its stop and over its k-NN requests alone; both must be > 0.
              Then ``build --save`` at 2^20 points in process and ``python -m
@@ -229,8 +254,9 @@ Phases, one line each (any failure raises and exits non-zero):
              ``--trace``), then ``stats`` and ``stats --diff``.
 
 12. forest — the multi-device engines (``kdtree_tpu_torch.parallel``) on a
-             single-controller mesh, with both kernels' launch counts
-             zeroed just before and read just after: (a) bench.py's scale
+             single-controller mesh, with both kernels' launch counts and
+             the frontier's zeroed just before and read just after (scan
+             and frontier launches > 0): (a) bench.py's scale
              lane, build_global_morton at 2^26 x 3-D on a one-shard mesh
              (slack 1.05; generation and build, warm, best of 2, pts/s) and
              10 queries at k=1 by the per-shard DFS, d2 bit-equal to
@@ -257,7 +283,8 @@ Phases, one line each (any failure raises and exits non-zero):
              (4,096 queries, k=8: scan kernel launches > 0, exact). After
              the counts are read: the scan kernel against the plain scan at
              the P=1 and P=4 forest shapes (one shard's collect batch), timed
-             beside its bound.
+             beside its bound, and at the P=4 shard phase 4c's frontier check
+             on that batch's seed and collect descents.
 13. fleet  — README "Serving"'s shape as a fleet: ``partition --shards 4
              --n 2^24`` (seed 42, threefry; its seconds and each shard's n,
              id range, code range and box), ``morton_codes_np`` equal to
@@ -269,8 +296,8 @@ Phases, one line each (any failure raises and exits non-zero):
              same points (distances, and ids up to exact ties), with the
              router ms, the shards contacted, overflow retries per shard
              and scan launches per request (both kernels' launch counts
-             zeroed just before these requests and read just after; scan
-             launches > 0), the 64 rows sent to each shard directly, and
+             and the frontier's zeroed just before these requests and read
+             just after; scan and frontier launches > 0), the 64 rows sent to each shard directly, and
              shard 0's scan at its 64-row serving shape against the plain
              scan; then the user's path: four ``serve --snapshot``
              processes and a ``--snapshot-follow`` read replica of shard 0
@@ -302,8 +329,9 @@ Phases, one line each (any failure raises and exits non-zero):
              by the tree's buckets (sum 2^24), ``kdtree_tile_batches_total``
              by the run's batches (16), ``kdtree_tile_overflow_retries_total``
              by its ``stats.retries``, the plan profile's ``occupancy_p90``,
-             both kernels' launch counts zeroed just before the build and
-             read just after the run (scan launches > 0), the run's seconds
+             both kernels' launch counts and the frontier's zeroed just
+             before the build and read just after the run (scan launches >
+             0), the run's seconds
              beside phase 4's with the metrics off and then off, on, on,
              off. In (a) the same load then runs on a plain server, for the
              sanitizer's cost.
@@ -379,7 +407,7 @@ OBS_CLIENTS = 4  # phase 11's concurrent HTTP clients
 OBS_ROWS = (1, 7, 64, 1000)
 OBS_PROFILE_S = 2.0  # the /debug/profile window under load
 OBS_DUTY_PERIOD_S = "5"  # KDTREE_TPU_PROFILE_DUTY_PERIOD_S of the duty-cycle run
-OBS_BLOCK_S = 6.0  # each block of phase 11's served-overhead measurement
+OBS_BLOCK_S = 4.0  # each block of phase 11's served-overhead measurement
 SCALE_N = 1 << 26  # phase 12a: bench.py's scale lane, one shard
 SCALE_Q = 10
 SPMD_N = 1 << 22  # phase 12b: bench.py's SPMD tiled lane, one shard
@@ -909,14 +937,12 @@ def fold_case(what, tree, verb, call, graph, split=False, chunks=()):
     assert n_over == 0, f"{what}: the verb's last fold left a count above m={m}"
     hits = int(plain[0].sum())
     assert hits == int(res.counts.sum()), f"{what}: the verb's counts differ from its fold's"
+    # the count form against the plain fold's counts, which do not depend on m
     kc = kern_fn(t_, a, b, cand, 0)
-    pc, plain_count_ms = event_ms(lambda: plain_fn(t_, a, b, cand, 0))
-    _rows_equal(verb, kc, pc, 0)
-    assert torch.equal(kc[0], kern[0]), f"{what}: the count form's counts differ"
+    _rows_equal(verb, kc, plain, 0)
     assert kc[-1].shape[-1] == 0, f"{what}: the count form has a buffer"
     rec = {"ms": cuda_ms(lambda: kern_fn(t_, a, b, cand, m), 20), "plain_ms": plain_ms,
-           "count_ms": cuda_ms(lambda: kern_fn(t_, a, b, cand, 0), 20),
-           "plain_count_ms": plain_count_ms, "max_abs_err": err}
+           "count_ms": cuda_ms(lambda: kern_fn(t_, a, b, cand, 0), 20), "max_abs_err": err}
     rec["graph_ms"] = (graph_ms(lambda: kern_fn(t_, a, b, cand, m), FOLD_GRAPH_LAUNCHES, 5)
                        if graph else None)
     rec.update(fold_bound(verb, t_, a, b, cand, m))
@@ -927,8 +953,8 @@ def fold_case(what, tree, verb, call, graph, split=False, chunks=()):
         f"counts bit-equal, canonical rows bit-equal ({n_ok} rows); count form counts "
         f"bit-equal; kernel {rec['ms']:.4f} ms"
         + (f" ({rec['graph_ms']:.4f} a launch in a CUDA graph)" if graph else "")
-        + f", count form {rec['count_ms']:.4f} ms; plain {rec['plain_ms']:.2f} ms, count form "
-        f"{rec['plain_count_ms']:.2f} ms; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+        + f", count form {rec['count_ms']:.4f} ms; plain {rec['plain_ms']:.2f} ms; bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
         f"all-pairs bound {rec['all_pairs_bound_ms']:.4f} ms ({rec['all_pairs_bound_by']})")
     if chunks:
         blocks = vf._blocks
@@ -1087,6 +1113,237 @@ def adversarial_folds(dev):
                      f"count <= m) at m above the largest count, m = 0 and m below it: "
                      + ", ".join(parts) + f"; {time.perf_counter() - t0:.1f} s")
     return lines
+
+
+FRONTIER_REPS = 10
+FRONTIER_GRAPH_LAUNCHES = 10
+FRONTIER_PLAIN_REPS = 3
+BATCH_SPINS = 16  # spin kernels ahead of phase 5's captured batch
+FRONTIER_LAUNCHES = {}  # phase -> frontier.launches over its driven window
+FRONTIER_RECS = {}  # "main": the record at the main collect shape (the kernels line)
+
+
+@contextlib.contextmanager
+def frontier_calls():
+    """Keep the arguments of every frontier call the port makes. The tiled
+    batch imports the wrapper when it runs and the verbs hold it from their
+    import, so both names are swapped for a spy that calls the wrapper; the
+    wrapper counts its launches on the name it runs under, so the spy
+    carries the count and hands it back."""
+    from kdtree_tpu_torch.kernels import frontier as fmod
+    from kdtree_tpu_torch.verbs import device as vd
+
+    real, seen = fmod.frontier, []
+
+    def spy(tree, box_lo, box_hi, bound, cap, smem_keys=None):
+        seen.append((tree, box_lo, box_hi, bound, cap))
+        return real(tree, box_lo, box_hi, bound, cap, smem_keys)
+
+    spy.launches = real.launches
+    fmod.frontier = vd.frontier = spy
+    try:
+        yield seen
+    finally:
+        real.launches = spy.launches
+        fmod.frontier = vd.frontier = real
+
+
+def frontier_bound(tree, blo, bhi, bound, cap):
+    """The least time the card needs for this descent, from what its inputs
+    need: one lower bound per node the descent evaluates (the start level's
+    2^s, then both children of each live slot), 6 D flops each (per axis 2
+    subtractions, 2 maxima and an FMA) over 67 TFLOP/s, against each
+    distinct node box read once, the tile boxes and bounds, and the outputs
+    written, over 3.35 TB/s. It counts no selection. The walk is
+    ``_frontier``'s, counted."""
+    import torch
+
+    from kdtree_tpu_torch.kernels.frontier import start_level
+    from kdtree_tpu_torch.ops import tile_query as tqm
+
+    T, D = blo.shape
+    L = tree.num_levels
+    s = start_level(cap, L)
+    m = 1 << s
+    inf = torch.tensor(float("inf"), device=blo.device)
+    ids = (torch.arange(m, dtype=torch.int64, device=blo.device) + (m - 1)).expand(T, m)
+    evals, nodes = T * m, m
+    lb = tqm._gathered_box_lb(tree, blo, bhi, ids)
+    lb = torch.where(lb <= bound[:, None], lb, inf)
+    if m < cap:
+        ids = torch.cat([ids, torch.zeros((T, cap - m), dtype=torch.int64, device=blo.device)], 1)
+        lb = torch.cat([lb, torch.full((T, cap - m), float("inf"), device=blo.device)], 1)
+    lb, ids = tqm._keep_smallest(lb, ids, cap)
+    for _ in range(s, L):
+        alive = torch.isfinite(lb)
+        cids = torch.cat([2 * ids + 1, 2 * ids + 2], dim=1)
+        calive = torch.cat([alive, alive], dim=1)
+        evals += int(calive.sum())
+        nodes += int(torch.unique(cids[calive]).numel())
+        clb = tqm._gathered_box_lb(tree, blo, bhi, cids.clamp(0, tree.heap_size - 1))
+        clb = torch.where(calive & (clb <= bound[:, None]), clb, inf)
+        lb, ids = tqm._keep_smallest(clb, cids, cap)
+    bound_ms, bound_by, t_bytes, t_ops = _roofline(
+        nodes * 2 * D * 4 + T * (2 * D * 4 + 4) + T * cap * 8 + T, evals * 6 * D)
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "bytes_ms": t_bytes, "ops_ms": t_ops,
+            "evals": evals, "nodes": nodes}
+
+
+def frontier_case(name, tree, blo, bhi, bound, cap, timed=False, smem_keys=None):
+    """The frontier kernel against ``_frontier`` on the card, bucket ids,
+    lower bounds and overflow flags bit for bit; ``timed`` adds its time
+    through the wrapper, as a launch in a CUDA graph, the plain version's
+    and the bound. Returns its record."""
+    import torch
+
+    from kdtree_tpu_torch.kernels.frontier import frontier
+    from kdtree_tpu_torch.ops import tile_query as tqm
+
+    blo, bhi, bound = blo.contiguous(), bhi.contiguous(), bound.contiguous()
+    got = frontier(tree, blo, bhi, bound, cap, smem_keys)
+    want = tqm._frontier(tree, blo, bhi, bound, cap)
+    torch.cuda.synchronize()
+    for g, w, what in zip(got, want, ("bucket ids", "lower bounds", "overflow flags")):
+        assert torch.equal(g, w), f"frontier kernel != _frontier at {name}, cap {cap}: {what}"
+    rec = {"name": name, "T": blo.shape[0], "cap": cap, "kept": int((want[0] >= 0).sum()),
+           "overflow": int(want[2].sum())}
+    if timed:
+        def call():
+            return frontier(tree, blo, bhi, bound, cap)
+
+        rec["ms"] = cuda_ms(call, FRONTIER_REPS)
+        rec["graph_ms"] = graph_ms(call, FRONTIER_GRAPH_LAUNCHES, FRONTIER_REPS)
+        rec["plain_ms"] = cuda_ms(lambda: tqm._frontier(tree, blo, bhi, bound, cap),
+                                  FRONTIER_PLAIN_REPS)
+        rec.update(frontier_bound(tree, blo, bhi, bound, cap))
+    return rec
+
+
+def frontier_line(rec):
+    head = (f"frontier {rec['name']} (T={rec['T']}, cap {rec['cap']}): bit-equal to _frontier "
+            f"({rec['kept']} buckets kept, {rec['overflow']} tiles overflowed)")
+    if "ms" not in rec:
+        return head
+    return (f"{head}; {rec['ms']:.4f} ms ({rec['graph_ms']:.4f} a launch in a CUDA graph), "
+            f"plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}; "
+            f"bytes {rec['bytes_ms']:.6f}, operations {rec['ops_ms']:.6f}; {rec['evals']} lower "
+            f"bounds, {rec['nodes']} distinct nodes; no selection counted)")
+
+
+def frontier_tiled(name, tree, tq, kk, seeds, cap):
+    """The seed and collect descents of one tiled batch of tiles ``tq``:
+    the seed at bound +inf and cap ``seeds``, the collect at the bound the
+    seed's scan gives and cap ``cap``; both checked and timed. Returns
+    their records."""
+    import torch
+
+    from kdtree_tpu_torch.kernels.frontier import frontier
+    from kdtree_tpu_torch.kernels.scan_knn import scan_tiles
+
+    T = tq.shape[0]
+    blo, bhi = tq.amin(1), tq.amax(1)
+    inf = torch.full((T,), float("inf"), device=tq.device)
+    seed = frontier_case(f"{name} seed", tree, blo, bhi, inf, seeds, timed=True)
+    c0, l0, _ = frontier(tree, blo, bhi, inf, seeds)
+    sd, _ = scan_tiles(tree, tq, c0, l0, kk)
+    bound = sd[..., -1].amax(1)
+    return seed, frontier_case(f"{name} collect", tree, blo, bhi, bound, cap, timed=True)
+
+
+def adversarial_frontier(dev):
+    """Phase 4c's adversarial check: on the integer-grid tree of phase 4b's
+    adversarial folds at D = 3 (2^16 - 700 points, duplicates and -0.0,
+    two empty leaves, lower bounds tied at every level), tile boxes of
+    radius tiles and range union boxes, a range box infinite on one axis,
+    one infinite on every axis (NaN gaps against the empty leaves), an
+    all-padding tile and a point box, at bound +inf, 0 and the radius
+    rows' r2, caps 1, 3, 6, 64 and the leaf count, each also with the
+    shared-memory sort forced down to 2 and 64 keys (the radix path).
+    Returns its lines."""
+    import torch
+
+    t0 = time.perf_counter()
+    tree, cases = adversarial_inputs(3, dev, SEED + 15)
+    tq, r2, lo, hi, _ = cases[0]
+    inf = torch.tensor(float("inf"), device=dev)
+    one_lo, one_hi = lo.amin(1)[:1].clone(), hi.amax(1)[:1].clone()
+    one_lo[0, 0], one_hi[0, 0] = -inf, inf
+    pt = tq[0, :1, :]
+    blo = torch.cat([tq.amin(1), lo.amin(1), one_lo, -inf.expand(1, 3), inf.expand(1, 3), pt])
+    bhi = torch.cat([tq.amax(1), hi.amax(1), one_hi, inf.expand(1, 3), -inf.expand(1, 3), pt])
+    T = blo.shape[0]
+    bounds = {"+inf": torch.full((T,), float("inf"), device=dev),
+              "0": torch.zeros(T, device=dev),
+              "r2": torch.cat([r2.amax(1), r2.amax(1), torch.full((T - 32,), 4.0, device=dev)])}
+    n = 0
+    for cap in (1, 3, 6, 64, tree.num_buckets):
+        for bname, bound in bounds.items():
+            for sk in (None, 2, 64):
+                if sk is not None and 2 * cap <= sk:
+                    continue
+                frontier_case(f"adversarial bound {bname}", tree, blo, bhi, bound, cap,
+                              smem_keys=sk)
+                n += 1
+    return [f"adversarial frontier ({tree}, T={T}: 16 radius tiles, 16 range union boxes, "
+            f"one infinite on axis 0, one infinite on every axis, an all-padding tile, a point "
+            f"box): kernel == _frontier bit for bit in {n} cases (caps 1, 3, 6, 64, "
+            f"{tree.num_buckets}; bound +inf, 0 and the rows' r2; shared sort at its default, "
+            f"2 and 64 keys); {time.perf_counter() - t0:.1f} s"]
+
+
+def phase_frontier(tree, sq, plan, engine, served, vq, smi):
+    """Phase 4c: the frontier kernel against ``_frontier`` on the card (see
+    the module docstring). Prints its lines; returns the record at the main
+    collect shape."""
+    import torch
+
+    from kdtree_tpu_torch.ops import tile_query as tqm
+    from kdtree_tpu_torch.verbs import device as vd
+
+    t0 = time.perf_counter()
+    for line in adversarial_frontier(sq.device):
+        say("frontier", line)
+    kk = min(K, tree.n_real)
+    tq = sq[: plan.qbatch].reshape(-1, plan.tile, DIM).contiguous()
+    seed, main = frontier_tiled("main tiled batch", tree, tq, kk, plan.seeds, plan.cmax)
+    for rec in (seed, main):
+        say("frontier", f"{frontier_line(rec)} [{smi}]")
+
+    # the serve batches and the verbs, every call they make (overflow
+    # retries included); the last call of each timed
+    def check_calls(what, calls):
+        assert calls, f"{what} made no frontier call"
+        for i, (tr, blo, bhi, bound, cap) in enumerate(calls):
+            rec = frontier_case(what, tr, blo, bhi, bound, cap, timed=i == len(calls) - 1)
+        say("frontier", f"{frontier_line(rec)}; caps of its {len(calls)} calls "
+                        f"{[c[4] for c in calls]} all bit-equal [{smi}]")
+        return rec
+
+    for q, _, _, rows, bucket, _, _ in served:
+        if rows not in (7, 64, 1000):
+            continue
+        qp = np.concatenate([q, np.broadcast_to(q[-1], (bucket - rows, DIM))])
+        with frontier_calls() as calls:
+            engine.knn_batch(qp)
+        check_calls(f"serve {rows} rows (bucket {bucket})", calls)
+    half = np.float32(VERB_SIDE / 2)
+    last = {}
+    for rows in VERB_ROWS:
+        q = vq[:rows]
+        for verb, call in (("radius", lambda: vd.radius_search(tree, q, VERB_R)),
+                           ("range", lambda: vd.range_search(tree, q - half, q + half))):
+            with frontier_calls() as calls:
+                call()
+            last[verb] = calls[-1]
+            check_calls(f"{verb} {rows} rows", calls)
+    ceiling = vd._cap_ceiling(tree)
+    for verb, (tr, blo, bhi, bound, cap) in last.items():
+        if cap < ceiling:
+            rec = frontier_case(f"{verb} 1000 rows at the cap ceiling", tr, blo, bhi, bound,
+                                ceiling, timed=True)
+            say("frontier", f"{frontier_line(rec)} [{smi}]")
+    say("frontier", f"phase 4c in {time.perf_counter() - t0:.1f} s")
+    return main
 
 
 def _roofline(nbytes, flops):
@@ -1264,6 +1521,7 @@ def phase_shapes(tree, sq, plan):
     holds). Returns the records by shape."""
     import torch
 
+    from kdtree_tpu_torch.kernels.frontier import frontier
     from kdtree_tpu_torch.kernels.scan_knn import scan_tiles
     from kdtree_tpu_torch.ops import tile_query as tqm
     from kdtree_tpu_torch.ops.generate import generate_queries
@@ -1278,20 +1536,55 @@ def phase_shapes(tree, sq, plan):
         ms = cuda_ms(lambda: scan_tiles(tree, tq, cand, lb, kk, splits=sp), 20)
         say("kernel", f"main collect shape forced to {sp} blocks/tile: {ms:.4f} ms")
 
-    # the batch's stages, for the breakdown
+    # the batch's stages, for the breakdown (the plain frontier beside the
+    # kernel), then the whole batch in a capture window
     T = tq.shape[0]
     blo, bhi = tq.amin(1), tq.amax(1)
     inf = torch.full((T,), float("inf"), device=dev)
-    c0, l0, _ = tqm._frontier(tree, blo, bhi, inf, plan.seeds)
+    c0, l0, _ = frontier(tree, blo, bhi, inf, plan.seeds)
     sd, _ = scan_tiles(tree, tq, c0, l0, kk)
     bound = sd[..., -1].amax(1)
     recs["stages"] = {
         "hilbert sort": cuda_ms(lambda: tqm._sort_queries(sq[: plan.qbatch], plan.bits, 0), 5),
-        "seed frontier": cuda_ms(lambda: tqm._frontier(tree, blo, bhi, inf, plan.seeds), 5),
+        "seed frontier": cuda_ms(lambda: frontier(tree, blo, bhi, inf, plan.seeds), 5),
         "seed scan": cuda_ms(lambda: scan_tiles(tree, tq, c0, l0, kk), 5),
-        "collect frontier": cuda_ms(lambda: tqm._frontier(tree, blo, bhi, bound, plan.cmax), 5),
+        "collect frontier": cuda_ms(lambda: frontier(tree, blo, bhi, bound, plan.cmax), 5),
         "collect scan": recs["main"]["ms"],
     }
+    recs["graph stages"] = {
+        "seed frontier": graph_ms(lambda: frontier(tree, blo, bhi, inf, plan.seeds),
+                                  FRONTIER_GRAPH_LAUNCHES, 5),
+        "collect frontier": graph_ms(lambda: frontier(tree, blo, bhi, bound, plan.cmax),
+                                     FRONTIER_GRAPH_LAUNCHES, 5),
+    }
+    recs["plain stages"] = {
+        "seed frontier": cuda_ms(lambda: tqm._frontier(tree, blo, bhi, inf, plan.seeds), 5),
+        "collect frontier": cuda_ms(lambda: tqm._frontier(tree, blo, bhi, bound, plan.cmax), 5),
+    }
+
+    def batch():
+        # a window missed the first device work of a batch that began it (4
+        # of its ~13 launches, one a frontier launch, on the card), so spin
+        # kernels go first and are taken out of the count
+        for _ in range(BATCH_SPINS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        return tqm._tiled_batch_core(tree, sq[: plan.qbatch], K, plan.tile, plan.cmax,
+                                     plan.seeds, plan.v, plan.tb, use_kernel=True)
+
+    n0 = frontier.launches
+    _, rep = captured(batch, dev)
+    FRONTIER_LAUNCHES["5"] = frontier.launches - n0
+    f_us, f_n = kernel_us(rep, "frontier_kernel")
+    assert FRONTIER_LAUNCHES["5"] == 2 and f_n > 0, \
+        f"one tiled batch: the timeline's frontier launches {f_n}, the wrapper's " \
+        f"{FRONTIER_LAUNCHES['5']} (want 2: the seed and the collect pass)"
+    spin_us, spins = kernel_us(rep, "spin_kernel")
+    recs["batch"] = {"slices": rep["device"]["n_slices"] - spins, "spins": spins,
+                     "busy_ms": (rep["device"]["busy_us"] - spin_us) / 1e3,
+                     "frontier_ms": f_us / 1e3, "frontier_launches": f_n,
+                     "top": [(m["module"][:40], m["n_slices"]) for m in rep["device"]["modules"]
+                             if "spin_kernel" not in m["module"]][:8]}
 
     for i, rows in enumerate(REQUEST_ROWS):
         if rows not in (7, 64, 1000):
@@ -1345,8 +1638,8 @@ def kernel_us(rep, name):
 
 def serve_profile(engine, served, dev):
     """Serve the 7-, 64- and 1000-row requests once more, each in a capture
-    window, and split its device time by kernel: the scan kernels against
-    the rest, which is the frontier's torch ops. Each answer must equal
+    window, and split its device time by kernel: the scan kernels, the
+    frontier kernel and the rest (the query sort, copies). Each answer must equal
     the one served before, and the timeline must name each kernel with
     the launches its wrapper counted in the window: the merge kernel too,
     on the 7- and 64-row requests, whose tiles are split. Returns one line
@@ -1375,6 +1668,8 @@ def serve_profile(engine, served, dev):
         assert dev_us > 0, f"the capture of a {rows}-row request holds no device slices"
         scan, n_scan = kernel_us(rep, "scan_knn_kernel")
         merge, n_merge = kernel_us(rep, "scan_knn_merge_kernel")
+        front, n_front = kernel_us(rep, "frontier_kernel")
+        assert n_front > 0, f"{rows}-row request: the timeline does not name frontier_kernel"
         assert (n_scan, n_merge) == counted, \
             f"{rows}-row request: the timeline's scan/merge launches {(n_scan, n_merge)} " \
             f"!= the wrappers' {counted}"
@@ -1384,8 +1679,9 @@ def serve_profile(engine, served, dev):
         lines.append(f"request {rows} rows: {wall:.2f} ms in a capture window; device ms "
                      f"{dev_us / 1e3:.3f} (scan kernel {scan / 1e3:.3f} over {n_scan} and "
                      f"merge kernel {merge / 1e3:.3f} over {n_merge} launches, each = its "
-                     f"wrapper's count; other (frontier, sort, copies) "
-                     f"{(dev_us - scan - merge) / 1e3:.3f}); the card idle "
+                     f"wrapper's count; frontier kernel {front / 1e3:.3f} over {n_front} "
+                     f"launches; other (sort, copies) {(dev_us - scan - merge - front) / 1e3:.3f}"
+                     f"); the card idle "
                      f"{100 * (1 - dev_us / 1e3 / wall):.1f}% of the request (obs.timeline); "
                      f"the window with start, stop and export {rep['window_s']:.2f} s")
     return lines
@@ -2133,6 +2429,7 @@ def phase_snapshot(dev, points, tree, here, smi, build_s):
 
     import torch
 
+    import kdtree_tpu_torch.kernels.frontier as frontier_mod
     import kdtree_tpu_torch.kernels.pair_d2 as pair_mod
     import kdtree_tpu_torch.kernels.scan_knn as scan_mod
     import kdtree_tpu_torch.kernels.verb_fold as fold_mod
@@ -2333,6 +2630,7 @@ def phase_snapshot(dev, points, tree, here, smi, build_s):
         http_ms, eng_ms, retries = {}, {}, {}
         fold_mod.radius_fold.launches = fold_mod.range_fold.launches = 0
         pair_mod.pair_d2.launches = 0
+        frontier_mod.frontier.launches = 0
         for rows in VERB_ROWS:
             q = vq[:rows]
             lo, hi = q - half, q + half
@@ -2370,9 +2668,10 @@ def phase_snapshot(dev, points, tree, here, smi, build_s):
         assert st == 200, (st, resp)
         _check_verb("oversized radius", resp, rad_all, "radius", degraded="oversized")
         verb_launches = (fold_mod.radius_fold.launches, fold_mod.range_fold.launches,
-                         pair_mod.pair_d2.launches)
+                         pair_mod.pair_d2.launches, frontier_mod.frontier.launches)
         FOLD_LAUNCHES["verb_radius_fold"], FOLD_LAUNCHES["verb_range_fold"] = verb_launches[:2]
         FOLD_LAUNCHES["pair_d2"] += verb_launches[2]
+        FRONTIER_LAUNCHES["8"] = verb_launches[3]
         if on_card:
             assert min(verb_launches) > 0, f"a verb kernel never launched: {verb_launches}"
         verbs_seen = sorted({v for v, _ in http_ms}, key=[
@@ -2388,7 +2687,8 @@ def phase_snapshot(dev, points, tree, here, smi, build_s):
                      f"thread): {big_ms:.2f} ms, exact; the checks' radius and range oracles "
                      f"over {MAX_BATCH + 1} rows: {oracle_s:.2f} s; over these requests "
                      f"radius_fold.launches={verb_launches[0]}, range_fold.launches="
-                     f"{verb_launches[1]}, pair_d2.launches={verb_launches[2]}")
+                     f"{verb_launches[1]}, pair_d2.launches={verb_launches[2]}, "
+                     f"frontier.launches={verb_launches[3]}")
 
         # the snapshot-served path alone: the secondary's k-NN requests
         before = scan_mod.scan_tiles.launches
@@ -2529,6 +2829,7 @@ def phase_wide(dev, smi):
         if d == WIDE_DIMS[0]:
             vq = (qs[:max(VERB_ROWS)] * WIDE_VERB_SCALE).cpu().numpy()
             phase_fold(tree, vq, WIDE_VERB_R, WIDE_VERB_SIDE, smi, main=False)
+            wide_frontier(tree, stq, kk, p.seeds, cand.shape[1], vq, smi)
         say("recall",
             f"D={d}: 2^{WIDE_N.bit_length() - 1} points built in {build_s:.3f} s; "
             f"morton_knn_tiled {WIDE_Q} queries "
@@ -2539,6 +2840,29 @@ def phase_wide(dev, smi):
             f"slots) [{smi}]")
         del pts, tree, qs, d2, ids, cand, lb, kd, ki, pd, pi
     return max_err
+
+
+def wide_frontier(tree, stq, kk, seeds, cap, vq, smi):
+    """Phase 9a's frontier check on the D = 47 tree: the tiled run's seed
+    and final collect descents, and every call of a 1,000-row radius and
+    range search (``vq``, ``WIDE_VERB_R``, cubes of ``WIDE_VERB_SIDE``),
+    the last of each timed."""
+    from kdtree_tpu_torch.verbs import device as vd
+
+    tag = f"2^{tree.n_real.bit_length() - 1} x {tree.dim}-D"
+    for rec in frontier_tiled(f"tiled batch, {tag}", tree, stq, kk, seeds, cap):
+        say("recall", f"{frontier_line(rec)} [{smi}]")
+    half = np.float32(WIDE_VERB_SIDE / 2)
+    q = vq[:max(VERB_ROWS)]
+    for verb, call in (("radius", lambda: vd.radius_search(tree, q, WIDE_VERB_R)),
+                       ("range", lambda: vd.range_search(tree, q - half, q + half))):
+        with frontier_calls() as calls:
+            call()
+        for i, (tr, blo, bhi, bound, c) in enumerate(calls):
+            rec = frontier_case(f"{verb} {len(q)} rows, {tag}", tr, blo, bhi, bound, c,
+                                timed=i == len(calls) - 1)
+        say("recall", f"{frontier_line(rec)}; caps of its {len(calls)} calls "
+                      f"{[c[4] for c in calls]} all bit-equal [{smi}]")
 
 
 def phase_recall(dev, points, tree, smi):
@@ -3426,6 +3750,9 @@ def _forest_shape(name, forest, queries, k, dev):
     tq = sq[: plan.qbatch].reshape(-1, plan.tile, queries.shape[1]).contiguous()
     tree = forest.shard(0, n_shard)
     cand, lb = collect_inputs(tree, tq, k, plan.seeds, plan.cmax, grow=True)
+    if forest.devices > 1:  # the frontier kernel at a P = 4 shard's seed and collect
+        for rec in frontier_tiled(name, tree, tq, k, plan.seeds, cand.shape[1]):
+            say("forest", frontier_line(rec))
     return time_shape(name, tree, tq, cand, lb, k, 1, 20, 1)
 
 
@@ -3440,6 +3767,7 @@ def phase_forest(dev, here, smi):
 
     import kdtree_tpu_torch.kernels.scan_knn as scan_mod
     from kdtree_tpu_torch import obs
+    from kdtree_tpu_torch.kernels.frontier import frontier
     from kdtree_tpu_torch.ops import bruteforce
     from kdtree_tpu_torch.ops import tile_query as tqm
     from kdtree_tpu_torch.ops.build import build_jit
@@ -3465,6 +3793,7 @@ def phase_forest(dev, here, smi):
 
     scan_mod.scan_tiles.launches = 0
     scan_mod.merge_partials.launches = 0
+    frontier.launches = 0
 
     # (a) bench.py's scale lane: gen + build at 2^26 on one shard, 10 queries
     q10 = generate_queries(77, DIM, SCALE_Q, device=dev)
@@ -3650,9 +3979,11 @@ def phase_forest(dev, here, smi):
 
     launches = scan_mod.scan_tiles.launches
     merges = scan_mod.merge_partials.launches
+    FRONTIER_LAUNCHES["12"] = frontier.launches
     assert launches > 0 or not on_card, "phase 12 never launched the scan kernel"
+    assert frontier.launches > 0 or not on_card, "phase 12 never launched the frontier kernel"
     lines.append(f"phase 12's path: scan_tiles.launches={launches}, "
-                 f"merge_partials.launches={merges}")
+                 f"merge_partials.launches={merges}, frontier.launches={frontier.launches}")
 
     # the kernel against the plain scan at the forest shapes (after the
     # counts were read)
@@ -3865,11 +4196,13 @@ def _run_phases(argv, here, t_run, keep) -> int:
     torch.cuda.synchronize()
     say("main", f"generated {N_POINTS} x {DIM} points in {time.perf_counter() - t0:.3f} s")
 
+    import kdtree_tpu_torch.kernels.frontier as frontier_mod
     import kdtree_tpu_torch.kernels.pair_d2 as pair_mod
 
     scan_mod.scan_tiles.launches = 0
     scan_mod.merge_partials.launches = 0
     pair_mod.pair_d2.launches = 0
+    frontier_mod.frontier.launches = 0
     t0 = time.perf_counter()
     tree = build_morton(points, bucket_cap=BUCKET)
     torch.cuda.synchronize()
@@ -3908,15 +4241,18 @@ def _run_phases(argv, here, t_run, keep) -> int:
     launches = scan_mod.scan_tiles.launches
     merges = scan_mod.merge_partials.launches
     FOLD_LAUNCHES["pair_d2"] = pair_mod.pair_d2.launches
+    FRONTIER_LAUNCHES["4"] = frontier_mod.frontier.launches
     say("main", f"tiled {TILED_QUERIES} queries k={K}: {tiled_s:.3f} s "
                 f"({TILED_QUERIES / tiled_s:.0f} q/s), {stats.batches} batches, "
                 f"{stats.retries} overflow retries, {launches - before} scan kernel "
                 f"launches; over the main path scan_tiles.launches={launches}, "
                 f"merge_partials.launches={merges}, pair_d2.launches="
-                f"{FOLD_LAUNCHES['pair_d2']} (the fallback batch)")
+                f"{FOLD_LAUNCHES['pair_d2']} (the fallback batch), frontier.launches="
+                f"{FRONTIER_LAUNCHES['4']}")
     assert launches > 0, "the main path never launched the scan kernel"
     assert merges > 0, "the main path never launched the merge kernel"
     assert FOLD_LAUNCHES["pair_d2"] > 0, "the fallback batch never launched pair_d2"
+    assert FRONTIER_LAUNCHES["4"] > 0, "the main path never launched the frontier kernel"
 
     # checks against the brute-force oracle (outside the counted window)
     for q, d2, ids, rows, bucket, ms, source in served:
@@ -3940,16 +4276,30 @@ def _run_phases(argv, here, t_run, keep) -> int:
     vq = generate_queries(SEED + 950, DIM, MAX_BATCH + 1, device=dev).cpu().numpy()
     phase_fold(tree, vq, VERB_R, VERB_SIDE, smi, main=True)
 
-    # 5. the kernels at the main path's shapes. The forced engine bypasses
-    # the plan store, so the shape is the density heuristic's whatever the
-    # phases before recorded (phase 4's overflow retry records a larger cmax)
+    # 4c. the frontier kernel against its plain version, at the main path's
+    # shapes. The forced engine bypasses the plan store, so the shape is the
+    # density heuristic's whatever the phases before recorded (phase 4's
+    # overflow retry records a larger cmax)
     plan = tqm.plan_tiled(TILED_QUERIES, DIM, tree.n_real, tree.num_buckets,
                           tree.bucket_size, K, use_kernel=True, device=dev)
     sq, _ = tqm._sort_queries(tq_all, plan.bits, (-TILED_QUERIES) % plan.qbatch)
+    FRONTIER_RECS["main"] = phase_frontier(tree, sq, plan, engine, served, vq, smi)
+
+    # 5. the kernels at the main path's shapes
     recs = phase_shapes(tree, sq, plan)
     say("main", f"one tiled batch (plan tile={plan.tile} cmax={plan.cmax} "
                 f"seeds={plan.seeds} qbatch={plan.qbatch}), ms by stage: "
-                + ", ".join(f"{n} {t:.3f}" for n, t in recs["stages"].items()))
+                + ", ".join(f"{n} {t:.3f}" for n, t in recs["stages"].items())
+                + " (the frontier kernel through its wrapper; a launch in a CUDA graph: "
+                + ", ".join(f"{n} {t:.3f}" for n, t in recs["graph stages"].items())
+                + "; the plain frontier: "
+                + ", ".join(f"{n} {t:.3f}" for n, t in recs["plain stages"].items())
+                + f"); the batch in a capture window after {recs['batch']['spins']} spin "
+                f"kernels (taken out): {recs['batch']['slices']} device launches (kernels, "
+                f"copies, fills), busy {recs['batch']['busy_ms']:.3f} ms, frontier_kernel "
+                f"{recs['batch']['frontier_ms']:.3f} ms over {recs['batch']['frontier_launches']} "
+                f"launches in the timeline (frontier.launches over the batch "
+                f"{FRONTIER_LAUNCHES['5']}); launches by kernel {recs['batch']['top']} [{smi}]")
     main_rec, sparse = recs["main"], recs[7]
 
     # 6. the DFS engine and the CLI
@@ -4109,6 +4459,7 @@ def phase_fleet(dev, here, smi, keep):
 
     from kdtree_tpu_torch import snapshot
     from kdtree_tpu_torch.kernels import scan_knn as scan_mod
+    from kdtree_tpu_torch.kernels.frontier import frontier
     from kdtree_tpu_torch.obs import slo as obs_slo
     from kdtree_tpu_torch.ops import tile_query as tqm
     from kdtree_tpu_torch.ops.generate import generate_points_rowwise, generate_queries
@@ -4202,6 +4553,7 @@ def phase_fleet(dev, here, smi, keep):
         inner = [h.state.engine for h in servers]
         scan_mod.scan_tiles.launches = 0
         scan_mod.merge_partials.launches = 0
+        frontier.launches = 0
         answers = {}
         ties = 0
         for router, fanout in zip(routers, ("selective", "full")):
@@ -4225,9 +4577,12 @@ def phase_fleet(dev, here, smi, keep):
                     "the single index")
         launches = scan_mod.scan_tiles.launches
         merges = scan_mod.merge_partials.launches
+        FRONTIER_LAUNCHES["13"] = frontier.launches
         assert launches > 0, "the fleet's shards never launched the scan kernel"
+        assert frontier.launches > 0, "the fleet's shards never launched the frontier kernel"
         lines.append(f"in-process fleet: scan_tiles.launches={launches}, "
-                     f"merge_partials.launches={merges} over the {2 * len(FLEET_ROWS)} routed "
+                     f"merge_partials.launches={merges}, frontier.launches="
+                     f"{frontier.launches} over the {2 * len(FLEET_ROWS)} routed "
                      f"requests; {ties} id slots differ from the single index, each a tie")
         for rows, q, _, _ in reqs:
             if rows != 64:
@@ -4493,6 +4848,7 @@ def phase_tools(dev, here, smi, keep, tiled_s, alone):
 
     from kdtree_tpu_torch import obs, snapshot
     from kdtree_tpu_torch.kernels import scan_knn as scan_mod
+    from kdtree_tpu_torch.kernels.frontier import frontier
     from kdtree_tpu_torch.obs.registry import get_registry
     from kdtree_tpu_torch.ops import tile_query as tqm
     from kdtree_tpu_torch.ops.generate import generate_points_rowwise, generate_queries
@@ -4636,6 +4992,7 @@ def phase_tools(dev, here, smi, keep, tiled_s, alone):
         obs.set_enabled(True)
         scan_mod.scan_tiles.launches = 0
         scan_mod.merge_partials.launches = 0
+        frontier.launches = 0
         try:
             before = families()
             points = generate_points_rowwise(SEED, DIM, N_POINTS, device=dev)
@@ -4652,6 +5009,7 @@ def phase_tools(dev, here, smi, keep, tiled_s, alone):
             on_s = time.perf_counter() - t0
             launches = scan_mod.scan_tiles.launches
             merges = scan_mod.merge_partials.launches
+            FRONTIER_LAUNCHES["14"] = frontier.launches
             t0 = time.perf_counter()
             obs.flush()
             flush_s = time.perf_counter() - t0
@@ -4753,6 +5111,14 @@ def print_record(kind, smi, launches, merges, max_err, main_rec, sparse):
             "graph_ms": rec["graph_ms"],
             **({"all_pairs_bound_ms": rec["all_pairs_bound_ms"], "kept_frac": rec["kept_frac"]}
                if "kept_frac" in rec else {})})
+    rec = FRONTIER_RECS["main"]  # the main tiled batch's collect descent
+    record["kernels"].append({
+        "name": "frontier", "route": "cuda", "source": "kdtree_tpu_torch/csrc/frontier.cu",
+        "replaces": "kdtree_tpu/ops/tile_query.py:113",
+        "launches": sum(FRONTIER_LAUNCHES.get(p, 0) for p in ("4", "8", "12", "13", "14")),
+        "max_abs_err": 0.0, "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
+        "graph_ms": rec["graph_ms"], "launches_by_phase": FRONTIER_LAUNCHES})
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -24,7 +24,10 @@ before the scan.
 
 Step 4 is the hand-written CUDA kernel on a CUDA device
 (:mod:`kdtree_tpu_torch.kernels.scan_knn`); :func:`_scan_tiles` here is its
-plain PyTorch version, the port of the JAX XLA scan. Results are exact:
+plain PyTorch version, the port of the JAX XLA scan. Steps 2 and 3 go
+through :func:`kdtree_tpu_torch.kernels.frontier.frontier`, the
+hand-written frontier kernel on a CUDA device, whose plain version is
+:func:`_frontier` here. Results are exact:
 the same d2 and ids as the JAX engine on the same tree and plan.
 
 Ties: a query's buffer keeps the incumbent on equal distance (the
@@ -338,11 +341,13 @@ def _tiled_batch_core(tree, sq, k: int, tile: int, cmax: int, seeds: int,
         def scan(cand, lb):
             return _scan_tiles(tree, tq, cand, lb, k, v, tb)
 
+    from kdtree_tpu_torch.kernels.frontier import frontier
+
     inf_bound = torch.full((T,), float("inf"), device=sq.device)
-    seed_cand, seed_lb, _ = _frontier(tree, box_lo, box_hi, inf_bound, seeds)
+    seed_cand, seed_lb, _ = frontier(tree, box_lo, box_hi, inf_bound, seeds)
     sd, _ = scan(seed_cand, seed_lb)
     tile_bound = sd[..., k - 1].amax(dim=1)
-    cand, cand_lb, overflow = _frontier(tree, box_lo, box_hi, tile_bound, cmax)
+    cand, cand_lb, overflow = frontier(tree, box_lo, box_hi, tile_bound, cmax)
     if visit_cap is not None and visit_cap < cand.shape[1]:
         # a column slice is not contiguous, and the kernel takes only
         # contiguous lists

@@ -4,8 +4,10 @@ The port of ``kdtree_tpu/verbs/device.py``. The k-NN tile engine already
 computes the one geometric fact every spatial verb needs: the exact
 box-to-box lower bound of |q - p|^2 between a tile of queries and a tree
 node, ranked lb-ascending by the level-synchronous frontier
-(:func:`~kdtree_tpu_torch.ops.tile_query._frontier`). The verbs reuse that
-frontier unchanged — only the *bound* and the *fold* differ per verb:
+(:func:`~kdtree_tpu_torch.kernels.frontier.frontier`: the hand-written
+kernel on the card, its plain version
+:func:`~kdtree_tpu_torch.ops.tile_query._frontier` on the CPU). The verbs
+reuse that frontier unchanged — only the *bound* and the *fold* differ per verb:
 
 - **radius** (all points with d(q, p) <= r): collect every bucket whose
   lower bound vs the tile's covering box is <= the tile's largest r^2;
@@ -53,10 +55,11 @@ import torch
 from torch.profiler import record_function
 
 from kdtree_tpu_torch.kernels import verb_fold
+from kdtree_tpu_torch.kernels.frontier import frontier
 from kdtree_tpu_torch.kernels.verb_fold import (  # noqa: F401 (the plain folds, named here)
     ID_INF, _radius_fold_plain, _range_fold_plain)
 from kdtree_tpu_torch.ops.morton import MortonTree, default_bits
-from kdtree_tpu_torch.ops.tile_query import _frontier, _sort_queries
+from kdtree_tpu_torch.ops.tile_query import _sort_queries
 from kdtree_tpu_torch.serve.engine import _pow2_ceil
 
 DEFAULT_TILE = 64  # queries per tile: verbs carry per-query bounds, so
@@ -187,7 +190,7 @@ def _radius_tiles(tree: MortonTree, tq, r2, cap: int, m: int,
     box_hi = tq.amax(dim=1)
     bound = r2.amax(dim=1)  # covers every query the tile holds
     with record_function("verbs.frontier"):
-        cand, cand_lb, overflow = _frontier(tree, box_lo, box_hi, bound, cap)
+        cand, cand_lb, overflow = frontier(tree, box_lo, box_hi, bound, cap)
         cand, cut = _truncate(cand, cand_lb, visit_cap)
         ovf, ncand, trunc = _live_candidates(cand, overflow, cut)
     if ovf and skip_fold_on_overflow:
@@ -214,7 +217,7 @@ def _range_tiles(tree: MortonTree, qlo, qhi, cap: int, m: int,
     box_hi = qhi.amax(dim=1)
     bound = torch.zeros(T, dtype=torch.float32, device=qlo.device)
     with record_function("verbs.frontier"):
-        cand, cand_lb, overflow = _frontier(tree, box_lo, box_hi, bound, cap)
+        cand, cand_lb, overflow = frontier(tree, box_lo, box_hi, bound, cap)
         cand, cut = _truncate(cand, cand_lb, visit_cap)
         ovf, ncand, trunc = _live_candidates(cand, overflow, cut)
     if ovf and skip_fold_on_overflow:
