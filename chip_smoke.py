@@ -94,19 +94,25 @@ Phases, one line each (any failure raises and exits non-zero):
              boxes, a box infinite on axis 0, one infinite on every axis
              (NaN gaps against the empty leaves), an all-padding tile and a
              point box, at caps 1, 3, 6, 64 and 256, bound +inf, 0 and the
-             rows' r2, the shared sort at its default, 2 and 64 keys (small
-             caps on the radix path). Then on phase 4's tree the main tiled
+             rows' r2, the shared keys a CTA at the default, 2 and 64 (the
+             device-memory path), then each case again at every cluster
+             size (1, 2, 4, 8, 16 CTAs a tile) in shared and in device
+             memory. Then on phase 4's tree the main tiled
              batch's seed (cap 8) and collect (the plan's cmax) descents,
              every descent of the 7-, 64- and 1000-row served batches, every
              pass of ``radius_search`` and ``range_search`` at 1, 64 and
              1,000 of phase 8's rows (the retry ladder from cap 64), and
              the 1,000-row radius at the cap ceiling (pow2ceil of the
              buckets); the last of each timed (the wrapper, a launch in a
-             CUDA graph, the plain version) beside its bound (one lower
-             bound per node the descent evaluates, 6 D flops, against each
-             distinct node box, the tiles' boxes and bounds and the outputs;
-             no selection counted). Phase 9a makes the same checks on its
-             D = 47 tree, phase 12 at a P = 4 shard;
+             CUDA graph, the plain version, the memory the call allocates
+             at its peak) beside its bound (one lower bound per node the
+             descent evaluates, 6 D flops, against each distinct node box,
+             the tiles' boxes and bounds and the outputs; no selection
+             counted), with the cluster size the plan chose; and every one
+             of these descents also checked and timed at every cluster size
+             (the sweep that chose ``kernels/frontier.py::_spread``). Phase
+             9a makes the same checks on its D = 47 tree, phase 12 at a
+             P = 4 shard;
 5. shapes  — on the 2^24 tree, the kernels against the plain version and
              timed (CUDA events) at the tiled run's collect shape and at the
              final collect dispatch of the 8-, 64- and 1024-row serve
@@ -1135,9 +1141,9 @@ def frontier_calls():
 
     real, seen = fmod.frontier, []
 
-    def spy(tree, box_lo, box_hi, bound, cap, smem_keys=None):
+    def spy(tree, box_lo, box_hi, bound, cap, smem_keys=None, cluster=None):
         seen.append((tree, box_lo, box_hi, bound, cap))
-        return real(tree, box_lo, box_hi, bound, cap, smem_keys)
+        return real(tree, box_lo, box_hi, bound, cap, smem_keys, cluster)
 
     spy.launches = real.launches
     fmod.frontier = vd.frontier = spy
@@ -1189,30 +1195,43 @@ def frontier_bound(tree, blo, bhi, bound, cap):
             "evals": evals, "nodes": nodes}
 
 
-def frontier_case(name, tree, blo, bhi, bound, cap, timed=False, smem_keys=None):
+def frontier_case(name, tree, blo, bhi, bound, cap, timed=False, smem_keys=None, cluster=None,
+                  want=None):
     """The frontier kernel against ``_frontier`` on the card, bucket ids,
-    lower bounds and overflow flags bit for bit; ``timed`` adds its time
-    through the wrapper, as a launch in a CUDA graph, the plain version's
-    and the bound. Returns its record."""
+    lower bounds and overflow flags bit for bit, on the wrapper's plan or
+    the forced ``cluster``/``smem_keys`` (``want``: ``_frontier``'s answer,
+    when the caller has it); ``timed`` adds its time through the wrapper,
+    as a launch in a CUDA graph, the plain version's, the bound and the
+    memory the call allocates at its peak. Returns its record."""
     import torch
 
-    from kdtree_tpu_torch.kernels.frontier import frontier
+    from kdtree_tpu_torch.kernels.frontier import frontier, plan
     from kdtree_tpu_torch.ops import tile_query as tqm
 
     blo, bhi, bound = blo.contiguous(), bhi.contiguous(), bound.contiguous()
-    got = frontier(tree, blo, bhi, bound, cap, smem_keys)
-    want = tqm._frontier(tree, blo, bhi, bound, cap)
+    got = frontier(tree, blo, bhi, bound, cap, smem_keys, cluster)
+    if want is None:
+        want = tqm._frontier(tree, blo, bhi, bound, cap)
     torch.cuda.synchronize()
+    p = plan(blo.shape[0], cap, tree.num_levels, smem_keys, cluster)
     for g, w, what in zip(got, want, ("bucket ids", "lower bounds", "overflow flags")):
-        assert torch.equal(g, w), f"frontier kernel != _frontier at {name}, cap {cap}: {what}"
+        assert torch.equal(g, w), (f"frontier kernel != _frontier at {name}, cap {cap}, "
+                                   f"{p}: {what}")
     rec = {"name": name, "T": blo.shape[0], "cap": cap, "kept": int((want[0] >= 0).sum()),
-           "overflow": int(want[2].sum())}
+           "overflow": int(want[2].sum()), "cluster": p.cluster, "slice": p.slice,
+           "path": "shared" if p.on_chip else "device"}
     if timed:
         def call():
-            return frontier(tree, blo, bhi, bound, cap)
+            return frontier(tree, blo, bhi, bound, cap, smem_keys, cluster)
 
         rec["ms"] = cuda_ms(call, FRONTIER_REPS)
         rec["graph_ms"] = graph_ms(call, FRONTIER_GRAPH_LAUNCHES, FRONTIER_REPS)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        call()
+        torch.cuda.synchronize()
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated() - base
         rec["plain_ms"] = cuda_ms(lambda: tqm._frontier(tree, blo, bhi, bound, cap),
                                   FRONTIER_PLAIN_REPS)
         rec.update(frontier_bound(tree, blo, bhi, bound, cap))
@@ -1220,21 +1239,46 @@ def frontier_case(name, tree, blo, bhi, bound, cap, timed=False, smem_keys=None)
 
 
 def frontier_line(rec):
-    head = (f"frontier {rec['name']} (T={rec['T']}, cap {rec['cap']}): bit-equal to _frontier "
+    head = (f"frontier {rec['name']} (T={rec['T']}, cap {rec['cap']}; {rec['cluster']} CTAs a "
+            f"tile, {rec['slice']} keys each in {rec['path']} memory): bit-equal to _frontier "
             f"({rec['kept']} buckets kept, {rec['overflow']} tiles overflowed)")
     if "ms" not in rec:
         return head
     return (f"{head}; {rec['ms']:.4f} ms ({rec['graph_ms']:.4f} a launch in a CUDA graph), "
             f"plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}; "
             f"bytes {rec['bytes_ms']:.6f}, operations {rec['ops_ms']:.6f}; {rec['evals']} lower "
-            f"bounds, {rec['nodes']} distinct nodes; no selection counted)")
+            f"bounds, {rec['nodes']} distinct nodes; no selection counted); max_memory_allocated "
+            f"over the call {rec['peak_bytes'] / 1e6:.3f} MB (outputs and scratch)")
 
 
-def frontier_tiled(name, tree, tq, kk, seeds, cap):
+def cluster_sweep(name, tree, blo, bhi, bound, cap):
+    """One descent at every cluster size the kernel takes, each checked
+    against ``_frontier`` and timed (the wrapper, a launch in a CUDA
+    graph): what the plan's choice is worth. Returns the line."""
+    from kdtree_tpu_torch.kernels.frontier import CLUSTERS, frontier
+    from kdtree_tpu_torch.ops import tile_query as tqm
+
+    want = tqm._frontier(tree, blo, bhi, bound, cap)
+    parts = []
+    for c in CLUSTERS:
+        rec = frontier_case(name, tree, blo, bhi, bound, cap, cluster=c, want=want)
+
+        def call():
+            return frontier(tree, blo, bhi, bound, cap, cluster=c)
+
+        ms = cuda_ms(call, FRONTIER_REPS)
+        g_ms = graph_ms(call, FRONTIER_GRAPH_LAUNCHES, FRONTIER_REPS)
+        parts.append(f"c={c} ({rec['path']}, {rec['slice']} keys) {ms:.4f} / {g_ms:.4f}")
+    return (f"frontier {name} (T={blo.shape[0]}, cap {cap}) by cluster size, bit-equal at each, "
+            f"ms through the wrapper / a launch in a CUDA graph: " + ", ".join(parts))
+
+
+def frontier_tiled(name, tree, tq, kk, seeds, cap, sweep=False):
     """The seed and collect descents of one tiled batch of tiles ``tq``:
     the seed at bound +inf and cap ``seeds``, the collect at the bound the
-    seed's scan gives and cap ``cap``; both checked and timed. Returns
-    their records."""
+    seed's scan gives and cap ``cap``; both checked and timed (``sweep``:
+    and at every cluster size, the line under "sweep"). Returns their
+    records."""
     import torch
 
     from kdtree_tpu_torch.kernels.frontier import frontier
@@ -1246,8 +1290,12 @@ def frontier_tiled(name, tree, tq, kk, seeds, cap):
     seed = frontier_case(f"{name} seed", tree, blo, bhi, inf, seeds, timed=True)
     c0, l0, _ = frontier(tree, blo, bhi, inf, seeds)
     sd, _ = scan_tiles(tree, tq, c0, l0, kk)
-    bound = sd[..., -1].amax(1)
-    return seed, frontier_case(f"{name} collect", tree, blo, bhi, bound, cap, timed=True)
+    bound = sd[..., -1].amax(1).contiguous()
+    collect = frontier_case(f"{name} collect", tree, blo, bhi, bound, cap, timed=True)
+    if sweep:
+        seed["sweep"] = cluster_sweep(seed["name"], tree, blo, bhi, inf, seeds)
+        collect["sweep"] = cluster_sweep(collect["name"], tree, blo, bhi, bound, cap)
+    return seed, collect
 
 
 def adversarial_frontier(dev):
@@ -1275,29 +1323,39 @@ def adversarial_frontier(dev):
     bounds = {"+inf": torch.full((T,), float("inf"), device=dev),
               "0": torch.zeros(T, device=dev),
               "r2": torch.cat([r2.amax(1), r2.amax(1), torch.full((T - 32,), 4.0, device=dev)])}
-    n = 0
+    from kdtree_tpu_torch.kernels.frontier import CLUSTERS
+    from kdtree_tpu_torch.ops import tile_query as tqm
+
+    n, forced, paths = 0, 0, set()
     for cap in (1, 3, 6, 64, tree.num_buckets):
         for bname, bound in bounds.items():
+            want = tqm._frontier(tree, blo, bhi, bound, cap)
             for sk in (None, 2, 64):
                 if sk is not None and 2 * cap <= sk:
                     continue
                 frontier_case(f"adversarial bound {bname}", tree, blo, bhi, bound, cap,
-                              smem_keys=sk)
+                              smem_keys=sk, want=want)
                 n += 1
+            # the same case at every cluster size, in shared memory and
+            # forced into device memory
+            for c in CLUSTERS:
+                for sk in (None, 2):
+                    rec = frontier_case(f"adversarial bound {bname}", tree, blo, bhi, bound,
+                                        cap, smem_keys=sk, cluster=c, want=want)
+                    paths.add((rec["cluster"], rec["path"]))
+                    forced += 1
     return [f"adversarial frontier ({tree}, T={T}: 16 radius tiles, 16 range union boxes, "
             f"one infinite on axis 0, one infinite on every axis, an all-padding tile, a point "
-            f"box): kernel == _frontier bit for bit in {n} cases (caps 1, 3, 6, 64, "
-            f"{tree.num_buckets}; bound +inf, 0 and the rows' r2; shared sort at its default, "
-            f"2 and 64 keys); {time.perf_counter() - t0:.1f} s"]
+            f"box): kernel == _frontier bit for bit in {n} cases on the plan (caps 1, 3, 6, 64, "
+            f"{tree.num_buckets}; bound +inf, 0 and the rows' r2; shared keys a CTA at the "
+            f"default, 2 and 64), and in {forced} more at every cluster size, in shared and in "
+            f"device memory ({sorted(paths)}); {time.perf_counter() - t0:.1f} s"]
 
 
 def phase_frontier(tree, sq, plan, engine, served, vq, smi):
     """Phase 4c: the frontier kernel against ``_frontier`` on the card (see
     the module docstring). Prints its lines; returns the record at the main
     collect shape."""
-    import torch
-
-    from kdtree_tpu_torch.ops import tile_query as tqm
     from kdtree_tpu_torch.verbs import device as vd
 
     t0 = time.perf_counter()
@@ -1305,9 +1363,11 @@ def phase_frontier(tree, sq, plan, engine, served, vq, smi):
         say("frontier", line)
     kk = min(K, tree.n_real)
     tq = sq[: plan.qbatch].reshape(-1, plan.tile, DIM).contiguous()
-    seed, main = frontier_tiled("main tiled batch", tree, tq, kk, plan.seeds, plan.cmax)
+    seed, main = frontier_tiled("main tiled batch", tree, tq, kk, plan.seeds, plan.cmax,
+                                sweep=True)
     for rec in (seed, main):
         say("frontier", f"{frontier_line(rec)} [{smi}]")
+        say("frontier", f"{rec['sweep']} [{smi}]")
 
     # the serve batches and the verbs, every call they make (overflow
     # retries included); the last call of each timed
@@ -1315,6 +1375,8 @@ def phase_frontier(tree, sq, plan, engine, served, vq, smi):
         assert calls, f"{what} made no frontier call"
         for i, (tr, blo, bhi, bound, cap) in enumerate(calls):
             rec = frontier_case(what, tr, blo, bhi, bound, cap, timed=i == len(calls) - 1)
+            say("frontier", f"{cluster_sweep(f'{what}, call {i}', tr, blo, bhi, bound, cap)}"
+                            f" [{smi}]")
         say("frontier", f"{frontier_line(rec)}; caps of its {len(calls)} calls "
                         f"{[c[4] for c in calls]} all bit-equal [{smi}]")
         return rec
@@ -5118,7 +5180,8 @@ def print_record(kind, smi, launches, merges, max_err, main_rec, sparse):
         "launches": sum(FRONTIER_LAUNCHES.get(p, 0) for p in ("4", "8", "12", "13", "14")),
         "max_abs_err": 0.0, "ms": rec["ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
-        "graph_ms": rec["graph_ms"], "launches_by_phase": FRONTIER_LAUNCHES})
+        "graph_ms": rec["graph_ms"], "cluster": rec["cluster"],
+        "launches_by_phase": FRONTIER_LAUNCHES})
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -2,8 +2,11 @@
 port's ``kernels.frontier.frontier`` on CPU tensors (where it runs its
 plain version, ``ops/tile_query.py::_frontier``), bucket ids, lower bounds
 and overflow flags bit for bit; and the kernel's step-for-step mirror
-``frontier_mirror`` against ``_frontier`` on both of its selection paths
-(a sort of the level's keys, and the radix passes past ``smem_keys``).
+``frontier_mirror`` against ``_frontier`` and the jitted JAX ``_frontier``
+at every cluster size the wrapper can choose, with its keys in shared
+memory, in a slice forced down to the level, and in device memory (the
+``smem_keys`` argument), its stats showing each path reached; and the plan
+that picks the cluster size from the shapes.
 
 Each tree comes with Hilbert-sorted query tiles and the tile boxes the
 verbs give the descent: a range union box infinite on one axis, one
@@ -107,24 +110,94 @@ def test_frontier_equals_the_jax_frontier(name, cap):
             assert not po.any() and (pl[pl < np.inf] == 0).all()
 
 
-@pytest.mark.parametrize("name,cap", CASES)
-def test_mirror_equals_the_plain_frontier(name, cap):
-    """The mirror on its shared-memory path (the default ``smem_keys``) and
-    forced onto its radix path (``smem_keys`` 2: every level with more than
-    two candidates), against ``_frontier``."""
-    seen = {"shared": 0, "radix": 0, "passes": 0, "passes_skipped": 0}
+@functools.lru_cache(maxsize=None)
+def _want(name, kind, cap):
+    """``_frontier``'s answer, checked once against the jitted JAX one."""
+    jt, _, lo, hi, bounds = _setup(name)
+    want = ttq._frontier(*_torch_args(name, kind), cap)
+    jax_got = _jfrontier(jt, jnp.asarray(lo), jnp.asarray(hi), jnp.asarray(bounds[kind]), cap)
+    for w, j in zip(want, jax_got):
+        np.testing.assert_array_equal(w.numpy(), np.asarray(j))
+    return want
+
+
+def _mirror_stats(name, cap, cluster, smem_keys_for_slice):
+    """The mirror at ``cluster`` (None: the plan's) on every bound kind and
+    each ``smem_keys`` of ``smem_keys_for_slice(slice)``, against
+    ``_frontier``; the summed stats."""
+    seen = {}
     for kind in ("seed", "finite", "range"):
         args = _torch_args(name, kind)
-        want = ttq._frontier(*args, cap)
-        for sk in (None, 2):
-            *got, stats = fk.frontier_mirror(*args, cap, smem_keys=sk)
-            for w, g in zip(want, got):
-                assert torch.equal(w, g), (kind, sk)
-            for key in seen:
-                seen[key] += stats[key]
-    assert seen["shared"] > 0
-    if cap > 1:  # with one slot no level holds more than two candidates
-        assert seen["radix"] > 0 and seen["passes"] > 0 and seen["passes_skipped"] > 0
+        want = _want(name, kind, cap)
+        sl = fk.plan(args[1].shape[0], cap, args[0].num_levels, None, cluster).slice
+        for sk in smem_keys_for_slice(sl):
+            *got, stats = fk.frontier_mirror(*args, cap, smem_keys=sk, cluster=cluster)
+            assert cluster in (None, stats["cluster"])
+            for w, g, what in zip(want, got, ("bucket ids", "lower bounds", "overflow")):
+                assert torch.equal(w, g), (kind, cluster, sk, what)
+            for key, v in stats.items():
+                seen[key] = seen.get(key, 0) + v
+    return seen
+
+
+@pytest.mark.parametrize("name,cap", CASES)
+def test_mirror_equals_the_plain_frontier(name, cap):
+    """The mirror on the wrapper's plan and forced into device memory
+    (``smem_keys`` 2: every slice past two keys), against ``_frontier`` and
+    the jitted JAX ``_frontier``."""
+    seen = _mirror_stats(name, cap, None, lambda sl: (None, 2))
+    assert seen["shared"] > 0 and seen["ended"] > 0  # the all-padding tile ends at once
+    if fk.level_width(cap, _setup(name)[1].num_levels) > 2 * max(fk.CLUSTERS):
+        assert seen["device"] > 0  # no cluster holds the widest level in slices of two
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("name,cap", CASES)
+def test_mirror_at_every_cluster_size(name, cap, cluster):
+    """The mirror at each cluster size the wrapper can choose: its keys in
+    shared memory at the default capacity, in a capacity forced down to the
+    level's slice, and in device memory, equal to ``_frontier`` (and so to
+    the JAX one) bit for bit; each path of the algorithm reached."""
+    seen = _mirror_stats(name, cap, cluster, lambda sl: (None, max(sl, 2), 2))
+    assert seen["cluster"] == 3 * 3 * cluster
+    assert seen["shared"] > 0 and seen["ended"] > 0
+    assert seen["uniform"] > 0  # range mode: every live lb is 0
+    if fk.plan(1, cap, _setup(name)[1].num_levels, None, cluster).slice > 2:
+        assert seen["device"] > 0
+    if cap >= 6:
+        assert seen["sorted"] > 0
+    if cluster > 1 and cap >= 6:
+        assert seen["rebalanced"] > 0 and seen["gathered"] > 0
+        assert seen["empty_slices"] > 0  # the point box lives in one slice
+    if cluster > 1 and cap >= 64:
+        assert seen["spread"] > 0 and seen["merge_rounds"] > 0
+
+
+def test_plan_picks_the_cluster_from_the_shapes():
+    """The plan at the main path's shapes (a 2^16-bucket tree): the tiled
+    batches' 512 tiles keep one block a tile; the served collects at every
+    bucket spread one tile over 16 CTAs and 8 or 128 tiles over 8, with
+    their keys in shared memory; the verbs' 16 tiles take 4 CTAs on wide
+    levels and one on narrow ones; a level past what 16 CTAs hold goes to
+    device memory; ``cluster`` and ``smem_keys`` force it."""
+    P = fk.plan
+    assert P(512, 8, 16) == fk.Plan(1, 16, True, 32)
+    assert P(512, 512, 16) == fk.Plan(1, 1024, True, 512)
+    for T, cap, c in ((1, 65536, 16), (8, 65536, 8), (128, 32768, 8), (16, 16384, 4),
+                      (16, 1024, 1), (128, 4096, 1), (1, 512, 1)):
+        p = P(T, cap, 16)
+        assert p.cluster == c and p.on_chip, (T, cap, p)
+    assert P(1, 65536, 17) == fk.Plan(16, 8192, True, 1024)  # 2^17 children
+    assert not P(1, 1 << 17, 18).on_chip
+    assert P(1, 65536, 16, cluster=2) == fk.Plan(2, 32768, False, 1024)
+    assert P(16, 64, 16, smem_keys=64) == fk.Plan(2, 64, True, 32)  # the smallest that fits
+    assert P(16, 64, 16, smem_keys=64, cluster=1) == fk.Plan(1, 128, False, 64)
+    for T in (0, 1, 7, 131, 600):
+        for cap in (1, 3, 8, 100, 4096, 65536):
+            p = P(T, cap, 16)
+            assert p.cluster in fk.CLUSTERS and p.slice * p.cluster >= fk.level_width(cap, 16)
+            assert 32 <= p.threads <= (1024 if p.cluster > 1 else 512)
+            assert p.on_chip == (p.slice <= fk.SMEM_KEYS_MAX)
 
 
 def test_frontier_checks_its_arguments():
@@ -137,4 +210,8 @@ def test_frontier_checks_its_arguments():
         fk.frontier(tt, lo.double(), hi, bound, 4)
     with pytest.raises(ValueError, match="smem_keys"):
         fk.frontier(tt, lo, hi, bound, 4, smem_keys=6)
+    with pytest.raises(ValueError, match="cluster"):
+        fk.frontier(tt, lo, hi, bound, 4, cluster=3)
+    with pytest.raises(ValueError, match="cluster"):
+        fk.frontier_mirror(tt, lo, hi, bound, 4, cluster=32)
     assert fk.frontier.launches == 0  # the CPU path launches nothing

@@ -299,8 +299,9 @@ def test_build_library_name_tracks_the_source():
 
 def test_kernel_wrappers_raise_on_cuda_tensors_without_a_build(tmp_path):
     """On a CUDA tensor the fold, pair_d2 and frontier wrappers launch their
-    kernel or raise: with no nvcc and no library built, each call raises nvcc's
-    absence and never reaches its plain version. (A tensor subclass that
+    kernel or raise: with no nvcc and no library built, each call (the
+    frontier's with a forced cluster size too) raises nvcc's absence and
+    never reaches its plain version. (A tensor subclass that
     reports a CUDA device stands in for a card this process lacks.)"""
     code = (
         "import torch, types\n"
@@ -331,7 +332,9 @@ def test_kernel_wrappers_raise_on_cuda_tensors_without_a_build(tmp_path):
         "         lambda: v.range_fold(tree, tq, tq, cand, 8),\n"
         "         lambda: p.pair_d2(c(torch.zeros(5, 3)), c(torch.zeros(7, 3))),\n"
         "         lambda: f.frontier(tree, c(torch.zeros(2, 3)), c(torch.ones(2, 3)),"
-        " c(torch.ones(2)), 3)]\n"
+        " c(torch.ones(2)), 3),\n"
+        "         lambda: f.frontier(tree, c(torch.zeros(2, 3)), c(torch.ones(2, 3)),"
+        " c(torch.ones(2)), 3, cluster=8)]\n"
         "for call in calls:\n"
         "    try:\n"
         "        call()\n"
@@ -345,4 +348,4 @@ def test_kernel_wrappers_raise_on_cuda_tensors_without_a_build(tmp_path):
     )
     out = _run(code, {"PATH": str(tmp_path)})
     assert out.returncode == 0, out.stdout + out.stderr
-    assert "RAISED 5" in out.stdout
+    assert "RAISED 6" in out.stdout
