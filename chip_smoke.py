@@ -19,9 +19,9 @@ then by the batch worker (``MicroBatcher.capture_for``, what ``POST
 opened off the worker; the mode fails if a batch-worker window crashes.
 It is the run that chose to open server windows on the batch worker.
 
-``--forest-only`` runs phases 1-3b and 12 alone
+``--forest-only`` runs phases 1-3c and 12 alone
 (no kernels record), for work on the multi-device engines;
-``--fleet-only`` runs phases 1-3b and 13 alone,
+``--fleet-only`` runs phases 1-3c and 13 alone,
 for work on the fleet.
 
 Phases, one line each (any failure raises and exits non-zero):
@@ -42,24 +42,40 @@ Phases, one line each (any failure raises and exits non-zero):
              at k = 1,100, above the capacity) and rows with no full chunk,
              each also held against the step-for-step mirror
              ``merge_select``;
-3b. pair   — ``pair_d2`` (the exact oracle's distance block, a kernel for
-             an XLA program of the reference; every oracle check below
-             runs it) against its plain PyTorch version on the card,
-             bit-equal to ``sq_dist`` at D = 1, 2, 3, 8, 32 and 47, each at
-             37 x 300 and 5 x 100 rows and at the main path's shape (1,000
-             fallback rows, 256 of phase 9's oracle at D = 47, against a
-             point tile of ``bruteforce.knn``'s size, the last 256-point
-             block partial), there timed through the wrapper, a launch in a
-             CUDA graph, the plain version and the library's two ways
-             (``_matmul_d2``, ``torch.cdist`` squared) beside its bound;
+3b. pair   — ``pair_d2`` (the oracle's distance block, a kernel for an XLA
+             program of the reference; the verb oracle's blocks and the
+             D-sharded partial sums run it) against its plain PyTorch
+             version on the card, bit-equal to ``sq_dist`` at D = 1, 2, 3,
+             8, 32 and 47, each at 37 x 300 and 5 x 100 rows and at the
+             fallback batch's shapes before the fused k-NN took it (1,000
+             rows, 256 at D = 47, against ``bruteforce.knn``'s point tile,
+             the last 128-point block partial), and at its callers' shapes:
+             phase 8's oversized radius oracle (1,025 rows x its block at
+             D = 3) and phase 12's dsharded shard (1,024 x 65,536 at D =
+             32); each timed through the wrapper, a launch in a CUDA graph,
+             the plain version and the library's two ways (``_matmul_d2``,
+             ``torch.cdist`` squared) beside its bound;
+3c. knn    — ``knn_scan`` (the exact k-NN oracle as one fused kernel, for
+             the reference's XLA program ``_knn_scan``; the fallback batch,
+             the mutable index's overlay and every oracle check below run
+             it) bit-equal to its plain version ``knn_scan_plain`` (d2 and
+             ids) at D = 1, 3, 8, 32, 33 and 47, k = 1, 16 and 100 (above
+             the 64 a shared-memory list holds), Q = 1, 7 and 1,000, at the
+             planned chunks (1 to 39 of them); on tie lattices, +inf rows
+             (fewer finite than k, and none finite), k = N, N below a
+             chunk's minimum; then timed at the fallback shape (1,000 x 2^24
+             x 3-D, k = 16) through the wrapper, in a CUDA graph and the
+             plain version beside its bound, and through the wrapper at 8
+             and 1,024 rows;
 4. main    — 2^24 x 3-D points (seed 42) -> Morton build (B=256) ->
              ServeEngine(k=16) with its warmup ladder 8..1024 -> served
              requests of 1, 7, 64, 1000 and 1024 rows and one brute-force
              fallback batch, each checked against the brute-force oracle ->
              one morton_knn_tiled run of 2^20 queries, checked on a sample.
-             Both kernels' launch counts, pair_d2's and the frontier's are
-             zeroed just before this phase and must be > 0 after it
-             (pair_d2: the fallback batch). Then the served 7-, 64- and
+             Both kernels' launch counts, knn_scan's, pair_d2's and the
+             frontier's are zeroed just before this phase; all but
+             pair_d2's must be > 0 after it (knn_scan: the fallback batch)
+             and pair_d2's 0 (the k-NN oracle no longer writes the block). Then the served 7-, 64- and
              1000-row requests once more, each in a capture window of the
              package's profiler: device time by kernel (the scan, merge and
              frontier kernels) and the card's idle share, from
@@ -156,8 +172,11 @@ Phases, one line each (any failure raises and exits non-zero):
              ids beside query points, 32 moved and 32 deleted (among them
              1st and 16th hits); then 100 more cross the backlog and an
              epoch rebuild runs while 4 readers keep querying, /healthz
-             polled until epoch 1. Every answer, before and after the
-             writes and across the swap, is held against the brute-force
+             polled until epoch 1 (knn_scan's launches are zeroed before
+             the requests after the writes, whose rows the delta overlay
+             answers, and must be > 0 after them). Every answer, before
+             and after the writes and across the swap, is held against
+             the brute-force
              oracle over the surviving points. /metrics must show the
              serving, epoch and write families; stop() must answer 4
              admitted requests. Then ``python -m kdtree_tpu_torch serve``
@@ -728,7 +747,7 @@ def phase_kernel(dev):
     return max_err
 
 
-PAIR_DIMS = (1, 2, 3, 8, 32, 47)  # phase 3b: 47 is phase 9's oracle at D = 47
+PAIR_DIMS = (1, 2, 3, 8, 32, 47)  # phase 3b's ladder; 47 is phase 9's oracle at D = 47
 PAIR_Q = 1000  # phase 4's fallback batch (phase 9's oracle takes WIDE_SAMPLE rows)
 PAIR_RAGGED = ((37, 300), (5, 100))  # (Q, T): a partial query block and point block
 PAIR_GRAPH_LAUNCHES = 10
@@ -736,8 +755,13 @@ FOLD_GRAPH_LAUNCHES = 10
 WIDE_VERB_SCALE = 0.1  # phase 9a's fold queries at D = 47: phase 9's, shrunk toward the centre
 WIDE_VERB_R = 290.0  # their radius: ~35 hits a query at 2^19 points
 WIDE_VERB_SIDE = 162.0  # their cubes: ~25 hits
-FOLD_RECS = {}  # kernel name -> its record at the main path's shape (3b, 4b)
+FOLD_RECS = {}  # kernel name -> its record at the main path's shape (3b, 3c, 4b)
 FOLD_LAUNCHES = {"verb_radius_fold": 0, "verb_range_fold": 0, "pair_d2": 0}  # main-path runs
+KNN_LAUNCHES = {}  # phase -> knn_scan.launches over its driven window (4: fallback, 7: overlay)
+KNN_DIMS = (1, 3, 8, 32, 33, 47)  # phase 3c
+KNN_KS = (1, 16, 100)  # 100: above the 64 entries a shared-memory list holds
+KNN_ROWS = (1, 7, 1000)
+KNN_N = 20011  # phase 3c's point count: no multiple of a chunk or a stage
 
 
 def event_ms(fn):
@@ -754,26 +778,38 @@ def event_ms(fn):
     return out, start.elapsed_time(end)
 
 
-def pair_shape(d):
-    """(Q, T) of one ``pair_d2`` call on the main path at D = d: phase 4's
-    fallback batch (phase 9's oracle sample above 32 axes) against a point
-    tile of ``bruteforce.knn``'s own size, whose last 256-point block is
-    partial."""
+def pair_ladder_shape(d):
+    """(Q, T) of phase 3b's ``pair_d2`` ladder at D = d: phase 4's fallback
+    batch (phase 9's oracle sample above 32 axes) against a point tile of
+    ``bruteforce.knn``'s plain version, the fallback's block before the
+    fused k-NN took it."""
     from kdtree_tpu_torch.ops.bruteforce import _TILE_ELEMS, REFINE_SLACK
 
     q = WIDE_SAMPLE if d > 32 else PAIR_Q
     return q, max(_TILE_ELEMS // (q * d), K + REFINE_SLACK, 1)
 
 
+def pair_shape():
+    """``pair_d2``'s calls on the main path, (name, D, Q, T): phase 8's
+    oversized radius request answered by the verb oracle (its 1,025 rows
+    against one block of the 2^24 points) and a shard of phase 12's
+    dsharded run (1,024 rows against a 65,536-point tile of its D / 4
+    columns)."""
+    from kdtree_tpu_torch.verbs.oracle import _block
+
+    return (("verb oracle", DIM, MAX_BATCH + 1, _block(MAX_BATCH + 1, N_POINTS)),
+            ("dsharded shard", DSHARD_D // FOREST_SHARDS, DSHARD_Q, min(1 << 16, DSHARD_N)))
+
+
 def pair_only(dev):
     """Phase 3b: the ``pair_d2`` kernel against its plain version
     (``sq_dist`` over the broadcast rows) bit for bit at every D of
-    ``PAIR_DIMS``, at the main path's shape (:func:`pair_shape`) and the
-    ragged ones of ``PAIR_RAGGED``; at the main path's shape timed through
-    the wrapper, a launch in a CUDA graph (D <= 32), the plain version and
-    the library's two ways (``_matmul_d2``: cuBLAS, TF32 off;
-    ``torch.cdist`` squared), beside the input-defined bound. Returns the
-    lines to print."""
+    ``PAIR_DIMS``, at the ladder's shape (:func:`pair_ladder_shape`) and
+    the ragged ones of ``PAIR_RAGGED``, and at its callers' shapes
+    (:func:`pair_shape`); at each of those timed through the wrapper, a
+    launch in a CUDA graph, the plain version and the library's two ways
+    (``_matmul_d2``: cuBLAS, TF32 off; ``torch.cdist`` squared), beside the
+    input-defined bound. Returns the lines to print."""
     import torch
 
     from kdtree_tpu_torch.kernels.pair_d2 import pair_d2, pair_d2_plain
@@ -784,6 +820,26 @@ def pair_only(dev):
     def rows(n, d):
         return torch.from_numpy(rng.uniform(-100, 100, (n, d)).astype(np.float32)).to(dev)
 
+    def timed(name, d, Q, T):
+        q, p = rows(Q, d), rows(T, d)
+        p[:8] = q[:8]
+        got = pair_d2(q, p)
+        want, plain_ms = event_ms(lambda: pair_d2_plain(q, p))
+        assert torch.equal(got, want), f"pair_d2 != sq_dist at D={d}, {Q} x {T} ({name})"
+        del got, want
+        bound_ms, bound_by, _, _ = _roofline((Q * d + T * d + Q * T) * 4, Q * T * 3 * d)
+        rec = {"ms": cuda_ms(lambda: pair_d2(q, p), 20), "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": 0.0,
+               "graph_ms": graph_ms(lambda: pair_d2(q, p), PAIR_GRAPH_LAUNCHES, 5),
+               "matmul_ms": cuda_ms(lambda: _matmul_d2(q, p), 20),
+               "library_ms": cuda_ms(lambda: torch.cdist(q, p).square_(), 20)}
+        line = (f"{Q} x {T} ({T % 128} points in the last block): {rec['ms']:.4f} ms "
+                f"({rec['graph_ms']:.4f} a launch in a CUDA graph), plain "
+                f"{rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.4f} ms ({bound_by}); library: "
+                f"_matmul_d2 {rec['matmul_ms']:.4f} ms, torch.cdist squared "
+                f"{rec['library_ms']:.4f} ms")
+        return rec, line
+
     lines = []
     for d in PAIR_DIMS:
         for nq, nt in PAIR_RAGGED:
@@ -791,32 +847,89 @@ def pair_only(dev):
             p[:2] = q[:2]  # zero distances
             assert torch.equal(pair_d2(q, p), pair_d2_plain(q, p)), \
                 f"pair_d2 != sq_dist at D={d}, {nq} x {nt}"
-        Q, T = pair_shape(d)
-        q, p = rows(Q, d), rows(T, d)
-        p[:8] = q[:8]
-        got = pair_d2(q, p)
-        want, plain_ms = event_ms(lambda: pair_d2_plain(q, p))
-        assert torch.equal(got, want), f"pair_d2 != sq_dist at D={d}, {Q} x {T}"
-        del got, want
-        bound_ms, bound_by, _, _ = _roofline((Q * d + T * d + Q * T) * 4, Q * T * 3 * d)
-        rec = {"ms": cuda_ms(lambda: pair_d2(q, p), 20), "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": 0.0,
-               "matmul_ms": cuda_ms(lambda: _matmul_d2(q, p), 20),
-               "library_ms": cuda_ms(lambda: torch.cdist(q, p).square_(), 20)}
-        rec["graph_ms"] = (graph_ms(lambda: pair_d2(q, p), PAIR_GRAPH_LAUNCHES, 5)
-                           if d <= 32 else None)
-        if d == DIM:
+        _, line = timed("ladder", d, *pair_ladder_shape(d))
+        lines.append(f"pair_d2 D={d}: bit-equal to sq_dist at "
+                     + ", ".join(f"{nq} x {nt}" for nq, nt in PAIR_RAGGED)
+                     + f" and the ladder's shape {line}")
+    for name, d, Q, T in pair_shape():
+        rec, line = timed(name, d, Q, T)
+        if name == "verb oracle":
             FOLD_RECS["pair_d2"] = rec
-        lines.append(
-            f"pair_d2 D={d}: bit-equal to sq_dist at "
-            + ", ".join(f"{nq} x {nt}" for nq, nt in PAIR_RAGGED)
-            + f" and the main path's {Q} x {T} ({T % 256} points in the last block); there "
-            f"{rec['ms']:.4f} ms"
-            + (f" ({rec['graph_ms']:.4f} a launch in a CUDA graph)" if d <= 32 else "")
-            + f", plain {rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.4f} ms ({bound_by}); "
-            f"library: _matmul_d2 {rec['matmul_ms']:.4f} ms, torch.cdist squared "
-            f"{rec['library_ms']:.4f} ms")
-        del q, p
+        lines.append(f"pair_d2 at the {name}'s shape, D={d}: bit-equal to sq_dist, {line}")
+    return lines
+
+
+def knn_only(dev):
+    """Phase 3c: the fused k-NN kernel against its plain version
+    (``knn_scan_plain``) bit for bit, d2 and ids, then timed at the
+    fallback shape (see the module docstring). Returns the lines to
+    print; the fallback shape's record goes to ``FOLD_RECS["knn_scan"]``.
+    Its launches here are not the main path's (phase 4 zeroes them)."""
+    import torch
+
+    from kdtree_tpu_torch.kernels import knn_scan as ks
+
+    assert max(KNN_KS) > ks.SMEM_K, "phase 3c must reach the lists in device memory"
+    rng = np.random.default_rng(SEED + 4)
+
+    def rows(n, d, lattice=False):
+        x = rng.integers(0, 3, (n, d)) if lattice else rng.uniform(-100, 100, (n, d))
+        return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+    cases = [(f"D={d} k={k} Q={nq}", rows(KNN_N, d), rows(nq, d), k)
+             for d in KNN_DIMS for k in KNN_KS for nq in KNN_ROWS]
+    for d in (3, 8):
+        for k in (16, 100):
+            cases.append((f"tie lattice D={d} k={k}", rows(KNN_N, d, True),
+                          rows(1000, d, True), k))
+    masked = rows(KNN_N, 3)
+    masked[torch.as_tensor(rng.permutation(KNN_N)[:KNN_N - 9], device=dev)] = float("inf")
+    cases += [("9 finite rows, k=16", masked, rows(64, 3), 16),
+              ("no finite row, k=100", torch.full((KNN_N, 3), float("inf"), device=dev),
+               rows(7, 3), 100),
+              ("k = N = 700", rows(700, 3), rows(33, 3), 700),
+              ("N = 300, below a chunk's minimum", rows(300, 8), rows(40, 8), 16)]
+    chunks = set()
+    for what, p, q, k in cases:
+        want = ks.knn_scan_plain(p, q, min(k, p.shape[0]))
+        got = ks.knn_scan(p, q, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+            f"knn_scan != knn_scan_plain at {what}"
+        chunks.add(ks.plan_splits(q.shape[0], p.shape[0], min(k, p.shape[0]),
+                                  ks.slots(dev.index or 0, q.shape[1], min(k, p.shape[0]))))
+    lines = [f"knn_scan bit-equal to knn_scan_plain (d2 and ids) in {len(cases)} cases: D = "
+             f"{', '.join(map(str, KNN_DIMS))} x k = {', '.join(map(str, KNN_KS))} x Q = "
+             f"{', '.join(map(str, KNN_ROWS))} over {KNN_N} points, tie lattices at D = 3 and 8 "
+             f"(k = 16, 100), 9 finite rows, none finite, k = N = 700, N = 300; at the planned "
+             f"chunks (S in {sorted(chunks)}, the merge kernel joining them where S > 1); the "
+             f"grid's query tiles run on its x extent, so no Q reaches a 65,535 limit"]
+
+    pts = rows(N_POINTS, DIM)
+    fq = rows(PAIR_Q, DIM)
+    got = ks.knn_scan(pts, fq, K)
+    want, plain_ms = event_ms(lambda: ks.knn_scan_plain(pts, fq, K))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+        "knn_scan != knn_scan_plain at the fallback shape"
+    del got, want
+    S = ks.plan_splits(PAIR_Q, N_POINTS, K, ks.slots(dev.index or 0, DIM, K))
+    bound_ms, bound_by, _, _ = _roofline((N_POINTS * DIM + PAIR_Q * DIM + PAIR_Q * K * 2) * 4,
+                                         PAIR_Q * N_POINTS * 3 * DIM)
+    rec = {"ms": cuda_ms(lambda: ks.knn_scan(pts, fq, K), 5), "plain_ms": plain_ms,
+           "graph_ms": graph_ms(lambda: ks.knn_scan(pts, fq, K), 3, 3),
+           "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": 0.0, "library_ms": None}
+    FOLD_RECS["knn_scan"] = rec
+    served = {}
+    for nq in (8, MAX_BATCH):
+        sq = rows(nq, DIM)
+        served[nq] = cuda_ms(lambda: ks.knn_scan(pts, sq, K), 3)
+    lines.append(f"knn_scan at the fallback shape ({PAIR_Q} x 2^{N_POINTS.bit_length() - 1} x "
+                 f"{DIM}-D, k={K}, S={S} chunks, the merge kernel joining them): "
+                 f"{rec['ms']:.3f} ms through the wrapper, {rec['graph_ms']:.3f} in a CUDA graph; "
+                 f"plain {plain_ms:.1f} ms; bound {bound_ms:.3f} ms ({bound_by}); library: none "
+                 f"(no single PyTorch call computes k-NN); at 8 / {MAX_BATCH} rows "
+                 f"{served[8]:.3f} / {served[MAX_BATCH]:.3f} ms through the wrapper")
+    del pts
     return lines
 
 
@@ -2087,6 +2200,7 @@ def phase_serve(dev, points, tree, here, smi):
 
     import torch
 
+    import kdtree_tpu_torch.kernels.knn_scan as knn_mod
     import kdtree_tpu_torch.kernels.scan_knn as scan_mod
     from kdtree_tpu_torch.obs import flight
     from kdtree_tpu_torch.obs.registry import get_registry
@@ -2094,6 +2208,7 @@ def phase_serve(dev, points, tree, here, smi):
     from kdtree_tpu_torch.serve.engine import build_state
     from kdtree_tpu_torch.serve.server import make_server
 
+    on_card = dev.type == "cuda"
     lines = []
     rng = np.random.default_rng(SEED + 7)
     t0 = time.perf_counter()
@@ -2249,6 +2364,7 @@ def phase_serve(dev, points, tree, here, smi):
         assert resp["tombstones"] == 64 and resp["delta_rows"] == 96, resp
         pool2 = np.concatenate([pool[:96], pool[300:332], pool[500:700]])
         o2 = Oracle(ext, pool2)
+        knn_mod.knn_scan.launches = 0  # the overlay's k-NN over the delta rows runs it
         st, _, resp = _http(port, "POST", "/v1/knn", {"queries": pool2[:64].tolist()})
         assert st == 200 and resp["ids"] and all(r[0] == n + j for j, r in enumerate(resp["ids"])), \
             "an upserted point is not its query's nearest neighbour"
@@ -2260,6 +2376,9 @@ def phase_serve(dev, points, tree, here, smi):
                                     {"queries": pool2[rows].tolist(), "k": k})
                 assert st == 200
                 ties += o2.check(rows, resp, k, f"after writes, rows {off}+ k={k}")
+        KNN_LAUNCHES["7"] = knn_mod.knn_scan.launches
+        if on_card:
+            assert KNN_LAUNCHES["7"] > 0, "the served overlay rows never launched knn_scan"
         hist = srv.write_latency
         lines.append("writes over HTTP (64 new ids, 32 moved, 32 deleted incl. 1st and 16th "
                      "hits): client ms " + ", ".join(f"{op} {', '.join(f'{x:.2f}' for x in v)}"
@@ -2267,7 +2386,9 @@ def phase_serve(dev, points, tree, here, smi):
                      + "; server apply ms (mean) " + ", ".join(
                          f"{op} {hist[op].sum / max(hist[op].count, 1):.3f}" for op in hist)
                      + f"; {len(pool2)} queries after the writes exact vs oracle over the "
-                     f"surviving points ({ties} tied slots)")
+                     f"surviving points ({ties} tied slots); over those requests, whose delta "
+                     f"overlay and masked rows the fused k-NN answers, knn_scan.launches="
+                     f"{KNN_LAUNCHES['7']}")
 
         # 3. cross the backlog: an epoch rebuild while queries continue
         extra_ids = np.arange(n + 64, n + SERVE_NEW)
@@ -4234,10 +4355,15 @@ def _run_phases(argv, here, t_run, keep) -> int:
 
     max_err = phase_kernel(dev)
 
-    # 3b. the oracle's distance block (every oracle check below runs it)
+    # 3b. the oracle's distance block (the verb oracle and dsharded run it)
     # against its plain version
     for line in pair_only(dev):
         say("fold", f"{line} [{smi}]")
+    # 3c. the fused k-NN oracle (every k-NN oracle check below runs it)
+    t0 = time.perf_counter()
+    for line in knn_only(dev):
+        say("knn", f"{line} [{smi}]")
+    say("knn", f"phase 3c in {time.perf_counter() - t0:.1f} s")
     if "--forest-only" in argv or "--fleet-only" in argv:
         if "--forest-only" in argv:
             _phase12(dev, here, smi, t_run)
@@ -4259,10 +4385,12 @@ def _run_phases(argv, here, t_run, keep) -> int:
     say("main", f"generated {N_POINTS} x {DIM} points in {time.perf_counter() - t0:.3f} s")
 
     import kdtree_tpu_torch.kernels.frontier as frontier_mod
+    import kdtree_tpu_torch.kernels.knn_scan as knn_mod
     import kdtree_tpu_torch.kernels.pair_d2 as pair_mod
 
     scan_mod.scan_tiles.launches = 0
     scan_mod.merge_partials.launches = 0
+    knn_mod.knn_scan.launches = 0
     pair_mod.pair_d2.launches = 0
     frontier_mod.frontier.launches = 0
     t0 = time.perf_counter()
@@ -4302,18 +4430,20 @@ def _run_phases(argv, here, t_run, keep) -> int:
     tiled_s = time.perf_counter() - t0
     launches = scan_mod.scan_tiles.launches
     merges = scan_mod.merge_partials.launches
-    FOLD_LAUNCHES["pair_d2"] = pair_mod.pair_d2.launches
+    KNN_LAUNCHES["4"] = knn_mod.knn_scan.launches
+    pair_launches = pair_mod.pair_d2.launches
     FRONTIER_LAUNCHES["4"] = frontier_mod.frontier.launches
     say("main", f"tiled {TILED_QUERIES} queries k={K}: {tiled_s:.3f} s "
                 f"({TILED_QUERIES / tiled_s:.0f} q/s), {stats.batches} batches, "
                 f"{stats.retries} overflow retries, {launches - before} scan kernel "
                 f"launches; over the main path scan_tiles.launches={launches}, "
-                f"merge_partials.launches={merges}, pair_d2.launches="
-                f"{FOLD_LAUNCHES['pair_d2']} (the fallback batch), frontier.launches="
-                f"{FRONTIER_LAUNCHES['4']}")
+                f"merge_partials.launches={merges}, knn_scan.launches="
+                f"{KNN_LAUNCHES['4']} (the fallback batch), pair_d2.launches={pair_launches}, "
+                f"frontier.launches={FRONTIER_LAUNCHES['4']}")
     assert launches > 0, "the main path never launched the scan kernel"
     assert merges > 0, "the main path never launched the merge kernel"
-    assert FOLD_LAUNCHES["pair_d2"] > 0, "the fallback batch never launched pair_d2"
+    assert KNN_LAUNCHES["4"] > 0, "the fallback batch never launched knn_scan"
+    assert pair_launches == 0, "the k-NN oracle launched pair_d2: it should not write the block"
     assert FRONTIER_LAUNCHES["4"] > 0, "the main path never launched the frontier kernel"
 
     # checks against the brute-force oracle (outside the counted window)
@@ -5173,6 +5303,14 @@ def print_record(kind, smi, launches, merges, max_err, main_rec, sparse):
             "graph_ms": rec["graph_ms"],
             **({"all_pairs_bound_ms": rec["all_pairs_bound_ms"], "kept_frac": rec["kept_frac"]}
                if "kept_frac" in rec else {})})
+    rec = FOLD_RECS["knn_scan"]  # the fallback shape
+    record["kernels"].append({
+        "name": "knn_scan", "route": "cuda", "source": "kdtree_tpu_torch/csrc/knn_scan.cu",
+        "replaces": "kdtree_tpu/ops/bruteforce.py:59",
+        "launches": sum(KNN_LAUNCHES.values()), "max_abs_err": rec["max_abs_err"],
+        "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"], "library_ms": None, "graph_ms": rec["graph_ms"],
+        "launches_by_phase": KNN_LAUNCHES})
     rec = FRONTIER_RECS["main"]  # the main tiled batch's collect descent
     record["kernels"].append({
         "name": "frontier", "route": "cuda", "source": "kdtree_tpu_torch/csrc/frontier.cu",

@@ -4,8 +4,11 @@ The port of ``kdtree_tpu/ops/bruteforce.py``:
 
 - ``method='exact'`` (default for D <= 32): direct ``(q - p)^2`` sums,
   accumulated axis by axis exactly like the JAX oracle
-  (:func:`kdtree_tpu_torch.ops._arith.sq_dist`; on the card the
-  ``pair_d2`` kernel, :mod:`kdtree_tpu_torch.kernels.pair_d2`);
+  (:func:`kdtree_tpu_torch.ops._arith.sq_dist`), and the k smallest
+  (d2, index) kept: on the card one fused kernel that never writes the
+  distance block (:mod:`kdtree_tpu_torch.kernels.knn_scan`), on the CPU
+  its plain version, point tile by point tile. The answer, and the
+  kernel, ignore the tiling;
 - ``method='matmul'`` (default for D > 32): the ``|q|^2 + |p|^2 - 2 q.p``
   product as a COARSE ranking (float32 matmul, TF32 off — the analog of
   ``Precision.HIGHEST``), then exact rescoring of the k + REFINE_SLACK best
@@ -18,7 +21,7 @@ distance — so every key is distinct and ``torch.topk`` over keys has no
 ties to break: its result is the same set, in the same order, on every
 device.
 
-Both stream point tiles with a running top-k, so N is bounded by device
+Both stream the points with a running top-k, so N is bounded by device
 memory, not by a [Q, N] matrix.
 """
 
@@ -29,27 +32,12 @@ from typing import Tuple
 import torch
 
 from kdtree_tpu_torch import obs
+from kdtree_tpu_torch.kernels.knn_scan import _TILE_ELEMS, _keys, _smallest, _unkey, knn_scan
 from kdtree_tpu_torch.kernels.pair_d2 import pair_d2
 from kdtree_tpu_torch.ops._arith import sq_dist, sq_sum_windows
 
 EXACT_DIM_MAX = 32
 REFINE_SLACK = 8
-_TILE_ELEMS = 1 << 26  # [Q, tile] block elements per streaming step
-
-
-def _keys(d2: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """int64 (d2, idx) sort keys; d2 >= 0 (or +inf), 0 <= idx < 2^31."""
-    return (d2.contiguous().view(torch.int32).to(torch.int64) << 32) | idx
-
-
-def _unkey(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    d2 = (keys >> 32).to(torch.int32).view(torch.float32)
-    return d2, (keys & 0xFFFFFFFF).to(torch.int32)
-
-
-def _smallest(keys: torch.Tensor, k: int) -> torch.Tensor:
-    """The k smallest keys per row, ascending (keys are distinct)."""
-    return torch.topk(keys, k, dim=1, largest=False, sorted=True).values
 
 
 def block_d2_exact(queries: torch.Tensor, ptile: torch.Tensor) -> torch.Tensor:
@@ -79,7 +67,9 @@ def knn(points: torch.Tensor, queries: torch.Tensor, k: int = 1,
     """Exact k-NN by streaming brute force on the points' device.
 
     Returns (dists_sq f32[Q, k], indices i32[Q, k]) ascending, lowest
-    index first on equal distances. ``k`` is clamped to N."""
+    index first on equal distances. ``k`` is clamped to N. ``tile`` is the
+    point rows a streaming step of the matmul form and of the exact form's
+    plain version; the exact answer, and its kernel, ignore it."""
     n, d = points.shape
     Q = queries.shape[0]
     k = min(k, n)
@@ -92,24 +82,21 @@ def knn(points: torch.Tensor, queries: torch.Tensor, k: int = 1,
     obs.count_query("bruteforce", Q)
     if tile is None:
         tile = max(_TILE_ELEMS // max(Q * max(d, 1), 1), k + REFINE_SLACK, 1)
+    if method == "exact":
+        return knn_scan(points.contiguous(), queries.contiguous(), k, tile=tile)
     best = None
     for base in range(0, n, tile):
         ptile = points[base: base + tile]
         t = ptile.shape[0]
         idx = torch.arange(base, base + t, dtype=torch.int64,
                            device=points.device)
-        if method == "exact":
-            d2 = block_d2_exact(queries, ptile)
-            cand = _smallest(_keys(d2, idx[None, :].expand(Q, t)), min(k, t))
-        else:
-            kk = min(k + REFINE_SLACK, t)
-            coarse = _smallest(
-                _keys(_matmul_d2(queries, ptile), idx[None, :].expand(Q, t)), kk)
-            sel = (coarse & 0xFFFFFFFF)
-            d2 = sq_dist(queries[:, None, :], points[sel])
-            cand = _keys(d2, sel)
-        # the matmul form's cand holds k + REFINE_SLACK rescored keys, out
-        # of order: one tile's answer is selected too
+        kk = min(k + REFINE_SLACK, t)
+        coarse = _smallest(
+            _keys(_matmul_d2(queries, ptile), idx[None, :].expand(Q, t)), kk)
+        sel = (coarse & 0xFFFFFFFF)
+        cand = _keys(sq_dist(queries[:, None, :], points[sel]), sel)
+        # cand holds k + REFINE_SLACK rescored keys, out of order: one
+        # tile's answer is selected too
         best = _smallest(cand if best is None else torch.cat([best, cand], 1), k)
     return _unkey(best)
 

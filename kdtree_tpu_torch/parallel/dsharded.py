@@ -32,7 +32,7 @@ def dsharded_knn(
     (tensors or arrays) are padded to a multiple of P columns with zeros,
     which add nothing to a distance; ``tile`` point rows per step bound
     the [Q, tile] block. Returns (d2 f32[Q, k], ids i32[Q, k]) ascending
-    by (d2, id), on the mesh's first device."""
+    by (d2, id), on the mesh's first device; a slot at +inf has id -1."""
     mesh = make_mesh() if mesh is None else mesh
     dev0 = mesh.devices[0]
     points = torch.as_tensor(points, dtype=torch.float32, device=dev0)
@@ -57,4 +57,7 @@ def dsharded_knn(
         idx = torch.arange(base, base + t, dtype=torch.int64, device=dev0)
         cand = _smallest(_keys(d2, idx[None, :].expand(q, t)), min(k, t))
         best = _smallest(cand if best is None else torch.cat([best, cand], 1), k)
-    return _unkey(best)
+    d2, ids = _unkey(best)
+    # a slot at +inf has id -1, as the reference's running top-k (which
+    # starts from (+inf, -1) entries) gives it
+    return d2, ids.masked_fill_(torch.isinf(d2), -1)

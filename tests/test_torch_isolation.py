@@ -76,7 +76,7 @@ def _run(code, env_extra=None):
 def test_every_module_imports_without_jax_or_the_reference():
     mods = _modules()
     assert "kdtree_tpu_torch.kernels.scan_knn" in mods and len(mods) >= 12
-    for sub in ("kernels.verb_fold", "kernels.pair_d2", "kernels.frontier",
+    for sub in ("kernels.verb_fold", "kernels.pair_d2", "kernels.frontier", "kernels.knn_scan",
                 "snapshot.store", "snapshot.follower", "verbs.device", "verbs.oracle",
                 "verbs.wire", "tuning.store", "tuning.feedback", "tuning.tuner",
                 "approx.search", "approx.recall", "approx.ladder", "models.tree",
@@ -273,10 +273,10 @@ def test_explicit_cpu_runs(monkeypatch):
 def test_kernel_module_imports_without_nvcc(tmp_path):
     code = ("import kdtree_tpu_torch.kernels.scan_knn as s, kdtree_tpu_torch.kernels._build as b\n"
             "import kdtree_tpu_torch.kernels.verb_fold as v, kdtree_tpu_torch.kernels.pair_d2 as p\n"
-            "import kdtree_tpu_torch.kernels.frontier as f\n"
-            "assert s.scan_tiles.launches == f.frontier.launches == 0\n"
+            "import kdtree_tpu_torch.kernels.frontier as f, kdtree_tpu_torch.kernels.knn_scan as k\n"
+            "assert s.scan_tiles.launches == f.frontier.launches == k.knn_scan.launches == 0\n"
             "assert v.radius_fold.launches == v.range_fold.launches == p.pair_d2.launches == 0\n"
-            "assert b.sources() == ['frontier', 'pair_d2', 'scan_knn', 'verb_fold']\n"
+            "assert b.sources() == ['frontier', 'knn_scan', 'pair_d2', 'scan_knn', 'verb_fold']\n"
             "b.DEFAULT_NVCC = b.PKG_DIR / 'no-such-nvcc'\n"
             "try:\n"
             "    b._nvcc()\n"
@@ -298,8 +298,8 @@ def test_build_library_name_tracks_the_source():
 
 
 def test_kernel_wrappers_raise_on_cuda_tensors_without_a_build(tmp_path):
-    """On a CUDA tensor the fold, pair_d2 and frontier wrappers launch their
-    kernel or raise: with no nvcc and no library built, each call (the
+    """On a CUDA tensor the fold, pair_d2, frontier and knn_scan wrappers
+    launch their kernel or raise (knn_scan also for no query rows): with no nvcc and no library built, each call (the
     frontier's with a forced cluster size too) raises nvcc's absence and
     never reaches its plain version. (A tensor subclass that
     reports a CUDA device stands in for a card this process lacks.)"""
@@ -309,11 +309,13 @@ def test_kernel_wrappers_raise_on_cuda_tensors_without_a_build(tmp_path):
         "import kdtree_tpu_torch.kernels.pair_d2 as p\n"
         "import kdtree_tpu_torch.kernels.verb_fold as v\n"
         "import kdtree_tpu_torch.kernels.frontier as f\n"
+        "import kdtree_tpu_torch.kernels.knn_scan as k\n"
         f"b.BUILD_DIR = b.Path({str(tmp_path / 'build')!r})\n"
         "b.DEFAULT_NVCC = b.PKG_DIR / 'no-such-nvcc'\n"
         "def plain(*a):\n"
         "    raise SystemExit('fell back to the plain version')\n"
         "v._radius_fold_plain = v._range_fold_plain = p.pair_d2_plain = plain\n"
+        "k.knn_scan_plain = plain\n"
         "f._frontier = f.frontier_mirror = plain\n"
         "class Cuda(torch.Tensor):\n"
         "    @property\n"
@@ -331,6 +333,8 @@ def test_kernel_wrappers_raise_on_cuda_tensors_without_a_build(tmp_path):
         "         lambda: v.radius_fold(tree, tq, c(torch.ones(2, 4)), cand, 0),\n"
         "         lambda: v.range_fold(tree, tq, tq, cand, 8),\n"
         "         lambda: p.pair_d2(c(torch.zeros(5, 3)), c(torch.zeros(7, 3))),\n"
+        "         lambda: k.knn_scan(c(torch.zeros(7, 3)), c(torch.zeros(5, 3)), 4),\n"
+        "         lambda: k.knn_scan(c(torch.zeros(7, 3)), c(torch.zeros(0, 3)), 4),\n"
         "         lambda: f.frontier(tree, c(torch.zeros(2, 3)), c(torch.ones(2, 3)),"
         " c(torch.ones(2)), 3),\n"
         "         lambda: f.frontier(tree, c(torch.zeros(2, 3)), c(torch.ones(2, 3)),"
@@ -343,9 +347,9 @@ def test_kernel_wrappers_raise_on_cuda_tensors_without_a_build(tmp_path):
         "    else:\n"
         "        raise SystemExit('a CUDA call ran without a kernel')\n"
         "assert v.radius_fold.launches == v.range_fold.launches == p.pair_d2.launches == 0\n"
-        "assert f.frontier.launches == 0\n"
+        "assert f.frontier.launches == k.knn_scan.launches == 0\n"
         "print('RAISED', len(calls))\n"
     )
     out = _run(code, {"PATH": str(tmp_path)})
     assert out.returncode == 0, out.stdout + out.stderr
-    assert "RAISED 6" in out.stdout
+    assert "RAISED 8" in out.stdout
