@@ -61,17 +61,23 @@ Phases, one line each (any failure raises and exits non-zero):
              it) bit-equal to its plain version ``knn_scan_plain`` (d2 and
              ids) at D = 1, 3, 8, 32, 33 and 47, k = 1, 16 and 100 (above
              the 64 a shared-memory list holds), Q = 1, 7 and 1,000, at the
-             planned chunks (1 to 39 of them); on tie lattices, +inf rows
-             (fewer finite than k, and none finite), k = N, N below a
-             chunk's minimum; then timed at the fallback shape (1,000 x 2^24
-             x 3-D, k = 16) through the wrapper, in a CUDA graph and the
-             plain version beside its bound, and through the wrapper at 8
-             and 1,024 rows;
+             planned chunks; on tie lattices, +inf rows (fewer finite than
+             k, and none finite), k = N, N below a chunk's minimum; on
+             Morton-ordered rows with a +inf pad every 256 at Q = 1, 8, 64
+             and 1,000 x k = 1, 16 and 100, and from rows 1-3 of them (bases
+             not 16-byte aligned); and at the fallback shape (1,000 x 2^24 x
+             3-D, k = 16) in random and in Morton order. Then timed at 8,
+             64, 1,000 and 1,024 rows over 2^24 x 3-D in both orders,
+             through the wrapper and in a CUDA graph, each with the share of
+             (warp, stage) pairs the kernel's cull skipped and its bound
+             three ways (operations, issue slots, what the inputs need);
 4. main    — 2^24 x 3-D points (seed 42) -> Morton build (B=256) ->
              ServeEngine(k=16) with its warmup ladder 8..1024 -> served
              requests of 1, 7, 64, 1000 and 1024 rows and one brute-force
              fallback batch, each checked against the brute-force oracle ->
-             one morton_knn_tiled run of 2^20 queries, checked on a sample.
+             one morton_knn_tiled run of 2^20 queries, checked on a sample;
+             the fallback batch's kernel then timed alone on the tree's
+             flat storage (its cull share and bounds, as in phase 3c).
              Both kernels' launch counts, knn_scan's, pair_d2's and the
              frontier's are zeroed just before this phase; all but
              pair_d2's must be > 0 after it (knn_scan: the fallback batch)
@@ -89,7 +95,7 @@ Phases, one line each (any failure raises and exits non-zero):
              and padding rows, every bucket a candidate; at m above the
              largest count, m = 0 and m below it. Then on phase 4's
              tree: the last fold pass of ``radius_search`` (r = 1.5) and
-             ``range_search`` (cubes of side 3) at 1, 64 and 1,000 of
+             ``range_search`` (cubes of side 3) at 1 and 1,000 of
              phase 8's query rows, counts bit-equal and the canonical rows
              bit-equal in the ids form, counts in the count form, and at
              1,000 rows once with m below the largest count, that plain
@@ -99,9 +105,9 @@ Phases, one line each (any failure raises and exits non-zero):
              need: the box tests, then the point tests of the pairs
              ``leaf_pass_plain`` passes), the all-pairs bound (every
              point of every candidate) and ``kept_frac``. Phase 9a makes the
-             same checks (a graph at 1,000 rows, no split) on its D = 47
-             tree, with phase 9's queries shrunk toward the centre (r = 290,
-             side 162);
+             same checks at 1 and 64 rows (a graph at 64, no split) on its
+             D = 47 tree, with phase 9's queries shrunk toward the centre
+             (r = 290, side 162);
 4c. frontier — the frontier kernel (a kernel for the reference's XLA
              program ``_frontier``) against ``_frontier`` run on the card,
              bucket ids, lower bounds and overflow flags bit for bit. First
@@ -414,6 +420,7 @@ SNAP_READERS = 4  # phase 8's reader threads on the secondary
 VERB_R = 1.5  # phase 8's radius: about 30 hits per query at 2^24 points
 VERB_SIDE = 3.0  # phase 8's range cubes
 VERB_ROWS = (1, 64, 1000)
+FOLD_ROWS = {True: (1, 1000), False: (1, 64)}  # phase 4b's and 9a's fold checks
 SNAP_CLI_N = 1 << 20  # points of phase 8's `build --save` / `serve --snapshot`
 SNAP_CLI_R = 4.0  # its radius: about 35 hits per query at 2^20 points
 WIDE_DIMS = (47, 64)  # phase 9a: 47 pads each row with 8 zeros in front, 9 behind
@@ -762,6 +769,11 @@ KNN_DIMS = (1, 3, 8, 32, 33, 47)  # phase 3c
 KNN_KS = (1, 16, 100)  # 100: above the 64 entries a shared-memory list holds
 KNN_ROWS = (1, 7, 1000)
 KNN_N = 20011  # phase 3c's point count: no multiple of a chunk or a stage
+KNN_MORTON_N = (1 << 16) + 77  # 3c's Morton-ordered storage, a +inf pad row ending every 256
+KNN_MORTON_ROWS = (1, 8, 64, 1000)
+KNN_TIMED_ROWS = (8, 64, 1000, 1024)  # the correction bucket, an overlay, the fallback, its cap
+KNN_ISSUE_SLOTS = 7  # instructions a (query, point) pair at D = 3: 3 FSUB, 3 FFMA, a compare
+KNN_RECS = {}  # "fallback": phase 4's fallback batch kernel on the tree's storage
 
 
 def event_ms(fn):
@@ -859,12 +871,101 @@ def pair_only(dev):
     return lines
 
 
+def morton_sorted(rows, pad_every=0):
+    """``rows`` in the port's Morton order (``morton_codes`` at the build's
+    default bits, stably sorted), and with ``pad_every`` a +inf row ending
+    every run of that many rows (the last run filled up with them), as
+    padded bucket storage holds its pads."""
+    import torch
+
+    from kdtree_tpu_torch.ops.morton import default_bits, morton_codes
+
+    n, d = rows.shape
+    out = rows[torch.sort(morton_codes(rows, default_bits(d)), stable=True).indices]
+    if not pad_every:
+        return out
+    per = pad_every - 1
+    g = -(-n // per)
+    x = out.new_full((g * per, d), float("inf"))
+    x[:n] = out
+    return torch.cat([x.view(g, per, d), out.new_full((g, 1, d), float("inf"))], 1).view(-1, d)
+
+
+def sm_clock_mhz():
+    """The card's highest SM clock in MHz (nvidia-smi), for the issue-slot
+    bound."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def knn_bounds(points, queries, d2, clock_mhz):
+    """The fused k-NN's bound in three forms, ms: every pair's 3 D flops
+    over the FP32 rate (against the rows, queries and answer moved once),
+    every pair's KNN_ISSUE_SLOTS instructions over the SMs' issue rate at
+    ``clock_mhz``, and what these inputs need: 3 D flops for each pair in
+    a stage tile (the kernel's ``kernel_stage()`` rows) whose box bound the query's final k-th
+    (``d2[:, -1]``) does not strictly exceed (``tile_boxes`` /
+    ``tile_lb_plain``, the kernel's cull), with the same bytes."""
+    import torch
+
+    from kdtree_tpu_torch.kernels import knn_scan as ks
+
+    n, d = points.shape
+    Q, k = d2.shape
+    nbytes = (n * d + Q * d + Q * k * 2) * 4
+    ops_ms, ops_by, _, _ = _roofline(nbytes, Q * n * 3 * d)
+    sms = torch.cuda.get_device_properties(points.device).multi_processor_count
+    issue_ms = Q * n * KNN_ISSUE_SLOTS / (sms * 128 * clock_mhz * 1e6) * 1e3
+    stage = ks.kernel_stage()
+    lo, hi = ks.tile_boxes(points, stage)
+    sizes = torch.full((lo.shape[0],), stage, dtype=torch.int64, device=points.device)
+    sizes[-1] = n - (lo.shape[0] - 1) * stage
+    kept = ks.tile_lb_plain(queries, lo, hi) <= d2[:, -1:]
+    pairs = int((kept * sizes).sum())
+    need_ms, need_by, _, _ = _roofline(nbytes, pairs * 3 * d)
+    return {"bound_ms": ops_ms, "bound_by": ops_by, "issue_ms": issue_ms,
+            "need_ms": need_ms, "need_by": need_by, "need_frac": pairs / (Q * n)}
+
+
+def knn_timed(points, queries, clock_mhz):
+    """The fused k-NN on one shape: the chunk count, ms through the wrapper
+    and a launch in a CUDA graph, the share of (warp, stage) pairs the cull
+    skipped (the kernel's own count) and :func:`knn_bounds`."""
+    import torch
+
+    from kdtree_tpu_torch.kernels import knn_scan as ks
+
+    counts = torch.zeros(2, dtype=torch.int64, device=points.device)
+    d2, _ = ks.knn_scan(points, queries, K, counts=counts)
+    culled, seen = counts.tolist()
+    n, d = points.shape
+    Q = queries.shape[0]
+    rec = {"S": ks.plan(points.device.index or 0, Q, n, d, K)[1],
+           "ms": cuda_ms(lambda: ks.knn_scan(points, queries, K), 5),
+           "graph_ms": graph_ms(lambda: ks.knn_scan(points, queries, K), 3, 3),
+           "culled_frac": culled / max(seen, 1), "max_abs_err": 0.0, "library_ms": None,
+           **knn_bounds(points, queries, d2, clock_mhz)}
+    return rec
+
+
+def knn_line(what, rec):
+    return (f"{what}: S={rec['S']} chunks, {rec['ms']:.4f} ms through the wrapper, "
+            f"{rec['graph_ms']:.4f} a launch in a CUDA graph; {rec['culled_frac']:.4f} of the "
+            f"(warp, stage) pairs culled; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+            f"issue slots ({KNN_ISSUE_SLOTS} a pair) {rec['issue_ms']:.4f} ms, what the inputs "
+            f"need ({rec['need_frac']:.6f} of the pairs) {rec['need_ms']:.4f} ms "
+            f"({rec['need_by']})")
+
+
 def knn_only(dev):
     """Phase 3c: the fused k-NN kernel against its plain version
     (``knn_scan_plain``) bit for bit, d2 and ids, then timed at the
-    fallback shape (see the module docstring). Returns the lines to
-    print; the fallback shape's record goes to ``FOLD_RECS["knn_scan"]``.
-    Its launches here are not the main path's (phase 4 zeroes them)."""
+    serving shapes in random and Morton order (see the module docstring).
+    Returns the lines to print; the fallback shape's record (random order)
+    goes to ``FOLD_RECS["knn_scan"]``. Its launches here are not the main
+    path's (phase 4 zeroes them)."""
     import torch
 
     from kdtree_tpu_torch.kernels import knn_scan as ks
@@ -889,47 +990,60 @@ def knn_only(dev):
                rows(7, 3), 100),
               ("k = N = 700", rows(700, 3), rows(33, 3), 700),
               ("N = 300, below a chunk's minimum", rows(300, 8), rows(40, 8), 16)]
+    morton = morton_sorted(rows(KNN_MORTON_N, 3), BUCKET)
+    cases += [(f"Morton order, a pad every {BUCKET} rows, k={k} Q={nq}", morton, rows(nq, 3), k)
+              for k in KNN_KS for nq in KNN_MORTON_ROWS]
+    cases += [(f"Morton order from row {off} ({12 * off % 16} bytes past a 16-byte boundary), "
+               f"k=16 Q={nq}", morton[off:], rows(nq, 3), 16)
+              for off in (1, 2, 3) for nq in (8, 1000)]
     chunks = set()
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
     for what, p, q, k in cases:
         want = ks.knn_scan_plain(p, q, min(k, p.shape[0]))
-        got = ks.knn_scan(p, q, k)
+        got = ks.knn_scan(p, q, k, counts=counts)
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
             f"knn_scan != knn_scan_plain at {what}"
-        chunks.add(ks.plan_splits(q.shape[0], p.shape[0], min(k, p.shape[0]),
-                                  ks.slots(dev.index or 0, q.shape[1], min(k, p.shape[0]))))
+        chunks.add(ks.plan(dev.index or 0, q.shape[0], p.shape[0], q.shape[1],
+                           min(k, p.shape[0]))[1])
+    culled, seen = counts.tolist()
     lines = [f"knn_scan bit-equal to knn_scan_plain (d2 and ids) in {len(cases)} cases: D = "
              f"{', '.join(map(str, KNN_DIMS))} x k = {', '.join(map(str, KNN_KS))} x Q = "
              f"{', '.join(map(str, KNN_ROWS))} over {KNN_N} points, tie lattices at D = 3 and 8 "
-             f"(k = 16, 100), 9 finite rows, none finite, k = N = 700, N = 300; at the planned "
-             f"chunks (S in {sorted(chunks)}, the merge kernel joining them where S > 1); the "
-             f"grid's query tiles run on its x extent, so no Q reaches a 65,535 limit"]
+             f"(k = 16, 100), 9 finite rows, none finite, k = N = 700, N = 300; "
+             f"{KNN_MORTON_N} Morton-ordered rows with a +inf pad every {BUCKET} at k = "
+             f"{', '.join(map(str, KNN_KS))} x Q = {', '.join(map(str, KNN_MORTON_ROWS))}, and "
+             f"from rows 1, 2 and 3 (bases 12, 8 and 4 bytes past a 16-byte boundary) at Q = 8 "
+             f"and 1,000; at the planned chunks (S in {sorted(chunks)}, the merge kernel "
+             f"joining them where S > 1); the D = 3 cases culled {culled} of {seen} "
+             f"(warp, stage) pairs"]
 
+    clock = sm_clock_mhz()
     pts = rows(N_POINTS, DIM)
+    mpts = morton_sorted(pts)
     fq = rows(PAIR_Q, DIM)
     got = ks.knn_scan(pts, fq, K)
     want, plain_ms = event_ms(lambda: ks.knn_scan_plain(pts, fq, K))
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
         "knn_scan != knn_scan_plain at the fallback shape"
+    got = ks.knn_scan(mpts, fq, K)
+    want = ks.knn_scan_plain(mpts, fq, K)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+        "knn_scan != knn_scan_plain at the fallback shape in Morton order"
     del got, want
-    S = ks.plan_splits(PAIR_Q, N_POINTS, K, ks.slots(dev.index or 0, DIM, K))
-    bound_ms, bound_by, _, _ = _roofline((N_POINTS * DIM + PAIR_Q * DIM + PAIR_Q * K * 2) * 4,
-                                         PAIR_Q * N_POINTS * 3 * DIM)
-    rec = {"ms": cuda_ms(lambda: ks.knn_scan(pts, fq, K), 5), "plain_ms": plain_ms,
-           "graph_ms": graph_ms(lambda: ks.knn_scan(pts, fq, K), 3, 3),
-           "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": 0.0, "library_ms": None}
-    FOLD_RECS["knn_scan"] = rec
-    served = {}
-    for nq in (8, MAX_BATCH):
-        sq = rows(nq, DIM)
-        served[nq] = cuda_ms(lambda: ks.knn_scan(pts, sq, K), 3)
-    lines.append(f"knn_scan at the fallback shape ({PAIR_Q} x 2^{N_POINTS.bit_length() - 1} x "
-                 f"{DIM}-D, k={K}, S={S} chunks, the merge kernel joining them): "
-                 f"{rec['ms']:.3f} ms through the wrapper, {rec['graph_ms']:.3f} in a CUDA graph; "
-                 f"plain {plain_ms:.1f} ms; bound {bound_ms:.3f} ms ({bound_by}); library: none "
-                 f"(no single PyTorch call computes k-NN); at 8 / {MAX_BATCH} rows "
-                 f"{served[8]:.3f} / {served[MAX_BATCH]:.3f} ms through the wrapper")
-    del pts
+    lines.append(f"knn_scan bit-equal to knn_scan_plain at the fallback shape ({PAIR_Q} x "
+                 f"2^{N_POINTS.bit_length() - 1} x {DIM}-D, k={K}) in random and in Morton "
+                 f"order; plain {plain_ms:.1f} ms (random order); library: none (no single "
+                 f"PyTorch call computes k-NN); max SM clock {clock:.0f} MHz")
+    for name, P in (("random", pts), ("Morton", mpts)):
+        for nq in KNN_TIMED_ROWS:
+            q = fq if nq == PAIR_Q else rows(nq, DIM)
+            rec = knn_timed(P, q, clock)
+            if name == "random" and nq == PAIR_Q:
+                FOLD_RECS["knn_scan"] = {**rec, "plain_ms": plain_ms}
+            lines.append(knn_line(f"knn_scan, {nq} rows over 2^{N_POINTS.bit_length() - 1} x "
+                                  f"{DIM}-D in {name} order, k={K}", rec))
+    del pts, mpts
     return lines
 
 
@@ -1110,24 +1224,25 @@ def fold_case(what, tree, verb, call, graph, split=False, chunks=()):
 def phase_fold(tree, vq, r, side, smi, main):
     """The verbs' fold kernels against the plain folds on the card, at the
     shapes ``radius_search`` / ``range_search`` give them on ``tree`` for
-    the first 1, 64 and 1,000 rows of the host queries ``vq`` (radius
-    ``r``, cubes of side ``side``): phase 4b on phase 4's tree and phase
-    8's queries (``main``: its 1,000-row records go to the kernels line,
-    with the m-below case and the plain folds' split), phase 9a on the
-    D = 47 tree. Prints its lines."""
+    the first rows of the host queries ``vq`` that ``FOLD_ROWS`` gives
+    (radius ``r``, cubes of side ``side``): phase 4b on phase 4's tree and
+    phase 8's queries at 1 and 1,000 rows (``main``: its 1,000-row records
+    go to the kernels line, with the m-below case and the plain folds'
+    split), phase 9a on the D = 47 tree at 1 and 64. Prints its lines."""
     from kdtree_tpu_torch.verbs import device as vd
 
     t0 = time.perf_counter()
     half = np.float32(side / 2)
     tag = f"2^{tree.n_real.bit_length() - 1} x {tree.dim}-D"
-    for rows in VERB_ROWS:
+    for rows in FOLD_ROWS[main]:
         q = vq[:rows]
         top = main and rows == max(VERB_ROWS)
         for verb, call in (("radius", lambda: vd.radius_search(tree, q, r)),
                            ("range", lambda: vd.range_search(tree, q - half, q + half))):
             lines, rec = fold_case(f"{verb} fold, {rows} rows, {tag}", tree, verb, call,
-                                   graph=main or rows == max(VERB_ROWS), split=top,
-                                   chunks=(8, 64) if not main and rows == max(VERB_ROWS) else ())
+                                   graph=main or rows == max(FOLD_ROWS[main]), split=top,
+                                   chunks=(8, 64) if not main and rows == max(FOLD_ROWS[main])
+                                   else ())
             for line in lines:
                 say("fold", f"{line} [{smi}]")
             if top:
@@ -4453,6 +4568,10 @@ def _run_phases(argv, here, t_run, keep) -> int:
                     f"{ms:.2f} ms, exact vs oracle ({ties} tied slots)")
     ties = check_answer(points, fq, fd2, fids, K, "fallback batch")
     say("main", f"fallback 1000 rows: {fallback_ms:.2f} ms, exact vs oracle ({ties} tied slots)")
+    KNN_RECS["fallback"] = knn_timed(engine._flat_pts, torch.as_tensor(fq, device=dev),
+                                     sm_clock_mhz())
+    say("main", knn_line("knn_scan at the fallback batch over the tree's Morton-ordered flat "
+                         "storage", KNN_RECS["fallback"]) + f" [{smi}]")
     sample = torch.as_tensor(np.random.default_rng(SEED).choice(TILED_QUERIES, SAMPLE, replace=False),
                              device=dev)
     ties = check_answer(points, tq_all[sample], td2[sample], tids[sample], K, "tiled sample")
@@ -5310,7 +5429,11 @@ def print_record(kind, smi, launches, merges, max_err, main_rec, sparse):
         "launches": sum(KNN_LAUNCHES.values()), "max_abs_err": rec["max_abs_err"],
         "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": None, "graph_ms": rec["graph_ms"],
-        "launches_by_phase": KNN_LAUNCHES})
+        "issue_ms": rec["issue_ms"], "launches_by_phase": KNN_LAUNCHES,
+        **({"fallback_batch_ms": KNN_RECS["fallback"]["ms"],
+            "fallback_batch_culled_frac": KNN_RECS["fallback"]["culled_frac"],
+            "fallback_batch_need_ms": KNN_RECS["fallback"]["need_ms"]}
+           if "fallback" in KNN_RECS else {})})
     rec = FRONTIER_RECS["main"]  # the main tiled batch's collect descent
     record["kernels"].append({
         "name": "frontier", "route": "cuda", "source": "kdtree_tpu_torch/csrc/frontier.cu",

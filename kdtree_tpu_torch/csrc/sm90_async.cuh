@@ -1,8 +1,8 @@
 // Asynchronous global -> shared copies and shared-memory barriers (sm_90).
 //
-// Thin inline-PTX wrappers, one instruction each, used by scan_knn.cu:
+// Thin inline-PTX wrappers, one instruction each, used by the kernels here:
 // mbarrier init / arrive / wait, the 1-D bulk copy that completes on an
-// mbarrier's transaction count, 4-byte cp.async with commit/wait groups,
+// mbarrier's transaction count, 4- and 16-byte cp.async with commit/wait groups,
 // and a relaxed device-scope load for values other blocks lower with
 // atomicMin.
 #pragma once
@@ -31,6 +31,11 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
                    smem_addr(bar)),
                "r"(bytes)
                : "memory");
+}
+
+// One arrival (release: the thread's earlier writes are seen by a waiter).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
 }
 
 // Spins until the phase with the given parity has completed.
@@ -63,6 +68,12 @@ __device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, uint32
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)),
                "l"(src)
+               : "memory");
+}
+
+// 16 bytes through L2 only (no stale L1 line); dst and src 16-byte aligned.
+__device__ __forceinline__ void cp_async16_cg(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
 }
 
