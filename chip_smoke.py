@@ -6,10 +6,10 @@
     python3 chip_smoke.py --forest-only
     python3 chip_smoke.py --fleet-only
 
-``--dfs-round-sweep`` adds to phase 6 the DFS timed at 4, 8, 16 and 32
-steps per host look on 16,384 of the sparse lane's queries: the run that
-chose ``_ROUND_STEPS`` in ``kdtree_tpu_torch/ops/morton.py``, for when the
-DFS changes.
+``--dfs-round-sweep`` adds to phase 6 the plain DFS loop (the Morton DFS
+kernel's plain version) timed at 4, 8, 16 and 32 steps per host look on
+16,384 of the sparse lane's queries: the run that chose ``_ROUND_STEPS`` in
+``kdtree_tpu_torch/ops/morton.py``, for when the plain loop changes.
 
 ``--profile-stress N`` runs only this: a server on the 2^24 tree under 4
 clients at 1-1,000 rows, and N 2 s capture windows over it, in four
@@ -19,9 +19,9 @@ then by the batch worker (``MicroBatcher.capture_for``, what ``POST
 opened off the worker; the mode fails if a batch-worker window crashes.
 It is the run that chose to open server windows on the batch worker.
 
-``--forest-only`` runs phases 1-3c and 12 alone
+``--forest-only`` runs phases 1-3d and 12 alone
 (no kernels record), for work on the multi-device engines;
-``--fleet-only`` runs phases 1-3c and 13 alone,
+``--fleet-only`` runs phases 1-3d and 13 alone,
 for work on the fleet.
 
 Phases, one line each (any failure raises and exits non-zero):
@@ -70,7 +70,25 @@ Phases, one line each (any failure raises and exits non-zero):
              64, 1,000 and 1,024 rows over 2^24 x 3-D in both orders,
              through the wrapper and in a CUDA graph, each with the share of
              (warp, stage) pairs the kernel's cull skipped and its bound
-             three ways (operations, issue slots, what the inputs need);
+             three ways (operations, issue slots, what the inputs need); and
+             ``knn_scan_kernel`` (D != 3) timed at D = 8, 32 and 47, 1,000
+             rows over 20,011 points and 256 over 2^19, beside its
+             operations and bytes bounds;
+3d. dfs    — ``morton_dfs`` (the Morton tree's per-query DFS as one kernel,
+             for the reference's XLA program ``_morton_knn_one``; phase 6's
+             headline, sparse lane and CLI bench and phase 12's per-shard DFS
+             run it) bit-equal to its plain version, the lockstep loop
+             ``morton_knn_plain`` on the card (d2 and ids): the headline's
+             shape (10 queries at k=1 over 2^24 x 3-D, B=256), 4,096 of the
+             sparse lane's queries at k=16 on phase 4's tree, the scale lane's
+             shard (10 queries at k=1 over 2^26 x 3-D, B=128); D = 1, 8 and
+             47, k = 100 (past the 64 entries a shared-memory list holds),
+             B = 8 and 1,024, a tie lattice, duplicates, k > n_real, Q = 0
+             and 1. Each non-empty case timed through the wrapper and as a
+             launch in a CUDA graph beside the plain loop's run and its bound
+             (the kernel's own count of the distinct boxes and buckets read,
+             box bounds and scanned pairs: bytes read once over 3.35 TB/s,
+             4 D flops a box bound and 3 D a pair over 67 TFLOP/s);
 4. main    — 2^24 x 3-D points (seed 42) -> Morton build (B=256) ->
              ServeEngine(k=16) with its warmup ladder 8..1024 -> served
              requests of 1, 7, 64, 1000 and 1024 rows and one brute-force
@@ -144,13 +162,14 @@ Phases, one line each (any failure raises and exits non-zero):
              bit for bit; one tiled batch by stage (the frontier kernel,
              the plain frontier beside it) and in a capture window (its
              device launches, the frontier kernel's two);
-6. cli     — the DFS engine and the one-shot CLI, with both kernels' launch
-             counts zeroed just before and read just after: the headline
-             (generate_problem + build_morton + morton_knn, 10 queries, k=1,
-             at 2^24 x 3-D; minimum of 5 fresh seeds after a warm-up) and
-             the sparse-DFS lane (65,536 queries, k=16, on phase 4's tree),
-             both exact against the oracle, with their DFS steps and host
-             syncs; the same queries through morton_knn_tiled beside
+6. cli     — the DFS engine and the one-shot CLI, with the scan kernels' and
+             the DFS kernel's launch counts zeroed just before and read just
+             after (morton_dfs launches >= 9, no call of the plain DFS loop):
+             the headline (generate_problem + build_morton + morton_knn, 10
+             queries, k=1, at 2^24 x 3-D; minimum of 5 fresh seeds after a
+             warm-up) and the sparse-DFS lane (65,536 queries, k=16, on
+             phase 4's tree), both exact against the oracle, with their DFS
+             launches and chunks; the same queries through morton_knn_tiled beside
              dense_lowd's choice, every answer held against the DFS's;
              ``python -m kdtree_tpu_torch harness`` on both golden
              configurations, stdout byte-equal to tests/golden/; then in
@@ -161,7 +180,7 @@ Phases, one line each (any failure raises and exits non-zero):
              against the plain version, timed beside their bound, at the
              final collect dispatch of both tiled runs (the sparse lane's
              and ``query --queries``'s), and the device launches of one DFS
-             step under torch.profiler.
+             batch of 4,096 queries under torch.profiler.
 7. serve   — the HTTP front over the mutable index, with both kernels' launch
              counts zeroed after the in-process server's warmup and read
              after its stop: build_state over phase 4's tree (k=16,
@@ -285,9 +304,11 @@ Phases, one line each (any failure raises and exits non-zero):
              ``--trace``), then ``stats`` and ``stats --diff``.
 
 12. forest — the multi-device engines (``kdtree_tpu_torch.parallel``) on a
-             single-controller mesh, with both kernels' launch counts and
-             the frontier's zeroed just before and read just after (scan
-             and frontier launches > 0): (a) bench.py's scale
+             single-controller mesh, with both kernels' launch counts, the
+             frontier's and the DFS kernel's zeroed just before and read just
+             after (scan and frontier launches > 0; the per-shard DFS's
+             morton_dfs launches > 0 and no call of the plain DFS loop): (a)
+             bench.py's scale
              lane, build_global_morton at 2^26 x 3-D on a one-shard mesh
              (slack 1.05; generation and build, warm, best of 2, pts/s) and
              10 queries at k=1 by the per-shard DFS, d2 bit-equal to
@@ -774,6 +795,9 @@ KNN_MORTON_ROWS = (1, 8, 64, 1000)
 KNN_TIMED_ROWS = (8, 64, 1000, 1024)  # the correction bucket, an overlay, the fallback, its cap
 KNN_ISSUE_SLOTS = 7  # instructions a (query, point) pair at D = 3: 3 FSUB, 3 FFMA, a compare
 KNN_RECS = {}  # "fallback": phase 4's fallback batch kernel on the tree's storage
+KNN_WIDE_DIMS = (8, 32, 47)  # phase 3c's timed widths of knn_scan_kernel
+KNN_WIDE_Q = 256
+KNN_WIDE_N = 1 << 19
 
 
 def event_ms(fn):
@@ -915,7 +939,7 @@ def knn_bounds(points, queries, d2, clock_mhz):
     n, d = points.shape
     Q, k = d2.shape
     nbytes = (n * d + Q * d + Q * k * 2) * 4
-    ops_ms, ops_by, _, _ = _roofline(nbytes, Q * n * 3 * d)
+    ops_ms, ops_by, bytes_term, ops_term = _roofline(nbytes, Q * n * 3 * d)
     sms = torch.cuda.get_device_properties(points.device).multi_processor_count
     issue_ms = Q * n * KNN_ISSUE_SLOTS / (sms * 128 * clock_mhz * 1e6) * 1e3
     stage = ks.kernel_stage()
@@ -925,7 +949,8 @@ def knn_bounds(points, queries, d2, clock_mhz):
     kept = ks.tile_lb_plain(queries, lo, hi) <= d2[:, -1:]
     pairs = int((kept * sizes).sum())
     need_ms, need_by, _, _ = _roofline(nbytes, pairs * 3 * d)
-    return {"bound_ms": ops_ms, "bound_by": ops_by, "issue_ms": issue_ms,
+    return {"bound_ms": ops_ms, "bound_by": ops_by, "bytes_ms": bytes_term,
+            "ops_ms": ops_term, "issue_ms": issue_ms,
             "need_ms": need_ms, "need_by": need_by, "need_frac": pairs / (Q * n)}
 
 
@@ -1044,7 +1069,146 @@ def knn_only(dev):
             lines.append(knn_line(f"knn_scan, {nq} rows over 2^{N_POINTS.bit_length() - 1} x "
                                   f"{DIM}-D in {name} order, k={K}", rec))
     del pts, mpts
+    # knn_scan_kernel (D != 3) at the shapes its times were taken at: 1,000
+    # rows over KNN_N points and 256 rows over 2^19, in random order
+    for d in KNN_WIDE_DIMS:
+        for nq, n in ((PAIR_Q, KNN_N), (KNN_WIDE_Q, KNN_WIDE_N)):
+            rec = knn_timed(rows(n, d), rows(nq, d), clock)
+            lines.append(f"knn_scan_kernel at D={d}, {nq} rows over {n} points, k={K}: "
+                         f"S={rec['S']} chunks, {rec['ms']:.4f} ms through the wrapper, "
+                         f"{rec['graph_ms']:.4f} a launch in a CUDA graph; bound "
+                         f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}): operations "
+                         f"{rec['ops_ms']:.4f} ms (3 D flops a pair), bytes "
+                         f"{rec['bytes_ms']:.4f} ms")
     return lines
+
+
+DFS_LAUNCHES = {}  # phase -> morton_dfs.launches over its driven window (6, 12)
+DFS_RECS = {}  # phase 3d's timed records: "headline" is the kernels line's
+DFS_SMALL_N = (1 << 16) + 77  # phase 3d's small clouds (not a power of two of buckets)
+DFS_SMALL_Q = 1000
+DFS_SPARSE_Q = 4096  # the first of the sparse lane's queries (one chunk of the plain loop)
+
+
+def dfs_bound(tree, queries, k):
+    """The DFS kernel's bound on one call: the kernel's own count
+    (``morton_dfs(seen=...)``) of the distinct child boxes and buckets the
+    queries read, the box bounds and the scanned pairs. Bytes: those boxes
+    (2 D words) and buckets (B (D + 1) words) read once, the queries and
+    the answer; operations: 4 D flops a box bound and 3 D a scanned pair,
+    over the FP32 rate."""
+    import torch
+
+    from kdtree_tpu_torch.kernels.morton_dfs import morton_dfs
+
+    dev = queries.device
+    nodes = torch.zeros(tree.heap_size, dtype=torch.uint8, device=dev)
+    buckets = torch.zeros(tree.num_buckets, dtype=torch.uint8, device=dev)
+    work = torch.zeros(2, dtype=torch.int64, device=dev)
+    morton_dfs(tree, queries, k, seen=(nodes, buckets, work))
+    n_nodes, n_buckets = int(nodes.sum()), int(buckets.sum())
+    n_box, n_pairs = work.tolist()
+    Q, D = queries.shape
+    nbytes = (n_nodes * 2 * D + n_buckets * tree.bucket_size * (D + 1) + Q * D + Q * k * 2) * 4
+    ms, by, bytes_ms, ops_ms = _roofline(nbytes, n_box * 4 * D + n_pairs * 3 * D)
+    return {"bound_ms": ms, "bound_by": by, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "nodes": n_nodes, "buckets": n_buckets, "boxes": n_box, "pairs": n_pairs}
+
+
+def dfs_case(what, tree, queries, k):
+    """Phase 3d's check of one case: the kernel bit-equal (d2 and ids) to
+    the plain loop on the card, then (for a non-empty batch) timed through
+    the wrapper and as a launch in a CUDA graph beside the plain loop's one
+    run and :func:`dfs_bound`. Returns the record, or None."""
+    import torch
+
+    from kdtree_tpu_torch.kernels.morton_dfs import morton_dfs
+    from kdtree_tpu_torch.ops.morton import morton_knn_plain
+
+    want, plain_ms = event_ms(lambda: morton_knn_plain(tree, queries, k))
+    got = morton_dfs(tree, queries, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+        f"morton_dfs != the plain loop at {what}"
+    if queries.shape[0] == 0:
+        return None
+    return {"what": what, "Q": queries.shape[0], "k": k, "plain_ms": plain_ms,
+            "ms": cuda_ms(lambda: morton_dfs(tree, queries, k), 5),
+            "graph_ms": graph_ms(lambda: morton_dfs(tree, queries, k), 3, 3),
+            "max_abs_err": 0.0, "library_ms": None, **dfs_bound(tree, queries, k)}
+
+
+def dfs_line(rec):
+    return (f"morton_dfs bit-equal to the plain loop at {rec['what']} (Q={rec['Q']}, "
+            f"k={rec['k']}): {rec['ms']:.4f} ms through the wrapper, {rec['graph_ms']:.4f} a "
+            f"launch in a CUDA graph, plain loop {rec['plain_ms']:.2f} ms; bound "
+            f"{rec['bound_ms']:.6f} ms ({rec['bound_by']}: bytes {rec['bytes_ms']:.6f}, "
+            f"operations {rec['ops_ms']:.6f}; {rec['nodes']} distinct boxes and "
+            f"{rec['buckets']} buckets read, {rec['boxes']} box bounds, {rec['pairs']} "
+            f"scanned pairs)")
+
+
+def dfs_only(dev):
+    """Phase 3d: the Morton DFS kernel against its plain version, the
+    lockstep loop, bit for bit on the card (see the module docstring).
+    Yields the lines to print; the timed records go to ``DFS_RECS``. Its
+    launches here are not the main path's (phases 6 and 12 zero them)."""
+    import torch
+
+    from kdtree_tpu_torch.ops.generate import (
+        generate_points_rowwise, generate_problem, generate_queries,
+    )
+    from kdtree_tpu_torch.ops.morton import build_morton
+
+    rng = np.random.default_rng(SEED + 5)
+
+    def rows(n, d, lattice=False):
+        x = rng.integers(0, 3, (n, d)) if lattice else rng.uniform(-100, 100, (n, d))
+        return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+    # the main path's shapes: the headline, the sparse lane, the forest shard
+    pts, qs = generate_problem(1, DIM, N_POINTS, HEADLINE_QUERIES, device=dev)
+    tree = build_morton(pts, bucket_cap=BUCKET)
+    DFS_RECS["headline"] = dfs_case(f"the headline ({HEADLINE_QUERIES} queries over "
+                                    f"{N_POINTS} x {DIM}-D, B={BUCKET})", tree, qs, 1)
+    yield dfs_line(DFS_RECS["headline"])
+    del pts, tree
+    tree = build_morton(generate_points_rowwise(SEED, DIM, N_POINTS, device=dev),
+                        bucket_cap=BUCKET)
+    qs = generate_queries(55, DIM, SPARSE_Q, device=dev)[:DFS_SPARSE_Q].contiguous()
+    DFS_RECS["sparse"] = dfs_case(f"the sparse lane's first {DFS_SPARSE_Q} queries (phase "
+                                  f"4's tree)", tree, qs, K)
+    yield dfs_line(DFS_RECS["sparse"])
+    del tree
+    torch.cuda.empty_cache()
+    tree = build_morton(generate_points_rowwise(2, DIM, SCALE_N, device=dev), bucket_cap=128)
+    DFS_RECS["forest"] = dfs_case(f"the scale lane's shard ({SCALE_Q} queries over "
+                                  f"{SCALE_N} x {DIM}-D, B=128)", tree,
+                                  generate_queries(77, DIM, SCALE_Q, device=dev), 1)
+    yield dfs_line(DFS_RECS["forest"])
+    del tree
+    torch.cuda.empty_cache()
+
+    # widths, k past the shared-memory list, buckets, ties, edges
+    cases = [(f"D={d}", rows(DFS_SMALL_N, d), rows(DFS_SMALL_Q, d), K, BUCKET)
+             for d in (1, 8, 47)]
+    p = rows(DFS_SMALL_N, DIM)
+    cases += [("k=100 (past the 64-entry shared list)", p, rows(DFS_SMALL_Q, DIM), 100, BUCKET),
+              ("B=8", p, rows(DFS_SMALL_Q, DIM), K, 8),
+              ("B=1024", p, rows(DFS_SMALL_Q, DIM), K, 1024),
+              ("a tie lattice", rows(DFS_SMALL_N, DIM, True), rows(DFS_SMALL_Q, DIM, True),
+               K, BUCKET)]
+    base = rows(60, DIM)
+    dup = torch.cat([base[torch.as_tensor(rng.integers(0, 60, 4000), device=dev)],
+                     rows(1000, DIM)])
+    cases += [("duplicates", dup, torch.cat([base[:40], rows(50, DIM)]), K, 64),
+              ("k=50 > n_real=37", rows(37, DIM), rows(20, DIM), 50, 8),
+              ("Q=0", p, rows(0, DIM), K, BUCKET),
+              ("Q=1", p, rows(1, DIM), K, BUCKET)]
+    for what, pts, q, k, b in cases:
+        rec = dfs_case(what, build_morton(pts, bucket_cap=b), q, k)
+        yield (dfs_line(rec) if rec else
+               f"morton_dfs bit-equal to the plain loop at {what}: an empty answer, no launch")
 
 
 @contextlib.contextmanager
@@ -1999,8 +2163,9 @@ def dfs_launches_per_step(run, mod, want):
     card: torch.profiler over one extra eager round of the engine's steps,
     run just before the engine captures its round as a CUDA graph, divided
     by the steps of a round. ``run()`` answers the query through a DFS
-    engine whose module ``mod`` calls ``_round_runner`` (the Morton, the
-    classic or the bucketed DFS). An extra round is a valid schedule (each
+    engine whose module ``mod`` calls ``_round_runner`` (the classic or the
+    bucketed DFS; the Morton DFS is one kernel on the card,
+    :func:`dfs_launches_per_batch`). An extra round is a valid schedule (each
     lane goes on with its own pops), so the answer must still equal
     ``want``. Returns (launches per step, note)."""
     import torch
@@ -2028,10 +2193,65 @@ def dfs_launches_per_step(run, mod, want):
     return n / morton_mod._ROUND_STEPS, f"{n} in one round of {morton_mod._ROUND_STEPS} steps"
 
 
+class PlainDfsCalls:
+    """Counts the plain DFS loop's chunks (calls of
+    ``ops.morton._morton_knn_batch``) between :meth:`start` and
+    :meth:`stop`: a window whose DFS runs the kernel shows 0."""
+
+    def start(self):
+        import kdtree_tpu_torch.ops.morton as morton_mod
+
+        self.calls = 0
+        self._mod, self._orig = morton_mod, morton_mod._morton_knn_batch
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return self._orig(*args, **kwargs)
+
+        morton_mod._morton_knn_batch = counted
+        return self
+
+    def stop(self):
+        self._mod._morton_knn_batch = self._orig
+
+
+def dfs_launches_per_batch(run, want, dev):
+    """The Morton DFS's device launches (kernels, copies, fills) for one
+    query batch on the card, in a capture window of the package's
+    profiler, beside ``morton_dfs.launches`` over it; the answer held
+    against ``want``. Spin kernels go first (a window misses the first
+    device work that begins it, as in phase 5) and are taken out of the
+    count. Returns the line to print."""
+    import torch
+
+    from kdtree_tpu_torch.kernels.morton_dfs import morton_dfs
+
+    def batch():
+        for _ in range(BATCH_SPINS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        return run()
+
+    n0 = morton_dfs.launches
+    (d, i), rep = captured(batch, dev)
+    launches = morton_dfs.launches - n0
+    assert torch.equal(d, want[0]) and torch.equal(i, want[1]), \
+        "the DFS answer changed under the capture window"
+    _, spins = kernel_us(rep, "spin_kernel")
+    dfs_us, dfs_n = kernel_us(rep, "morton_dfs_kernel")
+    assert launches == 1 and dfs_n == 1, \
+        f"one DFS batch: the timeline's morton_dfs launches {dfs_n}, the wrapper's {launches}"
+    return (f"DFS device launches for one query batch of {d.shape[0]}: "
+            f"{rep['device']['n_slices'] - spins} (after {spins} spin kernels, taken out), "
+            f"morton_dfs_kernel {dfs_us / 1e3:.3f} ms over {dfs_n} launch in the timeline "
+            f"(morton_dfs.launches over the batch {launches}; obs.timeline)")
+
+
 def dfs_round_sweep(tree, queries, want):
-    """The DFS at 4, 8, 16 and 32 steps per host look (the engine's
+    """The plain DFS loop (``morton_knn_plain``, the kernel's plain
+    version) at 4, 8, 16 and 32 steps per host look (the loop's
     ``_ROUND_STEPS``, restored after), each answer held against ``want``.
-    Returns the line to print. A run for when the DFS changes
+    Returns the line to print. A run for when the plain loop changes
     (``--dfs-round-sweep``), not part of the default smoke."""
     import torch
 
@@ -2045,16 +2265,16 @@ def dfs_round_sweep(tree, queries, want):
             st = morton_mod.DfsStats()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            d, i = morton_mod.morton_knn(tree, queries, k=K, stats=st)
+            d, i = morton_mod.morton_knn_plain(tree, queries, K, stats=st)
             d[:1].cpu()
             out[rs] = (time.perf_counter() - t0, st)
             assert torch.equal(d, want[0]) and torch.equal(i, want[1]), \
                 f"DFS answer changed with {rs} steps per round"
     finally:
         morton_mod._ROUND_STEPS = saved
-    return (f"sparse DFS, first {queries.shape[0]} queries, by steps per round (s; steps, "
-            "host syncs): " + "; ".join(f"{rs}: {t:.4f} ({w.steps}, {w.syncs})"
-                                        for rs, (t, w) in out.items()))
+    return (f"plain DFS loop, the sparse lane's first {queries.shape[0]} queries, by steps "
+            "per round (s; steps, host syncs): "
+            + "; ".join(f"{rs}: {t:.4f} ({w.steps}, {w.syncs})" for rs, (t, w) in out.items()))
 
 
 def run_cli(argv):
@@ -2084,8 +2304,8 @@ def phase_cli(dev, points, tree, here, round_sweep=False):
     import torch
 
     import kdtree_tpu_torch.kernels.scan_knn as scan_mod
-    import kdtree_tpu_torch.ops.morton as morton_mod
     from kdtree_tpu_torch import native
+    from kdtree_tpu_torch.kernels.morton_dfs import morton_dfs
     from kdtree_tpu_torch.ops import bruteforce
     from kdtree_tpu_torch.ops import tile_query as tqm
     from kdtree_tpu_torch.ops.generate import generate_problem, generate_queries
@@ -2102,6 +2322,8 @@ def phase_cli(dev, points, tree, here, round_sweep=False):
 
     scan_mod.scan_tiles.launches = 0
     scan_mod.merge_partials.launches = 0
+    morton_dfs.launches = 0
+    plain = PlainDfsCalls().start()
 
     # the headline: gen + build + 10 x 1-NN, min of 5 fresh seeds
     def headline(seed, stats=None):
@@ -2125,8 +2347,8 @@ def phase_cli(dev, points, tree, here, round_sweep=False):
     lines.append(f"headline gen+build+{HEADLINE_QUERIES}x1-NN at {N_POINTS} x {DIM}: "
                  f"min {min(times):.4f} s over seeds 1-5 ({N_POINTS / min(times):.0f} pts/s; "
                  f"runs " + ", ".join(f"{t:.4f}" for t in times) + f"); exact vs oracle; "
-                 f"DFS {hstats.steps} steps, {hstats.scans} scan rounds, {hstats.syncs} host "
-                 f"syncs, {hstats.graphs} graph(s) in {hstats.chunks} chunk(s)")
+                 f"DFS {hstats.launches} morton_dfs launch(es) in {hstats.chunks} chunk(s), "
+                 f"{hstats.syncs} host syncs, {hstats.graphs} graphs")
 
     # the sparse-DFS lane on phase 4's tree, then the same queries tiled
     morton_knn(tree, generate_queries(54, DIM, SPARSE_Q, device=dev), k=K)[0][:1].cpu()
@@ -2149,10 +2371,8 @@ def phase_cli(dev, points, tree, here, round_sweep=False):
     choice = "tiled" if tqm.dense_lowd(SPARSE_Q, tree.n_real, DIM) else "DFS"
     lines.append(f"sparse DFS Q={SPARSE_Q} k={K} on the {tree.n_real}-point tree: "
                  f"{dfs_s:.4f} s ({SPARSE_Q / dfs_s:.0f} q/s), 256-query sample exact vs "
-                 f"oracle ({ties} tied slots); {st.chunks} chunks, {st.steps} steps "
-                 f"({st.steps / st.chunks:.1f} per chunk), {st.scans} scan rounds, "
-                 f"{st.syncs} host syncs ({st.syncs / st.chunks:.1f} per chunk), "
-                 f"{st.graphs} graphs")
+                 f"oracle ({ties} tied slots); {st.launches} morton_dfs launch(es) in "
+                 f"{st.chunks} chunk(s), {st.syncs} host syncs, {st.graphs} graphs")
     lines.append(f"same queries tiled: {tiled_s:.4f} s ({SPARSE_Q / tiled_s:.0f} q/s), "
                  f"d2 equal to the DFS on all {SPARSE_Q} queries and ids equal but for "
                  f"ties ({tiled_ties} tied slots); dense_lowd picks {choice}; tiled/DFS "
@@ -2219,17 +2439,23 @@ def phase_cli(dev, points, tree, here, round_sweep=False):
                      f"kernel launches")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    plain.stop()
     launches = (scan_mod.scan_tiles.launches, scan_mod.merge_partials.launches)
+    DFS_LAUNCHES["6"] = morton_dfs.launches
     lines.append(f"over phase 6 scan_tiles.launches={launches[0]}, "
-                 f"merge_partials.launches={launches[1]}")
+                 f"merge_partials.launches={launches[1]}, morton_dfs.launches="
+                 f"{DFS_LAUNCHES['6']} (the headline's 6 runs, the sparse lane's 2, the CLI "
+                 f"bench's 2 and `query`'s 1), plain DFS loop calls {plain.calls}")
+    if on_card:
+        assert DFS_LAUNCHES["6"] >= 9, "phase 6's DFS runs did not launch morton_dfs"
+        assert plain.calls == 0, "phase 6 ran the plain DFS loop on the card"
 
     # outside the counted window: the kernels against the plain scan at the
-    # two tiled dispatches phase 6 ran, and the launches of one DFS step
+    # two tiled dispatches phase 6 ran, and the launches of one DFS batch
     tiled_dispatch(f"sparse lane tiled ({SPARSE_Q} queries, {N_POINTS} points)", tree, qs, 8)
     tiled_dispatch(f"query --queries ({CLI_DENSE_Q} rows, {CLI_BUILD_N} points)", ctree, dq, 1)
-    per_step, note = dfs_launches_per_step(lambda: morton_knn(tree, qs[:4096], k=K),
-                                           morton_mod, (sd[:4096], si[:4096]))
-    lines.append(f"DFS device launches per step: {per_step:.2f} ({note}; obs.timeline)")
+    lines.append(dfs_launches_per_batch(lambda: morton_knn(tree, qs[:4096], k=K),
+                                        (sd[:4096], si[:4096]), dev))
     if round_sweep:
         lines.append(dfs_round_sweep(tree, qs[:4 * 4096], (sd[:4 * 4096], si[:4 * 4096])))
     return lines, launches
@@ -4066,6 +4292,7 @@ def phase_forest(dev, here, smi):
     import kdtree_tpu_torch.kernels.scan_knn as scan_mod
     from kdtree_tpu_torch import obs
     from kdtree_tpu_torch.kernels.frontier import frontier
+    from kdtree_tpu_torch.kernels.morton_dfs import morton_dfs
     from kdtree_tpu_torch.ops import bruteforce
     from kdtree_tpu_torch.ops import tile_query as tqm
     from kdtree_tpu_torch.ops.build import build_jit
@@ -4092,6 +4319,8 @@ def phase_forest(dev, here, smi):
     scan_mod.scan_tiles.launches = 0
     scan_mod.merge_partials.launches = 0
     frontier.launches = 0
+    morton_dfs.launches = 0
+    plain = PlainDfsCalls().start()
 
     # (a) bench.py's scale lane: gen + build at 2^26 on one shard, 10 queries
     q10 = generate_queries(77, DIM, SCALE_Q, device=dev)
@@ -4101,7 +4330,9 @@ def phase_forest(dev, here, smi):
     for seed in (1, 2):
         f, s_ = timed(lambda: build_global_morton(seed, DIM, SCALE_N, mesh=one, slack=1.05))
         builds.append(s_)
+    n0 = morton_dfs.launches
     (d2, ids), q_s = timed(lambda: global_morton_query(f, q10, k=1, mesh=one))
+    scale_launches = morton_dfs.launches - n0
     del f
     torch.cuda.empty_cache()
     pts = generate_points_rowwise(2, DIM, SCALE_N, device=dev)
@@ -4111,7 +4342,7 @@ def phase_forest(dev, here, smi):
     lines.append(f"(a) scale lane, {SCALE_N} x {DIM}-D on one shard (slack 1.05): gen+build "
                  f"{min(builds):.3f} s best of 2 ({builds[0]:.3f} / {builds[1]:.3f}; "
                  f"{SCALE_N / min(builds):.0f} pts/s), {SCALE_Q} queries k=1 by the per-shard "
-                 f"DFS {q_s * 1e3:.2f} ms; d2 bit-equal to morton_knn over the same rows, ids "
+                 f"DFS {q_s * 1e3:.2f} ms ({scale_launches} morton_dfs launch); d2 bit-equal to morton_knn over the same rows, ids "
                  f"to the oracle ({ties} tied slots) [{smi}]")
     del pts, sd, si
     torch.cuda.empty_cache()
@@ -4275,13 +4506,19 @@ def phase_forest(dev, here, smi):
                  f"{view_launch} scan launches, exact vs oracle ({ties} tied slots)")
     shutil.rmtree(work, ignore_errors=True)
 
+    plain.stop()
     launches = scan_mod.scan_tiles.launches
     merges = scan_mod.merge_partials.launches
     FRONTIER_LAUNCHES["12"] = frontier.launches
+    DFS_LAUNCHES["12"] = morton_dfs.launches
     assert launches > 0 or not on_card, "phase 12 never launched the scan kernel"
     assert frontier.launches > 0 or not on_card, "phase 12 never launched the frontier kernel"
+    assert (scale_launches > 0 and plain.calls == 0) or not on_card, \
+        "phase 12's per-shard DFS did not run the morton_dfs kernel"
     lines.append(f"phase 12's path: scan_tiles.launches={launches}, "
-                 f"merge_partials.launches={merges}, frontier.launches={frontier.launches}")
+                 f"merge_partials.launches={merges}, frontier.launches={frontier.launches}, "
+                 f"morton_dfs.launches={DFS_LAUNCHES['12']}, plain DFS loop calls "
+                 f"{plain.calls}")
 
     # the kernel against the plain scan at the forest shapes (after the
     # counts were read)
@@ -4479,6 +4716,11 @@ def _run_phases(argv, here, t_run, keep) -> int:
     for line in knn_only(dev):
         say("knn", f"{line} [{smi}]")
     say("knn", f"phase 3c in {time.perf_counter() - t0:.1f} s")
+    # 3d. the Morton DFS kernel (the headline's and the sparse lane's engine)
+    t0 = time.perf_counter()
+    for line in dfs_only(dev):
+        say("dfs", f"{line} [{smi}]")
+    say("dfs", f"phase 3d in {time.perf_counter() - t0:.1f} s")
     if "--forest-only" in argv or "--fleet-only" in argv:
         if "--forest-only" in argv:
             _phase12(dev, here, smi, t_run)
@@ -5443,6 +5685,16 @@ def print_record(kind, smi, launches, merges, max_err, main_rec, sparse):
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
         "graph_ms": rec["graph_ms"], "cluster": rec["cluster"],
         "launches_by_phase": FRONTIER_LAUNCHES})
+    rec, sparse_dfs = DFS_RECS["headline"], DFS_RECS["sparse"]  # phase 3d
+    record["kernels"].append({
+        "name": "morton_dfs", "route": "cuda", "source": "kdtree_tpu_torch/csrc/morton_dfs.cu",
+        "replaces": "kdtree_tpu/ops/morton.py:403",
+        "launches": sum(DFS_LAUNCHES.values()), "max_abs_err": rec["max_abs_err"],
+        "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"], "library_ms": None, "graph_ms": rec["graph_ms"],
+        "launches_by_phase": DFS_LAUNCHES, "sparse_ms": sparse_dfs["ms"],
+        "sparse_graph_ms": sparse_dfs["graph_ms"], "sparse_plain_ms": sparse_dfs["plain_ms"],
+        "sparse_bound_ms": sparse_dfs["bound_ms"], "sparse_bound_by": sparse_dfs["bound_by"]})
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

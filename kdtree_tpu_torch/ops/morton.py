@@ -1,7 +1,9 @@
 """Morton-order bucket tree: one stable sort, then dense reductions.
 
 The port of ``kdtree_tpu/ops/morton.py``'s build and of its per-query
-best-first DFS (:func:`morton_knn`). The build: quantize each axis,
+best-first DFS (:func:`morton_knn`; on CUDA the hand-written kernel of
+``csrc/morton_dfs.cu``, whose plain version is the lockstep loop here,
+:func:`morton_knn_plain`). The build: quantize each axis,
 interleave into a Morton code, ONE stable sort by code (ties keep the
 original row order, so the point id breaks them), cut the sorted order
 into buckets of B points padded with +inf rows and id -1, and build the
@@ -288,14 +290,19 @@ def serving_view(owner, make_inputs, cache_attr: str = "_morton_view"):
 class DfsStats:
     """What a :func:`morton_knn` run did, for the caller that passes one
     in: chunks, lockstep DFS steps, rounds that scanned buckets, host
-    syncs (each a read of lane state that waits for the device), and CUDA
-    graphs captured (one per chunk on CUDA)."""
+    syncs (each a read of lane state that waits for the device), CUDA
+    graphs captured and kernel launches. The plain loop (CPU tensors, and
+    the classic and bucketed DFS on any device) counts chunks, steps,
+    scans and syncs, and a graph per chunk on CUDA; the Morton DFS on CUDA
+    runs as one kernel launch over the whole batch (one chunk, no steps,
+    scans or syncs seen from the host)."""
 
     chunks: int = 0
     steps: int = 0
     scans: int = 0
     syncs: int = 0
     graphs: int = 0
+    launches: int = 0
 
 
 def _bbox_d2(q, lo, hi):
@@ -422,9 +429,12 @@ def morton_knn(tree: MortonTree, queries, k: int = 1, chunk: int = 4096,
 
     Returns (dists_sq f32[Q, k], indices i32[Q, k]) ascending — the same
     answer as ``kdtree_tpu.morton_knn`` on the same tree, ties included.
-    Queries run in chunks of ``chunk`` lanes; a ragged tail is padded with
-    copies of the last query, as in the reference. ``stats``, if given,
-    accumulates the steps and host syncs. For large dense batches prefer
+    On CUDA the whole batch is one launch of the DFS kernel
+    (:mod:`kdtree_tpu_torch.kernels.morton_dfs`); on the CPU queries run
+    in chunks of ``chunk`` lanes of the lockstep loop, a ragged tail
+    padded with copies of the last query, as in the reference. ``stats``,
+    if given, accumulates the chunks and launches, or the steps and host
+    syncs (:class:`DfsStats`). For large dense batches prefer
     :func:`kdtree_tpu_torch.ops.tile_query.morton_knn_tiled`."""
     queries = torch.as_tensor(queries, dtype=torch.float32, device=tree.device)
     k = min(k, tree.n_real)
@@ -437,7 +447,20 @@ def morton_knn_chunks(tree: MortonTree, queries: torch.Tensor, k: int,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`morton_knn`'s DFS without its counters: queries on the
     tree's device, ``k`` already clamped. The forest engines run it once
-    per shard."""
+    per shard. On CUDA it is the kernel
+    (:func:`kdtree_tpu_torch.kernels.morton_dfs.morton_dfs`, one launch for
+    the batch); on the CPU its plain version, :func:`morton_knn_plain`."""
+    from kdtree_tpu_torch.kernels.morton_dfs import morton_dfs
+
+    return morton_dfs(tree, queries.contiguous(), k, chunk, stats)
+
+
+def morton_knn_plain(tree: MortonTree, queries: torch.Tensor, k: int,
+                     chunk: int = 4096, stats: DfsStats | None = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The DFS kernel's plain version: the lockstep loop in chunks of
+    ``chunk`` queries (a ragged tail padded with copies of the last query,
+    as in the reference), on any device."""
     q = queries.shape[0]
     chunk = min(chunk, max(q, 1))
     if q <= chunk:

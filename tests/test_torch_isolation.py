@@ -77,6 +77,7 @@ def test_every_module_imports_without_jax_or_the_reference():
     mods = _modules()
     assert "kdtree_tpu_torch.kernels.scan_knn" in mods and len(mods) >= 12
     for sub in ("kernels.verb_fold", "kernels.pair_d2", "kernels.frontier", "kernels.knn_scan",
+                "kernels.morton_dfs",
                 "snapshot.store", "snapshot.follower", "verbs.device", "verbs.oracle",
                 "verbs.wire", "tuning.store", "tuning.feedback", "tuning.tuner",
                 "approx.search", "approx.recall", "approx.ladder", "models.tree",
@@ -274,9 +275,12 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
     code = ("import kdtree_tpu_torch.kernels.scan_knn as s, kdtree_tpu_torch.kernels._build as b\n"
             "import kdtree_tpu_torch.kernels.verb_fold as v, kdtree_tpu_torch.kernels.pair_d2 as p\n"
             "import kdtree_tpu_torch.kernels.frontier as f, kdtree_tpu_torch.kernels.knn_scan as k\n"
+            "import kdtree_tpu_torch.kernels.morton_dfs as m\n"
             "assert s.scan_tiles.launches == f.frontier.launches == k.knn_scan.launches == 0\n"
             "assert v.radius_fold.launches == v.range_fold.launches == p.pair_d2.launches == 0\n"
-            "assert b.sources() == ['frontier', 'knn_scan', 'pair_d2', 'scan_knn', 'verb_fold']\n"
+            "assert m.morton_dfs.launches == 0\n"
+            "assert b.sources() == ['frontier', 'knn_scan', 'morton_dfs', 'pair_d2', 'scan_knn',"
+            " 'verb_fold']\n"
             "b.DEFAULT_NVCC = b.PKG_DIR / 'no-such-nvcc'\n"
             "try:\n"
             "    b._nvcc()\n"
@@ -298,11 +302,14 @@ def test_build_library_name_tracks_the_source():
 
 
 def test_kernel_wrappers_raise_on_cuda_tensors_without_a_build(tmp_path):
-    """On a CUDA tensor the fold, pair_d2, frontier and knn_scan wrappers
-    launch their kernel or raise (knn_scan also for no query rows): with no nvcc and no library built, each call (the
-    frontier's with a forced cluster size too) raises nvcc's absence and
-    never reaches its plain version. (A tensor subclass that
-    reports a CUDA device stands in for a card this process lacks.)"""
+    """On a CUDA tensor the fold, pair_d2, frontier, knn_scan and Morton
+    DFS wrappers launch their kernel or raise (knn_scan and the DFS also
+    for no query rows, the DFS also through ``morton_knn`` and
+    ``morton_knn_chunks``): with no nvcc and no library built, each call
+    (the frontier's with a forced cluster size too) raises nvcc's absence
+    and never reaches its plain version (for the DFS, nor the lockstep
+    loop nor the kernel's mirror). (A tensor subclass that reports a CUDA
+    device stands in for a card this process lacks.)"""
     code = (
         "import torch, types\n"
         "import kdtree_tpu_torch.kernels._build as b\n"
@@ -310,6 +317,8 @@ def test_kernel_wrappers_raise_on_cuda_tensors_without_a_build(tmp_path):
         "import kdtree_tpu_torch.kernels.verb_fold as v\n"
         "import kdtree_tpu_torch.kernels.frontier as f\n"
         "import kdtree_tpu_torch.kernels.knn_scan as k\n"
+        "import kdtree_tpu_torch.kernels.morton_dfs as m\n"
+        "import kdtree_tpu_torch.ops.morton as om\n"
         f"b.BUILD_DIR = b.Path({str(tmp_path / 'build')!r})\n"
         "b.DEFAULT_NVCC = b.PKG_DIR / 'no-such-nvcc'\n"
         "def plain(*a):\n"
@@ -317,12 +326,18 @@ def test_kernel_wrappers_raise_on_cuda_tensors_without_a_build(tmp_path):
         "v._radius_fold_plain = v._range_fold_plain = p.pair_d2_plain = plain\n"
         "k.knn_scan_plain = plain\n"
         "f._frontier = f.frontier_mirror = plain\n"
+        "m.morton_knn_plain = m.morton_dfs_mirror = om.morton_knn_plain = plain\n"
+        "om._morton_knn_batch = plain\n"
         "class Cuda(torch.Tensor):\n"
         "    @property\n"
         "    def device(self):\n"
         "        return torch.device('cuda', 0)\n"
         "def c(x):\n"
         "    return x.as_subclass(Cuda)\n"
+        "as_tensor = torch.as_tensor\n"
+        "torch.as_tensor = lambda x, **kw: x if isinstance(x, Cuda) else as_tensor(x, **kw)\n"
+        "mt = om.MortonTree(c(torch.zeros(7, 3)), c(torch.zeros(7, 3)), c(torch.zeros(4, 8, 3)),"
+        " c(torch.zeros(4, 8, dtype=torch.int32)), 32, 2)\n"
         "tree = types.SimpleNamespace(bucket_pts=c(torch.zeros(4, 8, 3)),"
         " bucket_gid=c(torch.zeros(4, 8, dtype=torch.int32)), bucket_size=8,"
         " num_buckets=4, num_levels=2, node_lo=c(torch.zeros(7, 3)),"
@@ -338,7 +353,11 @@ def test_kernel_wrappers_raise_on_cuda_tensors_without_a_build(tmp_path):
         "         lambda: f.frontier(tree, c(torch.zeros(2, 3)), c(torch.ones(2, 3)),"
         " c(torch.ones(2)), 3),\n"
         "         lambda: f.frontier(tree, c(torch.zeros(2, 3)), c(torch.ones(2, 3)),"
-        " c(torch.ones(2)), 3, cluster=8)]\n"
+        " c(torch.ones(2)), 3, cluster=8),\n"
+        "         lambda: m.morton_dfs(mt, c(torch.zeros(5, 3)), 4),\n"
+        "         lambda: m.morton_dfs(mt, c(torch.zeros(0, 3)), 4),\n"
+        "         lambda: om.morton_knn(mt, c(torch.zeros(5, 3)), k=4),\n"
+        "         lambda: om.morton_knn_chunks(mt, c(torch.zeros(5, 3)), 4, chunk=2)]\n"
         "for call in calls:\n"
         "    try:\n"
         "        call()\n"
@@ -347,9 +366,9 @@ def test_kernel_wrappers_raise_on_cuda_tensors_without_a_build(tmp_path):
         "    else:\n"
         "        raise SystemExit('a CUDA call ran without a kernel')\n"
         "assert v.radius_fold.launches == v.range_fold.launches == p.pair_d2.launches == 0\n"
-        "assert f.frontier.launches == k.knn_scan.launches == 0\n"
+        "assert f.frontier.launches == k.knn_scan.launches == m.morton_dfs.launches == 0\n"
         "print('RAISED', len(calls))\n"
     )
     out = _run(code, {"PATH": str(tmp_path)})
     assert out.returncode == 0, out.stdout + out.stderr
-    assert "RAISED 8" in out.stdout
+    assert "RAISED 12" in out.stdout
