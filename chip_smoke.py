@@ -77,18 +77,25 @@ Phases, one line each (any failure raises and exits non-zero):
 3d. dfs    — ``morton_dfs`` (the Morton tree's per-query DFS as one kernel,
              for the reference's XLA program ``_morton_knn_one``; phase 6's
              headline, sparse lane and CLI bench and phase 12's per-shard DFS
-             run it) bit-equal to its plain version, the lockstep loop
-             ``morton_knn_plain`` on the card (d2 and ids): the headline's
-             shape (10 queries at k=1 over 2^24 x 3-D, B=256), 4,096 of the
-             sparse lane's queries at k=16 on phase 4's tree, the scale lane's
-             shard (10 queries at k=1 over 2^26 x 3-D, B=128); D = 1, 8 and
-             47, k = 100 (past the 64 entries a shared-memory list holds),
-             B = 8 and 1,024, a tie lattice, duplicates, k > n_real, Q = 0
-             and 1. Each non-empty case timed through the wrapper and as a
-             launch in a CUDA graph beside the plain loop's run and its bound
-             (the kernel's own count of the distinct boxes and buckets read,
-             box bounds and scanned pairs: bytes read once over 3.35 TB/s,
-             4 D flops a box bound and 3 D a pair over 67 TFLOP/s);
+             run it) in both of its layouts (a block of 8 warps a query, one
+             warp a query; ``_layout`` forces each) bit-equal to its plain
+             version, the lockstep loop ``morton_knn_plain`` on the card (d2
+             and ids): the headline's shape (10 queries at k=1 over 2^24 x
+             3-D, B=256), 4,096 of the sparse lane's queries at k=16 on phase
+             4's tree, the scale lane's shard (10 queries at k=1 over 2^26 x
+             3-D, B=128); D = 1, 8 and 47, k = 100 (past the 64 entries a
+             shared-memory list holds), B = 8 and 1,024, a tie lattice,
+             duplicates, k > n_real, Q = 0 and 1. Each non-empty case timed
+             in each layout through the wrapper and as a launch in a CUDA
+             graph beside the plain loop's run and its bound (the kernel's
+             own count of the distinct boxes and buckets the walk reads, box
+             bounds and scanned pairs, the same in both layouts and, at the
+             main path's three shapes, PR 19's: bytes read once over 3.35
+             TB/s, 4 D flops a box bound and 3 D a pair over 67 TFLOP/s),
+             the boxes its windows load, and at the main path's shapes the
+             slowest query's clock64() split (walk, scan, select, merge);
+             then the layouts at 132-4,096 of the sparse lane's queries and
+             over all 65,536;
 4. main    — 2^24 x 3-D points (seed 42) -> Morton build (B=256) ->
              ServeEngine(k=16) with its warmup ladder 8..1024 -> served
              requests of 1, 7, 64, 1000 and 1024 rows and one brute-force
@@ -1088,15 +1095,22 @@ DFS_RECS = {}  # phase 3d's timed records: "headline" is the kernels line's
 DFS_SMALL_N = (1 << 16) + 77  # phase 3d's small clouds (not a power of two of buckets)
 DFS_SMALL_Q = 1000
 DFS_SPARSE_Q = 4096  # the first of the sparse lane's queries (one chunk of the plain loop)
+# what PR 19's walk read at the main path's shapes (distinct boxes and
+# buckets, box bounds, scanned pairs): a redesign that keeps the walk's
+# sequence reads the same
+DFS_PR19_SEEN = {"headline": (2962, 510, 3226, 133120),
+                 "sparse": (120718, 52042, 1609548, 76707072),
+                 "forest": (5752, 926, 6170, 124160)}
+DFS_LAYOUT_QS = (132, 264, 528, 1056, 2112, 4096)  # the layouts' crossover sweep
 
 
-def dfs_bound(tree, queries, k):
+def dfs_bound(tree, queries, k, layout):
     """The DFS kernel's bound on one call: the kernel's own count
     (``morton_dfs(seen=...)``) of the distinct child boxes and buckets the
-    queries read, the box bounds and the scanned pairs. Bytes: those boxes
-    (2 D words) and buckets (B (D + 1) words) read once, the queries and
-    the answer; operations: 4 D flops a box bound and 3 D a scanned pair,
-    over the FP32 rate."""
+    walk reads, its box bounds and scanned pairs (and, apart, the boxes its
+    windows load). Bytes: those boxes (2 D words) and buckets (B (D + 1)
+    words) read once, the queries and the answer; operations: 4 D flops a
+    box bound and 3 D a scanned pair, over the FP32 rate."""
     import torch
 
     from kdtree_tpu_torch.kernels.morton_dfs import morton_dfs
@@ -1104,57 +1118,105 @@ def dfs_bound(tree, queries, k):
     dev = queries.device
     nodes = torch.zeros(tree.heap_size, dtype=torch.uint8, device=dev)
     buckets = torch.zeros(tree.num_buckets, dtype=torch.uint8, device=dev)
-    work = torch.zeros(2, dtype=torch.int64, device=dev)
-    morton_dfs(tree, queries, k, seen=(nodes, buckets, work))
+    work = torch.zeros(3, dtype=torch.int64, device=dev)
+    morton_dfs(tree, queries, k, seen=(nodes, buckets, work), _layout=layout)
     n_nodes, n_buckets = int(nodes.sum()), int(buckets.sum())
-    n_box, n_pairs = work.tolist()
+    n_box, n_pairs, n_win = work.tolist()
     Q, D = queries.shape
     nbytes = (n_nodes * 2 * D + n_buckets * tree.bucket_size * (D + 1) + Q * D + Q * k * 2) * 4
     ms, by, bytes_ms, ops_ms = _roofline(nbytes, n_box * 4 * D + n_pairs * 3 * D)
     return {"bound_ms": ms, "bound_by": by, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-            "nodes": n_nodes, "buckets": n_buckets, "boxes": n_box, "pairs": n_pairs}
+            "nodes": n_nodes, "buckets": n_buckets, "boxes": n_box, "pairs": n_pairs,
+            "window_boxes": n_win}
 
 
-def dfs_case(what, tree, queries, k):
-    """Phase 3d's check of one case: the kernel bit-equal (d2 and ids) to
-    the plain loop on the card, then (for a non-empty batch) timed through
-    the wrapper and as a launch in a CUDA graph beside the plain loop's one
-    run and :func:`dfs_bound`. Returns the record, or None."""
+def dfs_stamps(tree, queries, k, layout):
+    """The stamped kernel's clock64() sums (walk, scan, select, merge) of
+    the batch's slowest query, as shares of its cycles, and its cycles."""
     import torch
 
-    from kdtree_tpu_torch.kernels.morton_dfs import morton_dfs
+    from kdtree_tpu_torch.kernels.morton_dfs import STAMP_COLS, morton_dfs
+
+    st = torch.zeros((queries.shape[0], len(STAMP_COLS)), dtype=torch.int64,
+                     device=queries.device)
+    morton_dfs(tree, queries, k, stamps=st, _layout=layout)
+    row = st[int(st[:, 0].argmax())].tolist()
+    return {"cycles": row[0], **{c: row[i] / max(row[0], 1)
+                                 for i, c in enumerate(STAMP_COLS) if i}}
+
+
+def dfs_case(what, tree, queries, k, pr19=None):
+    """Phase 3d's check of one case: the kernel in each layout bit-equal
+    (d2 and ids) to the plain loop on the card, then (for a non-empty
+    batch) timed in each layout through the wrapper and as a launch in a
+    CUDA graph beside the plain loop's one run and :func:`dfs_bound` (the
+    same counts in both layouts, and ``pr19``'s where given); with
+    ``pr19``, each layout's :func:`dfs_stamps` too. The record's ``ms`` and
+    ``graph_ms`` are the layout ``layout_for`` picks. Returns the record,
+    or None."""
+    import torch
+
+    from kdtree_tpu_torch.kernels.morton_dfs import LAYOUTS, _sm_count, layout_for, morton_dfs
     from kdtree_tpu_torch.ops.morton import morton_knn_plain
 
     want, plain_ms = event_ms(lambda: morton_knn_plain(tree, queries, k))
-    got = morton_dfs(tree, queries, k)
-    torch.cuda.synchronize()
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
-        f"morton_dfs != the plain loop at {what}"
+    for layout in LAYOUTS:
+        got = morton_dfs(tree, queries, k, _layout=layout)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+            f"morton_dfs ({layout} layout) != the plain loop at {what}"
     if queries.shape[0] == 0:
         return None
-    return {"what": what, "Q": queries.shape[0], "k": k, "plain_ms": plain_ms,
-            "ms": cuda_ms(lambda: morton_dfs(tree, queries, k), 5),
-            "graph_ms": graph_ms(lambda: morton_dfs(tree, queries, k), 3, 3),
-            "max_abs_err": 0.0, "library_ms": None, **dfs_bound(tree, queries, k)}
+    Q = queries.shape[0]
+    rec = {"what": what, "Q": Q, "k": k, "plain_ms": plain_ms, "max_abs_err": 0.0,
+           "library_ms": None, "layout": layout_for(Q, _sm_count(queries.device.index or 0))}
+    for layout in LAYOUTS:
+        def run():
+            return morton_dfs(tree, queries, k, _layout=layout)
+        rec[layout] = {"ms": cuda_ms(run, 5), "graph_ms": graph_ms(run, 3, 3),
+                       "bound": dfs_bound(tree, queries, k, layout)}
+        if pr19 is not None:
+            rec[layout]["stamps"] = dfs_stamps(tree, queries, k, layout)
+    seen = [tuple(rec[x]["bound"][c] for c in ("nodes", "buckets", "boxes", "pairs",
+                                                "window_boxes")) for x in LAYOUTS]
+    assert seen[0] == seen[1], f"the layouts' walks differ at {what}: {seen}"
+    if pr19 is not None:
+        assert seen[0][:4] == pr19, f"the walk read {seen[0][:4]}, PR 19's {pr19}, at {what}"
+    rec.update(rec[rec["layout"]]["bound"])
+    rec["ms"], rec["graph_ms"] = rec[rec["layout"]]["ms"], rec[rec["layout"]]["graph_ms"]
+    return rec
 
 
 def dfs_line(rec):
-    return (f"morton_dfs bit-equal to the plain loop at {rec['what']} (Q={rec['Q']}, "
-            f"k={rec['k']}): {rec['ms']:.4f} ms through the wrapper, {rec['graph_ms']:.4f} a "
-            f"launch in a CUDA graph, plain loop {rec['plain_ms']:.2f} ms; bound "
-            f"{rec['bound_ms']:.6f} ms ({rec['bound_by']}: bytes {rec['bytes_ms']:.6f}, "
-            f"operations {rec['ops_ms']:.6f}; {rec['nodes']} distinct boxes and "
-            f"{rec['buckets']} buckets read, {rec['boxes']} box bounds, {rec['pairs']} "
-            f"scanned pairs)")
+    from kdtree_tpu_torch.kernels.morton_dfs import LAYOUTS
+
+    times = "; ".join(
+        f"{x} layout {rec[x]['ms']:.4f} ms through the wrapper, {rec[x]['graph_ms']:.4f} a "
+        f"launch in a CUDA graph" for x in LAYOUTS)
+    stamps = "".join(
+        f"; {x} layout's slowest query {rec[x]['stamps']['cycles']} cycles: walk "
+        f"{rec[x]['stamps']['walk']:.0%}, scan {rec[x]['stamps']['scan']:.0%}, select "
+        f"{rec[x]['stamps']['select']:.0%}, merge {rec[x]['stamps']['merge']:.0%} (window "
+        f"loads {rec[x]['stamps']['windows']:.0%}, within the walk)"
+        for x in LAYOUTS if "stamps" in rec[x])
+    return (f"morton_dfs bit-equal to the plain loop in both layouts at {rec['what']} "
+            f"(Q={rec['Q']}, k={rec['k']}; layout_for picks {rec['layout']}): {times}; plain "
+            f"loop {rec['plain_ms']:.2f} ms; bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}: "
+            f"bytes {rec['bytes_ms']:.6f}, operations {rec['ops_ms']:.6f}; {rec['nodes']} "
+            f"distinct boxes and {rec['buckets']} buckets read, {rec['boxes']} box bounds, "
+            f"{rec['pairs']} scanned pairs; the windows loaded {rec['window_boxes']} boxes)"
+            f"{stamps}")
 
 
 def dfs_only(dev):
-    """Phase 3d: the Morton DFS kernel against its plain version, the
-    lockstep loop, bit for bit on the card (see the module docstring).
-    Yields the lines to print; the timed records go to ``DFS_RECS``. Its
-    launches here are not the main path's (phases 6 and 12 zero them)."""
+    """Phase 3d: the Morton DFS kernel in both layouts against its plain
+    version, the lockstep loop, bit for bit on the card (see the module
+    docstring), then the layouts' crossover. Yields the lines to print;
+    the timed records go to ``DFS_RECS``. Its launches here are not the
+    main path's (phases 6 and 12 zero them)."""
     import torch
 
+    from kdtree_tpu_torch.kernels.morton_dfs import LAYOUTS, morton_dfs
     from kdtree_tpu_torch.ops.generate import (
         generate_points_rowwise, generate_problem, generate_queries,
     )
@@ -1170,21 +1232,36 @@ def dfs_only(dev):
     pts, qs = generate_problem(1, DIM, N_POINTS, HEADLINE_QUERIES, device=dev)
     tree = build_morton(pts, bucket_cap=BUCKET)
     DFS_RECS["headline"] = dfs_case(f"the headline ({HEADLINE_QUERIES} queries over "
-                                    f"{N_POINTS} x {DIM}-D, B={BUCKET})", tree, qs, 1)
+                                    f"{N_POINTS} x {DIM}-D, B={BUCKET})", tree, qs, 1,
+                                    DFS_PR19_SEEN["headline"])
     yield dfs_line(DFS_RECS["headline"])
     del pts, tree
     tree = build_morton(generate_points_rowwise(SEED, DIM, N_POINTS, device=dev),
                         bucket_cap=BUCKET)
-    qs = generate_queries(55, DIM, SPARSE_Q, device=dev)[:DFS_SPARSE_Q].contiguous()
+    lane_q = generate_queries(55, DIM, SPARSE_Q, device=dev)
+    qs = lane_q[:DFS_SPARSE_Q].contiguous()
     DFS_RECS["sparse"] = dfs_case(f"the sparse lane's first {DFS_SPARSE_Q} queries (phase "
-                                  f"4's tree)", tree, qs, K)
+                                  f"4's tree)", tree, qs, K, DFS_PR19_SEEN["sparse"])
     yield dfs_line(DFS_RECS["sparse"])
-    del tree
+    sweep = []
+    for q in DFS_LAYOUT_QS:
+        sub = lane_q[:q].contiguous()
+        sweep.append(f"Q={q} " + " / ".join(
+            f"{graph_ms(lambda: morton_dfs(tree, sub, K, _layout=x), 3, 3):.4f}"
+            for x in LAYOUTS))
+    yield (f"morton_dfs layouts' crossover on the sparse lane's tree at k={K}, a launch in a "
+           f"CUDA graph, ms {' / '.join(LAYOUTS)}: " + "; ".join(sweep))
+    whole = [graph_ms(lambda: morton_dfs(tree, lane_q, K, _layout=x), 1, 3) for x in LAYOUTS]
+    yield (f"morton_dfs over the whole sparse lane ({SPARSE_Q} queries at k={K}), a launch "
+           f"in a CUDA graph, ms {' / '.join(LAYOUTS)}: "
+           + " / ".join(f"{x:.4f}" for x in whole))
+    del tree, lane_q
     torch.cuda.empty_cache()
     tree = build_morton(generate_points_rowwise(2, DIM, SCALE_N, device=dev), bucket_cap=128)
     DFS_RECS["forest"] = dfs_case(f"the scale lane's shard ({SCALE_Q} queries over "
                                   f"{SCALE_N} x {DIM}-D, B=128)", tree,
-                                  generate_queries(77, DIM, SCALE_Q, device=dev), 1)
+                                  generate_queries(77, DIM, SCALE_Q, device=dev), 1,
+                                  DFS_PR19_SEEN["forest"])
     yield dfs_line(DFS_RECS["forest"])
     del tree
     torch.cuda.empty_cache()
@@ -1208,7 +1285,8 @@ def dfs_only(dev):
     for what, pts, q, k, b in cases:
         rec = dfs_case(what, build_morton(pts, bucket_cap=b), q, k)
         yield (dfs_line(rec) if rec else
-               f"morton_dfs bit-equal to the plain loop at {what}: an empty answer, no launch")
+               f"morton_dfs bit-equal to the plain loop in both layouts at {what}: an empty "
+               f"answer, no launch")
 
 
 @contextlib.contextmanager
@@ -5694,7 +5772,9 @@ def print_record(kind, smi, launches, merges, max_err, main_rec, sparse):
         "bound_by": rec["bound_by"], "library_ms": None, "graph_ms": rec["graph_ms"],
         "launches_by_phase": DFS_LAUNCHES, "sparse_ms": sparse_dfs["ms"],
         "sparse_graph_ms": sparse_dfs["graph_ms"], "sparse_plain_ms": sparse_dfs["plain_ms"],
-        "sparse_bound_ms": sparse_dfs["bound_ms"], "sparse_bound_by": sparse_dfs["bound_by"]})
+        "sparse_bound_ms": sparse_dfs["bound_ms"], "sparse_bound_by": sparse_dfs["bound_by"],
+        "layout": rec["layout"], "sparse_layout": sparse_dfs["layout"],
+        **{f"{x}_graph_ms": rec[x]["graph_ms"] for x in ("warp", "block")}})
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
