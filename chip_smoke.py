@@ -59,21 +59,29 @@ Phases, one line each (any failure raises and exits non-zero):
              the reference's XLA program ``_knn_scan``; the fallback batch,
              the mutable index's overlay and every oracle check below run
              it) bit-equal to its plain version ``knn_scan_plain`` (d2 and
-             ids) at D = 1, 3, 8, 32, 33 and 47, k = 1, 16 and 100 (above
-             the 64 a shared-memory list holds), Q = 1, 7 and 1,000, at the
-             planned chunks; on tie lattices, +inf rows (fewer finite than
-             k, and none finite), k = N, N below a chunk's minimum; on
-             Morton-ordered rows with a +inf pad every 256 at Q = 1, 8, 64
-             and 1,000 x k = 1, 16 and 100, and from rows 1-3 of them (bases
-             not 16-byte aligned); and at the fallback shape (1,000 x 2^24 x
-             3-D, k = 16) in random and in Morton order. Then timed at 8,
-             64, 1,000 and 1,024 rows over 2^24 x 3-D in both orders,
-             through the wrapper and in a CUDA graph, each with the share of
-             (warp, stage) pairs the kernel's cull skipped and its bound
-             three ways (operations, issue slots, what the inputs need); and
-             ``knn_scan_kernel`` (D != 3) timed at D = 8, 32 and 47, 1,000
-             rows over 20,011 points and 256 over 2^19, beside its
-             operations and bytes bounds;
+             ids) at D = 1, 2, 3, 8, 16, 32, 33 and 47, k = 1, 16 and 100 (above
+             the 64 a shared-memory list holds), Q = 1, 7, 10 and 1,000, at
+             the planned chunks; on tie lattices, +inf rows (fewer finite
+             than k, and none finite), k = N, N below a chunk's minimum; on
+             Morton-ordered rows with a +inf pad every 256 at D = 3, 8, 32
+             and 47 x Q = 1, 8, 64 and 1,000 x k = 1, 16 and 100, and from
+             rows 1-3 of them at D = 3 and 8, and at D = 8 from floats 1-3
+             (bases 4-12 bytes past a 16-byte boundary), the kernel's cull
+             required to skip some (warp, stage) pair at each of those D
+             over its Morton cases of more than one tile of queries; and at
+             the fallback shape (1,000 x 2^24 x 3-D,
+             k = 16) in random and in Morton order. Then timed at 8, 64,
+             1,000 and 1,024 rows over 2^24 x 3-D in both orders, through
+             the wrapper and in a CUDA graph, each with the share of (warp,
+             stage) pairs the kernel's cull skipped and its bound three ways
+             (operations, issue slots, what the inputs need); and
+             ``knn_scan_kernel`` (D != 3), each shape first held bit-equal
+             to ``knn_scan_plain``, timed the same ways, with its
+             culled share and beside the library's cdist + topk, at D = 8,
+             32 and 47 (1,000 rows over 20,011 points, 256 over 2^19), at
+             the CLI's one-shot run (10 rows over 2^24 at D = 8 and 16,
+             k = 1) and at 1,000 rows over 2^19 x 8-D in Morton order with
+             a +inf pad every 256 and in random order;
 3d. dfs    — ``morton_dfs`` (the Morton tree's per-query DFS as one kernel,
              for the reference's XLA program ``_morton_knn_one``; phase 6's
              headline, sparse lane and CLI bench and phase 12's per-shard DFS
@@ -793,18 +801,20 @@ WIDE_VERB_SIDE = 162.0  # their cubes: ~25 hits
 FOLD_RECS = {}  # kernel name -> its record at the main path's shape (3b, 3c, 4b)
 FOLD_LAUNCHES = {"verb_radius_fold": 0, "verb_range_fold": 0, "pair_d2": 0}  # main-path runs
 KNN_LAUNCHES = {}  # phase -> knn_scan.launches over its driven window (4: fallback, 7: overlay)
-KNN_DIMS = (1, 3, 8, 32, 33, 47)  # phase 3c
+KNN_DIMS = (1, 2, 3, 8, 16, 32, 33, 47)  # phase 3c
 KNN_KS = (1, 16, 100)  # 100: above the 64 entries a shared-memory list holds
-KNN_ROWS = (1, 7, 1000)
+KNN_ROWS = (1, 7, 10, 1000)  # 10: the CLI's one-shot batch
 KNN_N = 20011  # phase 3c's point count: no multiple of a chunk or a stage
 KNN_MORTON_N = (1 << 16) + 77  # 3c's Morton-ordered storage, a +inf pad row ending every 256
 KNN_MORTON_ROWS = (1, 8, 64, 1000)
+KNN_MORTON_DIMS = (3, 8, 32, 47)
 KNN_TIMED_ROWS = (8, 64, 1000, 1024)  # the correction bucket, an overlay, the fallback, its cap
 KNN_ISSUE_SLOTS = 7  # instructions a (query, point) pair at D = 3: 3 FSUB, 3 FFMA, a compare
 KNN_RECS = {}  # "fallback": phase 4's fallback batch kernel on the tree's storage
 KNN_WIDE_DIMS = (8, 32, 47)  # phase 3c's timed widths of knn_scan_kernel
 KNN_WIDE_Q = 256
 KNN_WIDE_N = 1 << 19
+KNN_CLI_DIMS = (8, 16)  # the CLI's one-shot run: HEADLINE_QUERIES rows over N_POINTS, k = 1
 
 
 def event_ms(fn):
@@ -936,7 +946,7 @@ def knn_bounds(points, queries, d2, clock_mhz):
     over the FP32 rate (against the rows, queries and answer moved once),
     every pair's KNN_ISSUE_SLOTS instructions over the SMs' issue rate at
     ``clock_mhz``, and what these inputs need: 3 D flops for each pair in
-    a stage tile (the kernel's ``kernel_stage()`` rows) whose box bound the query's final k-th
+    a stage tile (the kernel's ``kernel_stage(D)`` rows) whose box bound the query's final k-th
     (``d2[:, -1]``) does not strictly exceed (``tile_boxes`` /
     ``tile_lb_plain``, the kernel's cull), with the same bytes."""
     import torch
@@ -949,7 +959,7 @@ def knn_bounds(points, queries, d2, clock_mhz):
     ops_ms, ops_by, bytes_term, ops_term = _roofline(nbytes, Q * n * 3 * d)
     sms = torch.cuda.get_device_properties(points.device).multi_processor_count
     issue_ms = Q * n * KNN_ISSUE_SLOTS / (sms * 128 * clock_mhz * 1e6) * 1e3
-    stage = ks.kernel_stage()
+    stage = ks.kernel_stage(d)
     lo, hi = ks.tile_boxes(points, stage)
     sizes = torch.full((lo.shape[0],), stage, dtype=torch.int64, device=points.device)
     sizes[-1] = n - (lo.shape[0] - 1) * stage
@@ -961,23 +971,40 @@ def knn_bounds(points, queries, d2, clock_mhz):
             "need_ms": need_ms, "need_by": need_by, "need_frac": pairs / (Q * n)}
 
 
-def knn_timed(points, queries, clock_mhz):
+def knn_library_ms(points, queries, k):
+    """The library's yardstick for the fused k-NN, ms a call: ``torch.cdist``
+    squared, then ``torch.topk(largest=False)``, TF32 off (timed, not
+    bit-equal: cdist's arithmetic is not d2's)."""
+    import torch
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return cuda_ms(lambda: torch.topk(torch.cdist(queries, points).square_(), k, dim=1,
+                                          largest=False), 3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def knn_timed(points, queries, clock_mhz, k=K, library=False):
     """The fused k-NN on one shape: the chunk count, ms through the wrapper
     and a launch in a CUDA graph, the share of (warp, stage) pairs the cull
-    skipped (the kernel's own count) and :func:`knn_bounds`."""
+    skipped (the kernel's own count), :func:`knn_bounds` and, with
+    ``library``, :func:`knn_library_ms`."""
     import torch
 
     from kdtree_tpu_torch.kernels import knn_scan as ks
 
     counts = torch.zeros(2, dtype=torch.int64, device=points.device)
-    d2, _ = ks.knn_scan(points, queries, K, counts=counts)
+    d2, _ = ks.knn_scan(points, queries, k, counts=counts)
     culled, seen = counts.tolist()
     n, d = points.shape
     Q = queries.shape[0]
-    rec = {"S": ks.plan(points.device.index or 0, Q, n, d, K)[1],
-           "ms": cuda_ms(lambda: ks.knn_scan(points, queries, K), 5),
-           "graph_ms": graph_ms(lambda: ks.knn_scan(points, queries, K), 3, 3),
-           "culled_frac": culled / max(seen, 1), "max_abs_err": 0.0, "library_ms": None,
+    rec = {"S": ks.plan(points.device.index or 0, Q, n, d, k)[1],
+           "ms": cuda_ms(lambda: ks.knn_scan(points, queries, k), 5),
+           "graph_ms": graph_ms(lambda: ks.knn_scan(points, queries, k), 3, 3),
+           "culled_frac": culled / max(seen, 1), "max_abs_err": 0.0,
+           "library_ms": knn_library_ms(points, queries, k) if library else None,
            **knn_bounds(points, queries, d2, clock_mhz)}
     return rec
 
@@ -1009,46 +1036,70 @@ def knn_only(dev):
         x = rng.integers(0, 3, (n, d)) if lattice else rng.uniform(-100, 100, (n, d))
         return torch.from_numpy(x.astype(np.float32)).to(dev)
 
-    cases = [(f"D={d} k={k} Q={nq}", rows(KNN_N, d), rows(nq, d), k)
+    # (what, points, queries, k, whether it counts towards its D's Morton
+    # cases that cull: on Morton-ordered storage with pads, where the queries
+    # take more than one tile, as the kernel culls at every D then; over
+    # those cases at each D some (warp, stage) pair must be culled)
+    cases = [(f"D={d} k={k} Q={nq}", rows(KNN_N, d), rows(nq, d), k, False)
              for d in KNN_DIMS for k in KNN_KS for nq in KNN_ROWS]
     for d in (3, 8):
         for k in (16, 100):
             cases.append((f"tie lattice D={d} k={k}", rows(KNN_N, d, True),
-                          rows(1000, d, True), k))
+                          rows(1000, d, True), k, False))
     masked = rows(KNN_N, 3)
     masked[torch.as_tensor(rng.permutation(KNN_N)[:KNN_N - 9], device=dev)] = float("inf")
-    cases += [("9 finite rows, k=16", masked, rows(64, 3), 16),
+    cases += [("9 finite rows, k=16", masked, rows(64, 3), 16, False),
               ("no finite row, k=100", torch.full((KNN_N, 3), float("inf"), device=dev),
-               rows(7, 3), 100),
-              ("k = N = 700", rows(700, 3), rows(33, 3), 700),
-              ("N = 300, below a chunk's minimum", rows(300, 8), rows(40, 8), 16)]
-    morton = morton_sorted(rows(KNN_MORTON_N, 3), BUCKET)
-    cases += [(f"Morton order, a pad every {BUCKET} rows, k={k} Q={nq}", morton, rows(nq, 3), k)
-              for k in KNN_KS for nq in KNN_MORTON_ROWS]
-    cases += [(f"Morton order from row {off} ({12 * off % 16} bytes past a 16-byte boundary), "
-               f"k=16 Q={nq}", morton[off:], rows(nq, 3), 16)
-              for off in (1, 2, 3) for nq in (8, 1000)]
+               rows(7, 3), 100, False),
+              ("k = N = 700", rows(700, 3), rows(33, 3), 700, False),
+              ("N = 300, below a chunk's minimum", rows(300, 8), rows(40, 8), 16, False)]
+    for d in KNN_MORTON_DIMS:
+        morton = morton_sorted(rows(KNN_MORTON_N, d), BUCKET)
+        cases += [(f"Morton order at D={d}, a pad every {BUCKET} rows, k={k} Q={nq}", morton,
+                   rows(nq, d), k, nq > ks.WARP_ROWS * ks.WARPS)
+                  for k in KNN_KS for nq in KNN_MORTON_ROWS]
+        if d in (3, 8):
+            cases += [(f"Morton order at D={d} from row {off} ({4 * d * off % 16} bytes past a "
+                       f"16-byte boundary), k=16 Q={nq}", morton[off:], rows(nq, d), 16, False)
+                      for off in (1, 2, 3) for nq in (8, 1000)]
+        if d == 8:  # rows of 32 bytes from 4, 8 and 12 bytes past a 16-byte boundary
+            flat = morton.view(-1)
+            cases += [(f"Morton-ordered floats at D=8 from float {e} ({4 * e} bytes past a "
+                       f"16-byte boundary), k=16 Q={nq}",
+                       flat[e: e + (morton.shape[0] - 1) * d].view(-1, d), rows(nq, d), 16,
+                       False)
+                      for e in (1, 2, 3) for nq in (8, 1000)]
+        del morton
     chunks = set()
-    counts = torch.zeros(2, dtype=torch.int64, device=dev)
-    for what, p, q, k in cases:
+    counts = {}  # D -> culled and examined (warp, stage) pairs
+    morton_culled = dict.fromkeys(KNN_MORTON_DIMS, 0)
+    for what, p, q, k, culls in cases:
+        d = q.shape[1]
+        c = torch.zeros(2, dtype=torch.int64, device=dev)
         want = ks.knn_scan_plain(p, q, min(k, p.shape[0]))
-        got = ks.knn_scan(p, q, k, counts=counts)
-        torch.cuda.synchronize()
+        got = ks.knn_scan(p, q, k, counts=c)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
             f"knn_scan != knn_scan_plain at {what}"
-        chunks.add(ks.plan(dev.index or 0, q.shape[0], p.shape[0], q.shape[1],
-                           min(k, p.shape[0]))[1])
-    culled, seen = counts.tolist()
+        culled, seen = c.tolist()
+        if culls:
+            morton_culled[d] += culled
+        counts[d] = [a + b for a, b in zip(counts.get(d, (0, 0)), (culled, seen))]
+        chunks.add(ks.plan(dev.index or 0, q.shape[0], p.shape[0], d, min(k, p.shape[0]))[1])
+    assert all(morton_culled.values()), \
+        f"knn_scan culled nothing in some D's Morton cases that cull: {morton_culled}"
+    culled = ", ".join(f"D={d} {c[0]} of {c[1]}" for d, c in sorted(counts.items()))
     lines = [f"knn_scan bit-equal to knn_scan_plain (d2 and ids) in {len(cases)} cases: D = "
              f"{', '.join(map(str, KNN_DIMS))} x k = {', '.join(map(str, KNN_KS))} x Q = "
              f"{', '.join(map(str, KNN_ROWS))} over {KNN_N} points, tie lattices at D = 3 and 8 "
              f"(k = 16, 100), 9 finite rows, none finite, k = N = 700, N = 300; "
-             f"{KNN_MORTON_N} Morton-ordered rows with a +inf pad every {BUCKET} at k = "
-             f"{', '.join(map(str, KNN_KS))} x Q = {', '.join(map(str, KNN_MORTON_ROWS))}, and "
-             f"from rows 1, 2 and 3 (bases 12, 8 and 4 bytes past a 16-byte boundary) at Q = 8 "
-             f"and 1,000; at the planned chunks (S in {sorted(chunks)}, the merge kernel "
-             f"joining them where S > 1); the D = 3 cases culled {culled} of {seen} "
-             f"(warp, stage) pairs"]
+             f"{KNN_MORTON_N} Morton-ordered rows with a +inf pad every {BUCKET} at D = "
+             f"{', '.join(map(str, KNN_MORTON_DIMS))} x k = {', '.join(map(str, KNN_KS))} x Q = "
+             f"{', '.join(map(str, KNN_MORTON_ROWS))}, and from rows 1, 2 and 3 (bases not "
+             f"16-byte aligned at D = 3) at D = 3 and 8 and from floats 1, 2 and 3 at D = 8, "
+             f"Q = 8 and 1,000; at the planned chunks "
+             f"(S in {sorted(chunks)}, the merge kernel joining them where S > 1); culled "
+             f"in the Morton cases of more than one tile, by D: {morton_culled}; culled "
+             f"(warp, stage) pairs, all cases: {culled}"]
 
     clock = sm_clock_mhz()
     pts = rows(N_POINTS, DIM)
@@ -1076,18 +1127,40 @@ def knn_only(dev):
             lines.append(knn_line(f"knn_scan, {nq} rows over 2^{N_POINTS.bit_length() - 1} x "
                                   f"{DIM}-D in {name} order, k={K}", rec))
     del pts, mpts
-    # knn_scan_kernel (D != 3) at the shapes its times were taken at: 1,000
-    # rows over KNN_N points and 256 rows over 2^19, in random order
-    for d in KNN_WIDE_DIMS:
-        for nq, n in ((PAIR_Q, KNN_N), (KNN_WIDE_Q, KNN_WIDE_N)):
-            rec = knn_timed(rows(n, d), rows(nq, d), clock)
-            lines.append(f"knn_scan_kernel at D={d}, {nq} rows over {n} points, k={K}: "
-                         f"S={rec['S']} chunks, {rec['ms']:.4f} ms through the wrapper, "
-                         f"{rec['graph_ms']:.4f} a launch in a CUDA graph; bound "
-                         f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}): operations "
-                         f"{rec['ops_ms']:.4f} ms (3 D flops a pair), bytes "
-                         f"{rec['bytes_ms']:.4f} ms")
+    # knn_scan_kernel (D != 3) at the shapes its times were taken at (1,000
+    # rows over KNN_N points and 256 rows over 2^19, in random order), the
+    # CLI's one-shot run (HEADLINE_QUERIES rows over N_POINTS, k = 1) and
+    # 1,000 rows over 2^19 x 8-D bucket storage in Morton order and random
+    shapes = [(d, nq, n, K, "random") for d in KNN_WIDE_DIMS
+              for nq, n in ((PAIR_Q, KNN_N), (KNN_WIDE_Q, KNN_WIDE_N))]
+    shapes += [(d, HEADLINE_QUERIES, N_POINTS, 1, "random") for d in KNN_CLI_DIMS]
+    shapes += [(8, PAIR_Q, KNN_WIDE_N, K, order) for order in ("Morton", "random")]
+    for d, nq, n, k, order in shapes:
+        p, q = rows(n, d), rows(nq, d)
+        if order == "Morton":
+            p = morton_sorted(p, BUCKET)
+        got, want = ks.knn_scan(p, q, k), ks.knn_scan_plain(p, q, k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+            f"knn_scan != knn_scan_plain at D={d}, {nq} rows over {n} points ({order})"
+        del got, want
+        rec = knn_timed(p, q, clock, k, library=True)
+        KNN_WIDE_RECS[(d, nq, n, order)] = rec
+        pad = f" with a +inf pad every {BUCKET}" if order == "Morton" else ""
+        lines.append(f"knn_scan_kernel at D={d}, {nq} rows over {p.shape[0]} points in {order} "
+                     f"order{pad}, k={k}: bit-equal to knn_scan_plain; S={rec['S']} chunks, "
+                     f"{rec['ms']:.4f} ms through the "
+                     f"wrapper, {rec['graph_ms']:.4f} a launch in a CUDA graph; "
+                     f"{rec['culled_frac']:.4f} of the (warp, stage) pairs culled; bound "
+                     f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}): operations "
+                     f"{rec['ops_ms']:.4f} ms (3 D flops a pair), bytes {rec['bytes_ms']:.4f} ms, "
+                     f"what the inputs need {rec['need_ms']:.4f} ms ({rec['need_by']}); library "
+                     f"(cdist squared + topk, TF32 off) {rec['library_ms']:.4f} ms")
+        del p, q
+    torch.cuda.empty_cache()  # the 2^24-row tensors' blocks back to the card for later phases
     return lines
+
+
+KNN_WIDE_RECS = {}  # phase 3c's D != 3 records by (D, rows, points, order)
 
 
 DFS_LAUNCHES = {}  # phase -> morton_dfs.launches over its driven window (6, 12)
@@ -5753,7 +5826,12 @@ def print_record(kind, smi, launches, merges, max_err, main_rec, sparse):
         **({"fallback_batch_ms": KNN_RECS["fallback"]["ms"],
             "fallback_batch_culled_frac": KNN_RECS["fallback"]["culled_frac"],
             "fallback_batch_need_ms": KNN_RECS["fallback"]["need_ms"]}
-           if "fallback" in KNN_RECS else {})})
+           if "fallback" in KNN_RECS else {}),
+        # D != 3 (knn_scan_kernel): phase 3c's shapes, keyed D/rows/points/order
+        "wide": {f"D{d}/Q{nq}/N{n}/{order}": {
+            key: r[key] for key in ("graph_ms", "ms", "bound_ms", "bound_by", "need_ms",
+                                    "culled_frac", "library_ms")}
+            for (d, nq, n, order), r in KNN_WIDE_RECS.items()}})
     rec = FRONTIER_RECS["main"]  # the main tiled batch's collect descent
     record["kernels"].append({
         "name": "frontier", "route": "cuda", "source": "kdtree_tpu_torch/csrc/frontier.cu",

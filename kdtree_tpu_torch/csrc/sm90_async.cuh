@@ -1,10 +1,10 @@
 // Asynchronous global -> shared copies and shared-memory barriers (sm_90).
 //
 // Thin inline-PTX wrappers, one instruction each, used by the kernels here:
-// mbarrier init / arrive / wait, the 1-D bulk copy that completes on an
-// mbarrier's transaction count, 4- and 16-byte cp.async with commit/wait groups,
-// and a relaxed device-scope load for values other blocks lower with
-// atomicMin.
+// mbarrier init / arrive / wait, the async-proxy fence, the 1-D bulk copy
+// that completes on an mbarrier's transaction count, 4- and 16-byte cp.async
+// with commit/wait groups, and a relaxed device-scope load for values other
+// blocks lower with atomicMin.
 #pragma once
 
 #include <stdint.h>
@@ -24,6 +24,12 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
 // Makes the mbarrier inits visible to the async proxy (the bulk copies).
 __device__ __forceinline__ void fence_mbar_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Orders the thread's earlier shared-memory accesses before later ones of
+// the async proxy (a bulk copy into memory the thread has just read).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {

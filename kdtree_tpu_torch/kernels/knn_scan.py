@@ -15,21 +15,25 @@ kernel of ``csrc/knn_scan.cu`` (built by
 which keeps the distances on chip: S blocks a query tile each take the k
 best of an ascending index range of the points, and the merge kernel
 (:func:`kdtree_tpu_torch.kernels.scan_knn.merge_partials`) joins the S
-lists; it raises rather than fall back. At D = 3 a block is 8 query rows a
-query warp (one warp for an 8-row batch), a first kernel writes the boxes
-of the chunks' stages of 1,024 points, and a stage is
-copied in only when its box does not exclude some query of the block, and
-computed by a warp only when it does not exclude some query of the warp,
-against thresholds the chunks share (the source's note; the plain mirror
-is :func:`tile_boxes` with :func:`tile_lb_plain`, and the per-warp rule's
+lists; it raises rather than fall back. At every D a block is 8 query rows
+a query warp (one warp for an 8-row batch) and a producer warp that copies
+the points in stages (1,024 rows at D = 3, about 8 KB of rows elsewhere,
+:func:`stage_rows`) by bulk copies into a ring. When the call culls
+(always at D = 3, else past one tile of queries), a first kernel writes
+the boxes of the chunks' stages, and a stage is copied in only when its
+box does not exclude some query of the block, and computed by a warp only
+when it does not exclude some query of the warp, against thresholds the
+chunks share (the source's note; the plain mirror is :func:`tile_boxes`
+with :func:`tile_lb_plain`, and the per-warp rule's
 :func:`knn_scan_culled_partials_plain`). On a CPU tensor it runs the plain
 version, :func:`knn_scan_plain`: the distance block of each point tile,
 then packed int64 (d2, index) keys and ``torch.topk``. The two agree bit
 for bit, and neither answer depends on the tiling or the cull. On a card
-the built kernel says how many query rows a block takes and how large its
-box table is (``knn_scan_tile``, ``knn_scan_box_stages``); ``TILE``,
-``WARPS3``, ``STAGE`` and :func:`tile_rows` mirror that layout for the
-CPU tests.
+the built kernel says how many query rows a block takes, how many rows a
+stage holds and how large its box table is (``knn_scan_tile``,
+``knn_scan_stage``, ``knn_scan_box_floats``); ``TILE``, ``WARPS``,
+``STAGE``, :func:`tile_rows` and :func:`stage_rows` mirror that layout for
+the CPU tests.
 
 ``knn_scan.launches`` counts the calls that launched the kernel (a plain
 integer), so a run can show that its main path went through it.
@@ -51,12 +55,13 @@ from kdtree_tpu_torch.kernels.pair_d2 import pair_d2_plain
 from kdtree_tpu_torch.kernels.scan_knn import _check, _sm_count, merge_partials
 from kdtree_tpu_torch.ops._arith import sq_dist_to_box
 
-# The kernel's layout as the CPU mirrors take it (csrc/knn_scan.cu's kTQ,
-# kRQ, kWarps3 and kStage3; on a card the build's own values are used)
-TILE = 64  # query rows a block at D != 3
+# The kernel's layout as the CPU mirrors take it (csrc/knn_scan.cu's kRQ,
+# kWarps, kStage3 and kStageBytes; on a card the build's own values are used)
 WARP_ROWS = 8  # query rows a warp
-WARPS3 = 7  # query warps a block at most at D = 3
-STAGE = 1024  # points a stage of the D = 3 kernel: its cull's tiles
+WARPS = 7  # query warps a block at most
+TILE = WARPS * WARP_ROWS  # query rows a block at most
+STAGE = 1024  # points a stage at D = 3: its cull's tiles
+STAGE_BYTES = 8192  # a stage's rows at other D, about (whole tiles of 128 rows, one at least)
 SMEM_K = 64  # kSmemK there: longer k-lists live in the partial buffers in device memory
 MIN_CHUNK = 512  # the least points a chunk (four of the kernel's 128-point tiles)
 MAX_SPLITS = 65535  # the grid's y extent
@@ -110,15 +115,22 @@ def knn_scan_plain(points: torch.Tensor, queries: torch.Tensor, k: int,
 
 def tile_rows(Q: int, d: int) -> int:
     """The query rows a block takes for Q queries of d axes (the partials'
-    third extent), as the kernel's ``knn_scan_tile`` picks them: at d = 3,
-    8 a query warp, the ceil(Q / 8) warps shared
-    out evenly over as few tiles of at most WARPS3 warps as hold them, so a
-    small batch computes no rows past the next 8; at other d, TILE."""
-    if d != 3:
-        return TILE
+    third extent), as the kernel's ``knn_scan_tile`` picks them, at every d:
+    8 a query warp, the ceil(Q / 8) warps shared out evenly over as few
+    tiles of at most WARPS warps as hold them, so a small batch computes no
+    rows past the next 8."""
     warps = -(-max(Q, 1) // WARP_ROWS)
-    tiles = -(-warps // WARPS3)
+    tiles = -(-warps // WARPS)
     return WARP_ROWS * -(-warps // tiles)
+
+
+def stage_rows(d: int) -> int:
+    """Rows a stage of the kernel at d axes (``knn_scan_stage``): STAGE at
+    d = 3, else about STAGE_BYTES of rows in whole tiles of 128, one at
+    least."""
+    if d == 3:
+        return STAGE
+    return max(128, STAGE_BYTES // (4 * d) // 128 * 128)
 
 
 def plan_splits(Q: int, n: int, k: int, slots: int, tq: int = TILE) -> int:
@@ -161,7 +173,7 @@ def knn_scan_partials_plain(points: torch.Tensor, queries: torch.Tensor, k: int,
 
 def tile_boxes(rows: torch.Tensor, stage: int = STAGE) -> Tuple[torch.Tensor, torch.Tensor]:
     """(lo, hi) f32[G, D]: the box of each run of ``stage`` consecutive rows
-    (the last may be shorter), as the D = 3 kernel's box table holds it:
+    (the last may be shorter), as the kernel's box table holds it:
     per axis lo is the min over the rows and hi the max over the rows whose
     first coordinate is not +inf (pad and masked rows, whose d2 is +inf),
     NaN passed over; a run of such rows alone has hi = -inf, which bounds
@@ -193,7 +205,7 @@ def _bits(d2: torch.Tensor) -> torch.Tensor:
 def knn_scan_culled_partials_plain(points: torch.Tensor, queries: torch.Tensor, k: int,
                                    S: int, tq: int = TILE, stage: int = STAGE
                                    ) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
-    """The D = 3 kernel's cull in plain torch, at any D: (pd, pi, culled,
+    """The kernel's cull in plain torch, at any D: (pd, pi, culled,
     examined) with pd/pi as :func:`knn_scan_partials_plain`'s. Query rows
     go in warps of 8 (rows past Q repeat the last query); every chunk's
     stages of ``stage`` points run in turn, stage g of every chunk before
@@ -202,10 +214,15 @@ def knn_scan_culled_partials_plain(points: torch.Tensor, queries: torch.Tensor, 
     strictly above its threshold: the smaller of its chunk's own k-th and
     the query's shared word, which every full chunk list lowers to its
     k-th's bits after each stage; survivors above the threshold are
-    dropped as the kernel's compare drops them. (The kernel's producer
-    skips a stage for the whole block only where every warp would.) Lists
-    short of k are padded with (+inf, -1) and ids at +inf are -1.
-    ``culled`` and ``examined`` count (warp, stage) pairs."""
+    dropped as the kernel's compare drops them. At a warp's first stage
+    in a chunk, up to k = 32 and at D != 3, each query's threshold and
+    shared word are first lowered to the k-th smallest of the 32 lanes'
+    least distance bits over the stage's first 128 points (lane l's:
+    points l, l + 32, l + 64, l + 96), as the kernel's ``first_bounds``
+    does. (The kernel's producer skips a stage for the whole block only
+    where every warp would.) Lists short of k are padded with (+inf, -1)
+    and ids at +inf are -1. ``culled`` and ``examined`` count (warp,
+    stage) pairs."""
     n = points.shape[0]
     Q = queries.shape[0]
     T = -(-Q // tq)
@@ -217,6 +234,7 @@ def knn_scan_culled_partials_plain(points: torch.Tensor, queries: torch.Tensor, 
     keys = torch.full((S, rows, k), none, dtype=torch.int64, device=dev)
     shared = torch.full((Q,), _NO_THRESHOLD, dtype=torch.int64, device=dev)
     bounds = chunk_bounds(n, S)
+    fresh = torch.ones((S, rows // WARP_ROWS), dtype=torch.bool, device=dev)
     culled = examined = 0
     for g in range(-(-max(hi - lo for lo, hi in bounds) // stage)):
         for s, (lo, hi) in enumerate(bounds):
@@ -237,6 +255,16 @@ def knn_scan_culled_partials_plain(points: torch.Tensor, queries: torch.Tensor, 
             sel = live.repeat_interleave(WARP_ROWS).nonzero().squeeze(1)
             idx = torch.arange(a, a + tile.shape[0], dtype=torch.int64, device=dev)
             d2 = pair_d2_plain(qp[sel], tile)
+            first = fresh[s][live].repeat_interleave(WARP_ROWS)
+            fresh[s] &= ~live
+            if k <= 32 and points.shape[1] != 3 and first.any():
+                head = torch.full((int(first.sum()), 128), _NO_THRESHOLD, dtype=torch.int64,
+                                  device=dev)
+                head[:, :min(128, tile.shape[0])] = _bits(d2[first, :128])
+                t0 = head.view(-1, 4, 32).amin(dim=1).sort(dim=1).values[:, k - 1]
+                rf = sel[first]
+                thr[rf] = torch.minimum(thr[rf], t0)
+                shared = shared.scatter_reduce(0, row_q[rf], t0, "amin")
             new = _keys(d2, idx[None, :].expand_as(d2))
             new = torch.where(_bits(d2) <= thr[sel, None], new, none)
             keys[s, sel] = _smallest(torch.cat([keys[s, sel], new], 1), k)
@@ -260,9 +288,11 @@ def _lib():
     lib.knn_scan_slots.restype = ctypes.c_int
     lib.knn_scan_tile.argtypes = [ctypes.c_int, ctypes.c_longlong]
     lib.knn_scan_tile.restype = ctypes.c_int
+    lib.knn_scan_stage.argtypes = [ctypes.c_int]
     lib.knn_scan_stage.restype = ctypes.c_int
-    lib.knn_scan_box_stages.argtypes = [ctypes.c_longlong, ctypes.c_int]
-    lib.knn_scan_box_stages.restype = ctypes.c_int
+    lib.knn_scan_box_floats.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+                                        ctypes.c_int]
+    lib.knn_scan_box_floats.restype = ctypes.c_longlong
     return lib
 
 
@@ -272,13 +302,15 @@ def _slots(index: int, d: int, k: int, tq: int) -> int:
     with torch.cuda.device(index):
         per_sm = _lib().knn_scan_slots(d, k, tq)
     if per_sm < 0:
-        raise RuntimeError(f"knn_scan occupancy query failed with CUDA error {-per_sm}")
+        raise RuntimeError(f"knn_scan occupancy query failed with CUDA error {-per_sm} "
+                           f"(D = {d}: the kernel takes at most 256 axes, fewer where a "
+                           f"stage does not fit shared memory)")
     return max(1, per_sm) * _sm_count(index)
 
 
-def kernel_stage() -> int:
-    """Points a stage of the built D = 3 kernel: its cull's tiles."""
-    return _lib().knn_scan_stage()
+def kernel_stage(d: int) -> int:
+    """Points a stage of the built kernel at d axes: its cull's tiles."""
+    return _lib().knn_scan_stage(d)
 
 
 def plan(index: int, Q: int, n: int, d: int, k: int) -> Tuple[int, int]:
@@ -297,8 +329,9 @@ def knn_scan(points: torch.Tensor, queries: torch.Tensor, k: int, tile: int | No
     tensors launch the fused kernel over :func:`plan_splits`'s point
     chunks; CPU tensors run :func:`knn_scan_plain`, whose point tiles
     ``tile`` sets. Neither changes the answer. ``counts``, an int64[2]
-    CUDA tensor, gets the D = 3 kernel's culled and examined (warp, stage)
-    pairs added to it (a measurement; the answer is the same)."""
+    CUDA tensor, gets the kernel's culled and examined (warp, stage) pairs
+    added to it (a measurement; the answer is the same; a call that does
+    not cull counts every pair examined)."""
     dev = points.device
     if points.dim() != 2 or queries.dim() != 2:
         raise ValueError(f"knn_scan takes [N, D] points and [Q, D] queries, got shapes "
@@ -332,16 +365,14 @@ def knn_scan(points: torch.Tensor, queries: torch.Tensor, k: int, tile: int | No
     T = -(-Q // tq)
     pd = torch.empty((T, S, tq, k), dtype=torch.float32, device=dev)
     pi = torch.empty((T, S, tq, k), dtype=torch.int32, device=dev)
-    # at D = 3 the chunks' shared thresholds start all ones (no k-th yet),
-    # and the stages' boxes go to a table
-    gthr = boxes = None
-    if d == 3:
-        gthr = torch.full((T * tq,), -1, dtype=torch.int32, device=dev)
-        boxes = torch.empty((S, lib.knn_scan_box_stages(n, S), 8), dtype=torch.float32,
-                            device=dev)
+    # the chunks' shared thresholds start all ones (no k-th yet); a call
+    # that culls writes the stages' boxes to a table
+    gthr = torch.full((T * tq,), -1, dtype=torch.int32, device=dev)
+    nbox = lib.knn_scan_box_floats(d, Q, n, S)
+    boxes = torch.empty((nbox,), dtype=torch.float32, device=dev) if nbox else None
     with torch.cuda.device(dev):  # the launch goes to the current device
         err = lib.knn_scan_launch(queries.data_ptr(), points.data_ptr(), pd.data_ptr(),
-                                  pi.data_ptr(), 0 if gthr is None else gthr.data_ptr(),
+                                  pi.data_ptr(), gthr.data_ptr(),
                                   0 if boxes is None else boxes.data_ptr(),
                                   0 if counts is None else counts.data_ptr(), Q, n, d, k, S,
                                   torch.cuda.current_stream(dev).cuda_stream)

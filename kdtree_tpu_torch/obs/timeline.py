@@ -36,10 +36,16 @@ Per-kernel time (``device.modules``): each kernel name's union of slices
 and its launch count, for every kernel of the window (the reference keeps
 its 32 busiest modules; a CUDA window holds a few dozen torch kernels
 besides the port's own, and a short one such as the merge must still be
-named). ``device.ranges``: each ``gpu_user_annotation``
-name's device time, the union of the exec slices inside its windows.
+named). ``device.ranges``: each ``record_function`` range's device time,
+the union of the exec slices launched inside it: a slice's launch call
+(``cuda_runtime`` / ``cuda_driver``, joined by its ``correlation`` id) lies
+inside an instance of the range on the launching thread. Kineto's
+``gpu_user_annotation`` windows (first to last slice of an instance) are
+not used: on an H100 they were seen to overlap the next range's windows
+and count one slice in two ranges. A CPU capture has no ranges.
 
-Correlation is by TIME OVERLAP within the capture, as in the reference.
+Correlation of spans and dispatches is by TIME OVERLAP within the
+capture, as in the reference.
 """
 
 from __future__ import annotations
@@ -59,6 +65,8 @@ _SPAN_NAME_RE = re.compile(r"^[a-z][a-z0-9_+-]*(\.[a-z0-9_+-]+)+$")
 
 # what the card executed, by Kineto category
 EXEC_CATEGORIES = frozenset({"kernel", "gpu_memcpy", "gpu_memset"})
+# the host's launch calls: a slice's ``correlation`` id names its own
+_LAUNCH_CATEGORIES = frozenset({"cuda_runtime", "cuda_driver"})
 _COMPILE_NAMES = frozenset({"kernel.build"})
 # driver-stage annotations inside dispatch windows (drive_batches): the
 # blocking overflow-flag fetches whose per-window overlap decomposes host
@@ -160,7 +168,8 @@ class _Classified:
         self.spans: List[dict] = []
         self.dispatches: List[dict] = []
         self.compiles: List[dict] = []
-        self.annotations: List[dict] = []
+        self.ranges: List[dict] = []  # every user_annotation: the host ranges
+        self.launches: Dict[object, dict] = {}  # correlation id -> launch call
         cpu_ops: List[dict] = []
         for e in trace.get("traceEvents", []):
             if e.get("ph") != "X" or "ts" not in e:
@@ -170,14 +179,17 @@ class _Classified:
                 if kind == "cuda":
                     self.exec_slices.append(e)
                 continue
-            if cat == "gpu_user_annotation":
-                self.annotations.append(e)
+            if cat in _LAUNCH_CATEGORIES:
+                corr = (e.get("args") or {}).get("correlation")
+                if corr is not None:
+                    self.launches[corr] = e
                 continue
             if cat == "cpu_op":
                 cpu_ops.append(e)
                 continue
             if cat != "user_annotation":
                 continue
+            self.ranges.append(e)
             name = e.get("name", "")
             if name in _COMPILE_NAMES:
                 self.compiles.append(e)
@@ -192,6 +204,45 @@ class _Classified:
             self.exec_slices = _top_level(cpu_ops)
         self.dispatches.sort(key=lambda e: e["ts"])
         self.spans.sort(key=lambda e: e["ts"])
+
+
+def _range_device_time(cls: _Classified) -> Dict[str, dict]:
+    """Each host range name's device time: the union of the exec slices
+    whose launch call lies inside one of its instances on the launching
+    thread (ranges may nest: a slice counts for each enclosing name), and
+    ``count``, the instances that launched a slice of the window."""
+    # per thread, (ts, order, i): a range's open (0) before a launch (1)
+    # before a range's close (2) at equal times
+    marks: Dict[object, List[Tuple[float, int, int]]] = {}
+    for i, e in enumerate(cls.ranges):
+        s, t = _iv(e)
+        marks.setdefault((e.get("pid"), e.get("tid")), []).extend(((s, 0, i), (t, 2, i)))
+    for j, e in enumerate(cls.exec_slices):
+        launch = cls.launches.get((e.get("args") or {}).get("correlation"))
+        if launch is not None:
+            marks.setdefault((launch.get("pid"), launch.get("tid")), []).append(
+                (float(launch["ts"]), 1, j))
+    slices: Dict[str, List[Tuple[float, float]]] = {}
+    used = set()
+    for evs in marks.values():
+        active: Dict[int, str] = {}
+        for _, order, i in sorted(evs):
+            if order == 0:
+                active[i] = cls.ranges[i].get("name", "")
+            elif order == 2:
+                active.pop(i, None)
+            else:
+                used.update(active)
+                for name in set(active.values()):
+                    slices.setdefault(name, []).append(_iv(cls.exec_slices[i]))
+    count: Dict[str, int] = {}
+    for r in used:
+        name = cls.ranges[r].get("name", "")
+        count[name] = count.get(name, 0) + 1
+    return {
+        name: {"busy_us": sum(t - s for s, t in _merge(ivs)), "count": count[name]}
+        for name, ivs in sorted(slices.items())
+    }
 
 
 def parse_timeline(
@@ -237,17 +288,7 @@ def parse_timeline(
         key=lambda kv: -kv[1],
     )
 
-    # device time of each record_function range: the exec slices inside
-    # its gpu_user_annotation windows (never the annotation itself)
-    ann: Dict[str, List[Tuple[float, float]]] = {}
-    for e in cls.annotations:
-        ann.setdefault(e.get("name", ""), []).append(_iv(e))
-    ranges = {
-        name: {"busy_us": sum(_overlap(merged, merged_ends, s, t)
-                              for s, t in _merge(ivs)),
-               "count": len(ivs)}
-        for name, ivs in sorted(ann.items())
-    }
+    ranges = _range_device_time(cls) if kind == "cuda" else {}
 
     # host spans: per-instance overlap, aggregated per name
     span_agg: Dict[str, dict] = {}

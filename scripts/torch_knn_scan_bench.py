@@ -13,15 +13,23 @@ checkout's ``chip_smoke.py`` ones (``cuda_ms``: ms a call through the
 wrapper; ``graph_ms``: a launch in a CUDA graph; ``morton_sorted``). The
 shapes, k = 16, uniform points over [-100, 100)^D:
 
-- 8, 64, 1,000 and 1,024 rows over 2^24 x 3-D, in random order and in the
-  port's Morton order (phase 3c's timed shapes);
+- 8, 64, 1,000 and 1,024 rows over 2^24 x 3-D, in random order, in the
+  port's Morton order (phase 3c's timed shapes) and as bucket storage in
+  Morton order with a +inf pad every 256 rows (the tree's storage that
+  phase 4's fallback batch scans);
 - at D = 8, 32 and 47, 1,000 rows over 20,011 points (phase 3c's) and 256
-  rows over 2^19 points (phase 9a's oracle sample).
+  rows over 2^19 points (phase 9a's oracle sample), in random order;
+- the CLI's one-shot run: 10 rows over 2^24 points at D = 8 and 16, k = 1;
+- 8, 64 and 1,000 rows over 2^19 x 8-D bucket storage in Morton order
+  with a +inf pad every 256 rows (``morton_sorted(rows, 256)``), and the
+  same rows in random order.
 
 Each tree checks itself bit for bit against its ``knn_scan_plain`` first
-(64 rows over 2^24 x 3-D in both orders, and every shape at D != 3). The
-script prints one JSON line per timed run, the card's name and power
-limit, and, with ``--out``, writes them to a file.
+(64 rows over 2^24 x 3-D in both orders, and every shape at D != 3). Each
+shape also records the share of (warp, stage) pairs the kernel's cull
+skipped (``culled``; None where the call examined none). The script
+prints one JSON line per timed run, the card's name and power limit, and,
+with ``--out``, writes them to a file.
 """
 
 from __future__ import annotations
@@ -40,7 +48,11 @@ K = 16
 SEED = 11
 ROWS3 = (8, 64, 1000, 1024)
 N3 = 1 << 24
-WIDE = [(d, n, q) for d in (8, 32, 47) for n, q in ((20011, 1000), (1 << 19, 256))]
+# D != 3: (D, points, rows, k, order)
+WIDE = ([(d, n, q, K, "random") for d in (8, 32, 47) for n, q in ((20011, 1000), (1 << 19, 256))]
+        + [(d, 1 << 24, 10, 1, "random") for d in (8, 16)]
+        + [(8, 1 << 19, q, K, order) for q in (8, 64, 1000) for order in ("morton", "random")])
+BUCKET = 256
 
 
 def _smoke():
@@ -68,17 +80,23 @@ def worker(label, build_only):
     def rows(n, d):
         return torch.from_numpy(rng.uniform(-100, 100, (n, d)).astype(np.float32)).to(dev)
 
-    def check(what, p, q):
-        got, want = ks.knn_scan(p, q, K), ks.knn_scan_plain(p, q, K)
+    def check(what, p, q, k=K):
+        got, want = ks.knn_scan(p, q, k), ks.knn_scan_plain(p, q, k)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
             f"{label}: knn_scan != knn_scan_plain at {what}"
 
-    def timed(p, q):
-        return {"ms": smoke.cuda_ms(lambda: ks.knn_scan(p, q, K), 5),
-                "graph_ms": smoke.graph_ms(lambda: ks.knn_scan(p, q, K), 3, 3)}
+    def timed(p, q, k=K):
+        rec = {"ms": smoke.cuda_ms(lambda: ks.knn_scan(p, q, k), 5),
+               "graph_ms": smoke.graph_ms(lambda: ks.knn_scan(p, q, k), 3, 3)}
+        counts = torch.zeros(2, dtype=torch.int64, device=dev)
+        ks.knn_scan(p, q, k, counts=counts)
+        culled, seen = counts.tolist()
+        rec["culled"] = culled / seen if seen else None
+        return rec
 
     pts = rows(N3, 3)
-    orders = (("random", pts), ("morton", smoke.morton_sorted(pts)))
+    orders = (("random", pts), ("morton", smoke.morton_sorted(pts)),
+              ("buckets", smoke.morton_sorted(pts, BUCKET)))
     queries = {q: rows(q, 3) for q in ROWS3}
     shapes = {}
     for name, p in orders:
@@ -86,10 +104,13 @@ def worker(label, build_only):
         for q in ROWS3:
             shapes[f"D=3 N={N3} Q={q} {name}"] = timed(p, queries[q])
     del pts, orders
-    for d, n, q in WIDE:
+    for d, n, q, k, order in WIDE:
         p, qs = rows(n, d), rows(q, d)
-        check(f"D={d} N={n} Q={q}", p, qs)
-        shapes[f"D={d} N={n} Q={q} random"] = timed(p, qs)
+        if order == "morton":
+            p = smoke.morton_sorted(p, BUCKET)
+        check(f"D={d} N={n} Q={q} k={k} {order}", p, qs, k)
+        shapes[f"D={d} N={n} Q={q} k={k} {order}"] = timed(p, qs, k)
+        del p, qs
     print("RESULT " + json.dumps({"label": label, "shapes": shapes}), flush=True)
 
 

@@ -1,5 +1,5 @@
-"""The D = 3 fused k-NN kernel's cull and small-batch plan, in plain torch
-(``kernels/knn_scan.py``; the kernel itself runs only on the card,
+"""The fused k-NN kernel's cull and small-batch plan, in plain torch, at
+every D (``kernels/knn_scan.py``; the kernel itself runs only on the card,
 ``chip_smoke.py`` phase 3c).
 
 The cull skips a stage of rows for a warp of queries when each query's
@@ -10,7 +10,7 @@ port's arithmetic, has bits at or above its stage's bound (a property held
 here over D = 1-40, tie lattices, +inf rows and all-+inf stages), and
 because the chunk lists built that way and merged still equal the whole
 answer, which equals the JAX package's ``_knn_scan`` on Morton-ordered rows
-with +inf pads and on random rows."""
+with +inf pads and on random rows, at D = 1-47."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -108,31 +108,42 @@ def _morton_padded(n, d, seed, pad_every=256):
     return torch.cat([x.view(g, per, d), torch.full((g, 1, d), INF)], 1).view(-1, d)
 
 
-def _rows(kind, seed):
+def _rows(kind, seed, d=3):
     if kind == "morton":
-        return _morton_padded(2000, 3, seed)
+        return _morton_padded(2000, d, seed)
     rng = np.random.default_rng(seed)
-    return torch.from_numpy(rng.uniform(-100, 100, (2000, 3)).astype(np.float32))
+    return torch.from_numpy(rng.uniform(-100, 100, (2000, d)).astype(np.float32))
+
+
+# (D, Q, S, stage): D = 3's schedules (their ids as before), then the
+# kernel's other widths (the FMA chain to 32 axes, windows of 32 above),
+# each at a stage of ks.stage_rows(D) rows and at a small one
+CULL_CASES = ([pytest.param(3, *c, id="-".join(map(str, c)))
+               for c in ((1, 5, 64), (8, 3, 128), (37, 7, 32), (64, 1, 512))]
+              + [pytest.param(d, *c, id=f"D{d}-" + "-".join(map(str, c)))
+                 for d in (1, 2, 8, 16, 32, 33, 47)
+                 for c in ((8, 3, ks.stage_rows(d)), (37, 7, 32))])
 
 
 @pytest.mark.parametrize("kind", ["morton", "random"])
 @pytest.mark.parametrize("k", [1, 16, 100])
-@pytest.mark.parametrize("Q,S,stage", [(1, 5, 64), (8, 3, 128), (37, 7, 32), (64, 1, 512)])
-def test_culled_chunk_lists_merge_to_the_reference(kind, k, Q, S, stage):
+@pytest.mark.parametrize("d,Q,S,stage", CULL_CASES)
+def test_culled_chunk_lists_merge_to_the_reference(kind, k, d, Q, S, stage):
     """The kernel's schedule and cull (shared thresholds, strict skips,
     short lists padded with (+inf, -1)), merged by the plain merge and the
     merge kernel's mirror, equal the whole answer, and that equals the JAX
-    package's exact k-NN, ties and +inf pads included."""
-    points = _rows(kind, seed=Q * 7 + k)
-    rng = np.random.default_rng(Q + S)
-    queries = torch.from_numpy(rng.uniform(-100, 100, (Q, 3)).astype(np.float32))
+    package's exact k-NN, ties and +inf pads included, at every D: on bucket
+    storage in Morton order with +inf pads and on random rows."""
+    points = _rows(kind, seed=Q * 7 + k + d, d=d)
+    rng = np.random.default_rng(Q + S + d)
+    queries = torch.from_numpy(rng.uniform(-100, 100, (Q, d)).astype(np.float32))
     queries[0] = points[3]  # a query on a row
     whole = ks.knn_scan_plain(points, queries, k)
     jd, ji = jbf.knn(jnp.asarray(points.numpy()), jnp.asarray(queries.numpy()), k=k,
                      method="exact")
     np.testing.assert_array_equal(np.asarray(jd), whole[0].numpy())
     np.testing.assert_array_equal(np.asarray(ji), whole[1].numpy())
-    tq = ks.tile_rows(Q, 3)
+    tq = ks.tile_rows(Q, d)
     pd, pi, culled, examined = ks.knn_scan_culled_partials_plain(points, queries, k, S, tq,
                                                                  stage)
     assert pd.shape == (-(-Q // tq), S, tq, k)
@@ -142,10 +153,30 @@ def test_culled_chunk_lists_merge_to_the_reference(kind, k, Q, S, stage):
     sd, si, _, _ = ttq.merge_select(pd, pi, 1024)
     assert torch.equal(sd, md) and torch.equal(si, mi)
     assert (pi[torch.isinf(pd)] == -1).all()
-    if kind == "random" or Q > 8:
+    if kind == "random" or not (Q <= 8 and d == 3 or stage == 32):
         return
-    # a few stages of Morton-ordered rows hold every query's neighbours
+    # a few stages of Morton-ordered rows hold every query's neighbours (D =
+    # 3), and at every D chunks of about 10 stages end in stages of +inf pads
     assert culled > 0 and culled <= examined
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 8, 16, 32, 33, 47])
+def test_the_cull_skips_stages_once_queries_find_their_rows(d):
+    """At every D, 8 queries on the first finite rows of Morton-ordered
+    bucket storage find themselves (d2 = 0, k = 1) in the first stage, and
+    the warp then skips every stage whose box all 8 lie outside; the merged
+    lists stay the whole answer."""
+    points = _morton_padded(2000, d, seed=d)
+    finite = torch.isfinite(points[:, 0]).nonzero().squeeze(1)
+    queries = points[finite[:8]].clone()
+    whole = ks.knn_scan_plain(points, queries, 1)
+    assert (whole[0] == 0).all()
+    pd, pi, culled, examined = ks.knn_scan_culled_partials_plain(points, queries, 1, 3,
+                                                                 ks.tile_rows(8, d), 32)
+    md, mi = ttq.merge_partials(pd, pi)
+    assert torch.equal(md.reshape(-1, 1)[:8], whole[0])
+    assert torch.equal(mi.reshape(-1, 1)[:8], whole[1])
+    assert 0 < culled <= examined
 
 
 def test_culled_lists_on_masked_rows_pad_as_the_reference():
@@ -163,20 +194,21 @@ def test_culled_lists_on_masked_rows_pad_as_the_reference():
     assert (whole[1][:, 5:] == -1).all() and torch.isinf(whole[0][:, 5:]).all()
 
 
-@pytest.mark.parametrize("Q,want", [(1, 8), (7, 8), (8, 8), (9, 16), (33, 40), (56, 56),
-                                    (57, 32), (64, 32), (1000, 56), (1024, 56), (100000, 56)])
+@pytest.mark.parametrize("Q,want", [(1, 8), (7, 8), (8, 8), (9, 16), (10, 16), (33, 40),
+                                    (56, 56), (57, 32), (64, 32), (1000, 56), (1024, 56),
+                                    (100000, 56)])
 def test_small_batches_take_one_query_warp_per_8_rows(Q, want):
-    """At D = 3 a block takes query warps of 8 rows, at most 7, the
+    """At every D a block takes query warps of 8 rows, at most 7, the
     ceil(Q / 8) warps shared out evenly over as few tiles as hold them: an
-    8-row batch is one warp's 8 rows, not a 64-row tile, and 64 rows are
-    two tiles of 4 warps, not 7 and 1; other D keep the 64-row tile."""
+    8-row batch is one warp's 8 rows, not a 64-row tile, a 10-row batch
+    computes 16 rows, and 64 rows are two tiles of 4 warps, not 7 and 1."""
     tq = ks.tile_rows(Q, 3)
     assert tq == want
     warps = -(-Q // ks.WARP_ROWS)
-    assert tq % ks.WARP_ROWS == 0 and tq // ks.WARP_ROWS <= ks.WARPS3
-    assert -(-Q // tq) == -(-warps // ks.WARPS3)  # as few tiles as hold them
+    assert tq % ks.WARP_ROWS == 0 and tq // ks.WARP_ROWS <= ks.WARPS
+    assert -(-Q // tq) == -(-warps // ks.WARPS)  # as few tiles as hold them
     assert -(-Q // tq) * tq - Q < ks.WARP_ROWS * -(-Q // tq)  # under a warp a tile idle
-    assert ks.tile_rows(Q, 8) == ks.tile_rows(Q, 1) == ks.TILE
+    assert all(ks.tile_rows(Q, d) == want for d in (1, 2, 8, 16, 32, 33, 47, 64))
 
 
 @pytest.mark.parametrize("Q,n,k,slots", [(8, 1 << 24, 16, 660), (1, 1 << 24, 1, 660),

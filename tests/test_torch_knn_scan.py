@@ -75,7 +75,7 @@ def _equal(want, got):
 
 @pytest.mark.parametrize("kind", sorted(PROBLEMS))
 @pytest.mark.parametrize("k", [1, 5, 16, N])
-@pytest.mark.parametrize("d", [1, 3, 8, 33, 40])
+@pytest.mark.parametrize("d", [1, 2, 3, 8, 16, 32, 33, 40, 47])
 def test_plain_and_knn_match_the_reference(kind, k, d):
     p, q = PROBLEMS[kind](d, seed=d)
     want = _jax(p, q, k)

@@ -94,11 +94,11 @@ def _kineto_layout(iv: dict, annotations: bool = True) -> dict:
     the host ranges."""
     ev = [{"ph": "M", "name": "process_name", "pid": 0, "args": {"name": "python"}}]
     cats = {"Memcpy DtoH (Device -> Pinned)": "gpu_memcpy"}
-    for name, s, d, stream in iv["exec"]:
+    for i, (name, s, d, stream) in enumerate(iv["exec"]):
         ev.append(_X(name, s, d, 0, stream, cat=cats.get(name, "kernel"),
-                     args={"device": 0, "stream": stream}))
+                     args={"device": 0, "stream": stream, "correlation": i}))
         ev.append(_X("cudaLaunchKernel", max(s - 5.0, 0.0), 2.0, 100, 100,
-                     cat="cuda_runtime"))
+                     cat="cuda_runtime", args={"correlation": i}))
     for i, s in enumerate(iv["disp"]):
         ev.append(_X("tile.dispatch", s, 3.0, 100, 100, cat="user_annotation",
                      args={"batch": i}))
@@ -163,8 +163,9 @@ def test_both_layouts_give_the_same_report(seed):
 def test_gpu_user_annotation_adds_nothing(seed):
     """The device-side shadow of a host range spans the kernels launched
     inside it; counting it would count them twice (and fill the gaps
-    between them). Busy time is the same with and without the shadows,
-    and each range's device time is the exec slices inside it."""
+    between them). Busy time and each range's device time (the exec
+    slices launched inside it) are the same with and without the
+    shadows."""
     iv = _intervals(seed)
     with_ann = ttl.parse_timeline(_kineto_layout(iv, annotations=True))
     without = ttl.parse_timeline(_kineto_layout(iv, annotations=False))
@@ -172,7 +173,39 @@ def test_gpu_user_annotation_adds_nothing(seed):
     assert with_ann["device"]["n_slices"] == without["device"]["n_slices"]
     whole = with_ann["device"]["ranges"]["profile.query"]
     assert whole["busy_us"] == pytest.approx(with_ann["device"]["busy_us"], rel=1e-9)
-    assert without["device"]["ranges"] == {}
+    assert without["device"]["ranges"] == with_ann["device"]["ranges"]
+
+
+def test_ranges_take_the_slices_launched_inside_them():
+    """A range's device time is the union of the slices whose launch call
+    (joined by ``correlation``) lies inside it on the launching thread:
+    nested ranges both count a slice, another thread's range and a slice
+    launched outside every range count nothing, and overlapping
+    device-side windows (as Kineto wrote them on an H100) do not make two
+    sibling ranges share a slice."""
+    def kernel(c, ts, dur):
+        return [_X(f"k{c}", ts, dur, 0, 7, cat="kernel", args={"correlation": c}),
+                _X("cudaLaunchKernel", ts - 50.0, 1.0, 100, 100, cat="cuda_runtime",
+                   args={"correlation": c})]
+
+    tr = {"traceEvents": [
+        *kernel(1, 100.0, 10.0), *kernel(2, 110.0, 30.0), *kernel(3, 140.0, 5.0),
+        *kernel(4, 200.0, 7.0),
+        _X("verbs.fold", 0.0, 100.0, 100, 100, cat="user_annotation"),
+        _X("verbs.fold.test", 45.0, 10.0, 100, 100, cat="user_annotation"),
+        _X("verbs.fold.sort", 58.0, 40.0, 100, 100, cat="user_annotation"),
+        _X("verbs.fold.other", 0.0, 300.0, 100, 101, cat="user_annotation"),
+        # the shadows overlap: a later slice stretched the test's window
+        _X("verbs.fold.test", 100.0, 45.0, 0, 7, cat="gpu_user_annotation"),
+        _X("verbs.fold.sort", 110.0, 35.0, 0, 7, cat="gpu_user_annotation"),
+    ]}
+    dev = ttl.parse_timeline(tr)["device"]
+    assert dev["busy_us"] == 52.0
+    assert dev["ranges"] == {
+        "verbs.fold": {"busy_us": 45.0, "count": 1},
+        "verbs.fold.test": {"busy_us": 10.0, "count": 1},
+        "verbs.fold.sort": {"busy_us": 35.0, "count": 1},
+    }
 
 
 def test_busy_union_counts_overlapping_streams_once():
